@@ -1,0 +1,263 @@
+"""
+Packed-symmetric Rouse-Kalman likelihood: the CUDA kernel
+``csrc/kalman_sym.cu`` and its plain PyTorch version.
+
+Counterpart of `bild_tpu.ops.kalman_sym.msrouse_logL_pallas_sym` (the
+Pallas kernel ``kalman_sym.py::_kernel``). The covariance is symmetric, so
+only its ``PP = N(N+1)/2`` upper-triangle entries are carried, and the
+conjugation ``C -> B C B^T`` is one linear operator on that packed vector,
+
+    c' = P_s c + sig_s,     P_s[(a,b),(i,j)] = B_ai B_bj + [i<j] B_aj B_bi,
+
+built per state on the host in float64 (`build_sym_operators`). The update
+contraction ``R = U1 c`` gives ``Cw`` and ``w.C.w``; the rank-1 downdate is
+``c[(a,b)] -= Cw_a Cw_b / S``. The mean propagator carries an extra
+``w.B_s`` row, so the predicted measurement mean comes with it.
+
+On the H100 one block evaluates one profile. Each frame it streams its
+state's ``P_s`` rows from L2, which is what bounds it (see the source).
+Operators larger than `SYM_OPERATOR_BUDGET` would no longer stay in L2,
+and the dense kernel needs only ``n N^2`` operator scalars: above it the
+wrapper calls `ops.kalman_dense.msrouse_logL_dense`, as the reference
+falls back from its packed kernel to its dense one.
+
+`msrouse_logL_sym` launches the kernel for CUDA tensors and runs
+`msrouse_logL_sym_torch` for CPU tensors, with no fallback between them.
+Counters: ``msrouse_logL_sym.launches``, ``msrouse_logL_sym_torch.calls``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from . import _build
+from .kalman import LOG_2PI, in_range_mask
+from .kalman_dense import (SMEM_LIMIT, check_cuda_args, cind_tensor,
+                           msrouse_logL_dense)
+
+__all__ = ["SymOperators", "build_sym_operators", "msrouse_logL_sym",
+           "msrouse_logL_sym_torch", "sym_fits", "SYM_OPERATOR_BUDGET"]
+
+# Bytes of the stacked packed operators (n * PPp^2 scalars) above which the
+# dense kernel runs instead. Every block reads its state's P_s once per
+# frame; a third of the H100's 50 MB L2 keeps all states resident beside
+# the rest of the working set. In float32 this admits N <= 53 at n=2 and
+# N <= 48 at n=3 (the README model, N=20 at n=2, needs 373 KB).
+SYM_OPERATOR_BUDGET = 16 * 2**20
+
+
+def _pad(x, pad):
+    return -(-x // pad) * pad
+
+
+def sym_smem_bytes(N, d, q, itemsize) -> int:
+    """Shared memory of one block of the packed kernel."""
+    PP = N * (N + 1) // 2
+    return (2 * q * PP + q * (N + 1) + 2 * (N + 1) * d) * itemsize
+
+
+def sym_fits(n, N, d, q, itemsize) -> bool:
+    """Whether the packed kernel takes this shape (else: the dense one)."""
+    PPp = _pad(N * (N + 1) // 2, 8)
+    return (n * PPp * PPp * itemsize <= SYM_OPERATOR_BUDGET
+            and sym_smem_bytes(N, d, q, itemsize) <= SMEM_LIMIT)
+
+
+def build_sym_operators(Bs, Gs, Sigs, M0s, C0s, w, pad=8):
+    """
+    Host (numpy float64) construction of the packed-space operators, the
+    same arrays as `bild_tpu.ops.kalman_sym._build_sym_operators`:
+    ``(Pall (n*PPp, PPp), sig_pack (n, PPp), c0_pack (n, PPp),
+    U1 (S_OFF+pad, PPp), Ballw (n*N1p, N), Gsw (n, N1p, d),
+    M0w (n, N1p, d), PPp, (S_OFF, N1p))``. Zero padding is exact.
+    """
+    Bs, Gs, Sigs, M0s, C0s, w = (np.asarray(x, dtype=np.float64)
+                                 for x in (Bs, Gs, Sigs, M0s, C0s, w))
+    n, N, _ = Bs.shape
+    d = Gs.shape[2]
+    ia, ja = np.triu_indices(N)
+    PP = len(ia)
+    PPp = _pad(PP, pad)
+
+    off_diag = (ia != ja).astype(np.float64)
+    P_ops = np.zeros((n, PPp, PPp))
+    for s in range(n):
+        B = Bs[s]
+        P_ops[s, :PP, :PP] = (B[ia][:, None, ia] * B[ja][:, None, ja]
+                              + (B[ia][:, None, ja] * B[ja][:, None, ia])
+                              * off_diag[None, None, :])[:, 0, :]
+    Pall = P_ops.reshape(n * PPp, PPp)
+
+    sig_pack = np.zeros((n, PPp))
+    c0_pack = np.zeros((n, PPp))
+    sig_pack[:, :PP] = Sigs[:, ia, ja]
+    c0_pack[:, :PP] = C0s[:, ia, ja]
+
+    Gw = np.zeros((N, PPp))
+    for p in range(PP):
+        a, b = ia[p], ja[p]
+        Gw[a, p] += w[b]
+        if a != b:
+            Gw[b, p] += w[a]
+
+    S_OFF = _pad(N, pad)
+    U1 = np.zeros((S_OFF + pad, PPp))
+    U1[:N] = Gw
+    U1[S_OFF] = w @ Gw
+
+    N1p = _pad(N + 1, pad)
+    Ballw = np.zeros((n * N1p, N))
+    Gsw = np.zeros((n, N1p, d))
+    M0w = np.zeros((n, N1p, d))
+    for s in range(n):
+        Ballw[s * N1p:s * N1p + N] = Bs[s]
+        Ballw[s * N1p + N] = w @ Bs[s]
+        Gsw[s, :N] = Gs[s]
+        Gsw[s, N] = w @ Gs[s]
+        M0w[s, :N] = M0s[s]
+        M0w[s, N] = w @ M0s[s]
+    return (Pall, sig_pack, c0_pack, U1, Ballw, Gsw, M0w, PPp, (S_OFF, N1p))
+
+
+@dataclasses.dataclass(frozen=True)
+class SymOperators:
+    """The packed operators as tensors of one dtype on one device."""
+
+    Pall: torch.Tensor
+    sig: torch.Tensor
+    c0: torch.Tensor
+    U1: torch.Tensor
+    Ballw: torch.Tensor
+    Gsw: torch.Tensor
+    M0w: torch.Tensor
+    PPp: int
+    S_OFF: int
+    N1p: int
+
+    @staticmethod
+    def build(Bs, Gs, Sigs, M0s, C0s, w, *, device, dtype) -> "SymOperators":
+        """Build from model arrays (numpy or tensors; computed in float64)."""
+        host = [x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
+                for x in (Bs, Gs, Sigs, M0s, C0s, w)]
+        *arrs, PPp, (S_OFF, N1p) = build_sym_operators(*host)
+        return SymOperators(*(torch.as_tensor(a, dtype=dtype, device=device)
+                              for a in arrs), PPp=PPp, S_OFF=S_OFF, N1p=N1p)
+
+    @property
+    def n(self) -> int:
+        return self.sig.shape[0]
+
+    @property
+    def N(self) -> int:
+        return self.Ballw.shape[1]
+
+
+def msrouse_logL_sym_torch(ops: SymOperators, s2, Cind, profiles, ydata,
+                           valid):
+    """Plain PyTorch version of the packed kernel: the same algorithm on
+    the same operators, every profile of the batch in one tensor."""
+    msrouse_logL_sym_torch.calls += 1
+    n, N, PPp, S_OFF, N1p = ops.n, ops.N, ops.PPp, ops.S_OFF, ops.N1p
+    P, T = profiles.shape
+    q = s2.shape[0]
+    dev = ydata.device
+    Cind = torch.as_tensor(Cind, dtype=torch.long, device=dev)
+    prof = profiles.long().clamp(0, n - 1)
+    valid_host = valid.tolist()
+    ia, ja = (torch.as_tensor(i, device=dev) for i in np.triu_indices(N))
+
+    st0 = prof[:, 0]
+    c = ops.c0[st0][:, None, :].expand(P, q, PPp)          # (P, q, PPp)
+    M = ops.M0w[st0]                                       # (P, N1p, d)
+    acc = torch.zeros((P,), dtype=ydata.dtype, device=dev)
+
+    def update(c, M, y):
+        R1 = c @ ops.U1.T                                  # (P, q, U1Rows)
+        Sinv = 1.0 / (R1[..., S_OFF] + s2)                 # (P, q)
+        Cw = R1[..., :N]                                   # (P, q, N)
+        upd = torch.zeros_like(c)
+        upd[..., :len(ia)] = Cw[..., ia] * Cw[..., ja]
+        c = c - upd * Sinv[..., None]
+        xmm = y[None, :] - M[:, N, :]                      # (P, d)
+        K = Cw * Sinv[..., None]                           # (P, q, N)
+        M_top = M[:, :N] + K[:, Cind].transpose(1, 2) * xmm[:, None, :]
+        M = torch.cat([M_top, M[:, N:]], dim=1)
+        Sd = Sinv[:, Cind]                                 # (P, d)
+        ll = -0.5 * (xmm * xmm * Sd - torch.log(Sd) + LOG_2PI)
+        return c, M, ll.sum(dim=1)
+
+    if valid_host[0]:
+        c, M, ll = update(c, M, ydata[0])
+        acc = acc + ll
+
+    rows = torch.arange(P, device=dev)
+    for t in range(1, T):
+        st = prof[:, t]
+        Pc = (c @ ops.Pall.T).view(P, q, n, PPp)           # every state
+        c = Pc[rows, :, st] + ops.sig[st][:, None, :]
+        BM = torch.einsum("rk,pkd->prd", ops.Ballw, M[:, :N])
+        M = BM.view(P, n, N1p, -1)[rows, st] + ops.Gsw[st]
+        if valid_host[t]:
+            c, M, ll = update(c, M, ydata[t])
+            acc = acc + ll
+
+    return torch.where(in_range_mask(profiles, n), acc,
+                       torch.full_like(acc, math.nan))
+
+
+msrouse_logL_sym_torch.calls = 0
+
+
+def msrouse_logL_sym(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind, profiles, ydata,
+                     valid, ops: SymOperators | None = None):
+    """
+    ``(P,)`` log-likelihoods, arguments as `ops.kalman.msrouse_logL_batch`,
+    plus the prebuilt packed operators ``ops`` (built here if omitted;
+    models pass theirs, built once in float64). Shapes that `sym_fits`
+    refuses go to the dense kernel. CUDA tensors launch the kernel on the
+    current stream (no synchronization); CPU tensors run
+    `msrouse_logL_sym_torch`. Out-of-range states give NaN.
+    """
+    n, N, _ = Bs.shape
+    d = Gs.shape[2]
+    q = s2.shape[0]
+    if not sym_fits(n, N, d, q, ydata.element_size()):
+        return msrouse_logL_dense(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind,
+                                  profiles, ydata, valid)
+    if ops is None:
+        ops = SymOperators.build(Bs, Gs, Sigs, M0s, C0s, w,
+                                 device=ydata.device, dtype=ydata.dtype)
+    if ydata.device.type == "cpu":
+        return msrouse_logL_sym_torch(ops, s2, Cind, profiles, ydata, valid)
+    if ydata.device.type != "cuda":
+        raise ValueError(f"no kernel for device {ydata.device}")
+    sfx = check_cuda_args(dict(Pall=ops.Pall, sig=ops.sig, c0=ops.c0,
+                               U1=ops.U1, Ballw=ops.Ballw, Gsw=ops.Gsw,
+                               M0w=ops.M0w, s2=s2, ydata=ydata),
+                          profiles, ydata, valid)
+    if ops.n != n or ops.N != N or ops.Gsw.shape[2] != d \
+            or ydata.shape[1] != d:
+        raise ValueError("packed operators do not match the model shapes")
+    Cind = cind_tensor(Cind, d, ydata.device)
+    P, T = profiles.shape
+    out = torch.empty((P,), dtype=ydata.dtype, device=ydata.device)
+    if P == 0:
+        return out
+    lib, fn = _build.entry("kalman_sym", f"bild_kalman_sym_{sfx}", 13, 10)
+    rc = fn(ops.Pall.data_ptr(), ops.sig.data_ptr(), ops.c0.data_ptr(),
+            ops.U1.data_ptr(), ops.Ballw.data_ptr(), ops.Gsw.data_ptr(),
+            ops.M0w.data_ptr(), s2.data_ptr(), Cind.data_ptr(),
+            profiles.data_ptr(), ydata.data_ptr(), valid.data_ptr(),
+            out.data_ptr(), n, N, d, q, P, T, ops.PPp, ops.S_OFF, ops.N1p,
+            ydata.device.index or 0,
+            torch.cuda.current_stream(ydata.device).cuda_stream)
+    msrouse_logL_sym.launches += 1
+    _build.check(lib, rc, "kalman_sym launch")
+    return torch.where(in_range_mask(profiles, n), out,
+                       torch.full_like(out, math.nan))
+
+
+msrouse_logL_sym.launches = 0
