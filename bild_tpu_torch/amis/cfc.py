@@ -13,10 +13,15 @@ causally slot by slot.
   Python ints, exhaustive enumeration, and the uniform-proposal weights
   (numpy; a copy of the JAX package's host code).
 
-Every function takes an optional ``active`` bool mask over the slot axis
-(padded-k mode): inactive slots are sampled from an unconstrained uniform
-categorical (their interval fractions are exactly 0, so their values are
-never used) and contribute nothing to pmf or estimates.
+Every tensor function takes an optional ``active`` bool mask over the
+slot axis (padded-k mode): inactive slots are sampled from an unconstrained
+uniform categorical (their interval fractions are exactly 0, so their
+values are never used) and contribute nothing to pmf or estimates. Every
+tensor function also takes an optional leading lane axis (one lane per
+sampler of the lockstep runner), with a mask per lane; float reductions
+over a lane's own axes go through `lanes.lane_sum`; with ``exact=True``
+(the lockstep runner) a lane's numbers do not depend on how many lanes
+share the call.
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ import math
 
 import numpy as np
 import torch
+
+from ..lanes import lane_logsumexp, lane_sum, uniform
 
 __all__ = ["CFC", "SampleSpaceTooLarge", "cfc_sample", "cfc_logpmf",
            "cfc_estimate", "cfc_logp_from_marginals"]
@@ -40,131 +47,155 @@ class SampleSpaceTooLarge(ValueError):
     """`CFC.full_sample` would exceed its Nmax."""
 
 
-def _masked_lse(x, mask, dim, keepdim=False):
+def _masked_lse(x, mask, dim, keepdim=False, exact=False):
     """``log(sum(mask * exp(x)))`` along ``dim``; -inf where mask is empty."""
-    return torch.logsumexp(torch.where(mask, x, -math.inf), dim=dim,
-                           keepdim=keepdim)
+    return lane_logsumexp(torch.where(mask, x, -math.inf), dim=dim,
+                          keepdim=keepdim, exact=exact)
 
 
 def cfc_sample(generator, logp, transitions, N, active=None):
     """
-    Draw ``N`` state traces from CFC(logp): ``(N, k+1)`` int32.
+    Draw ``N`` state traces from CFC(logp): ``(N, k+1)`` int32, or ``(L,
+    N, k+1)`` for lane-batched ``logp (L, n, k+1)``, ``active (L, k+1)``.
 
     Slot 0 from ``logp[:, 0]``; each next slot from ``logp[:, i]``
     restricted to the states allowed after the previous one. Each draw is
     the argmax of the masked logits plus Gumbel noise, which handles -inf
-    logits exactly.
+    logits exactly. ``generator`` is a `torch.Generator` or a `LaneRNG`.
     """
-    n, k1 = logp.shape
-    u = torch.rand((k1, N, n), generator=generator, dtype=logp.dtype,
-                   device=logp.device)
+    if logp.dim() == 2:
+        return cfc_sample(generator, logp[None], transitions, N,
+                          None if active is None else active[None])[0]
+    L, n, k1 = logp.shape
+    u = uniform(generator, (L, k1, N, n), 0, logp.dtype, logp.device)
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(logp.dtype).tiny)))
-    th = torch.argmax(logp[:, 0][None, :] + gumbel[0], dim=-1)
+    # slot-major views, made once: the loop below indexes one slot each
+    lp_slot = logp.permute(2, 0, 1)[:, :, None, :]                 # (K, L, 1, n)
+    act_slot = None if active is None else active.T[:, :, None, None]
+    th = torch.argmax(lp_slot[0] + gumbel[:, 0], dim=-1)           # (L, N)
     out = [th]
     for i in range(1, k1):
-        logits = torch.where(transitions[th], logp[:, i][None, :], -math.inf)
-        if active is not None:
+        logits = torch.where(transitions[th], lp_slot[i], -math.inf)
+        if act_slot is not None:
             # padded slot: unconstrained uniform, keeps the chain alive
-            logits = torch.where(active[i], logits, torch.zeros_like(logits))
-        th = torch.argmax(logits + gumbel[i], dim=-1)
+            logits = torch.where(act_slot[i], logits, torch.zeros_like(logits))
+        th = torch.argmax(logits + gumbel[:, i], dim=-1)
         out.append(th)
-    return torch.stack(out, dim=1).to(torch.int32)
+    return torch.stack(out, dim=-1).to(torch.int32)
 
 
-def cfc_logpmf(logp, thetas, transitions, active=None):
+def cfc_logpmf(logp, thetas, transitions, active=None, exact=False):
     """
-    Log-pmf of traces ``thetas (N, k+1)`` under CFC(logp) -> ``(..., N)``
-    for weights ``logp (..., n, k+1)`` (a leading axis evaluates several
-    proposals on the same traces).
+    Log-pmf of traces under CFC(logp) -> ``(..., N)``: weights ``logp
+    (..., n, k+1)`` and traces ``thetas (..., N, k+1)`` broadcast with the
+    traces' ``N`` axis (a leading axis of ``logp`` evaluates several
+    proposals on the same traces; a lane axis pairs each lane's weights
+    with its traces). ``active`` is broadcastable to ``logp``'s slot shape
+    ``(..., k+1)``; ``exact`` makes the sums lane-exact (`lanes.lane_sum`).
     """
     th = thetas.long()
-    k1 = th.shape[1]
+    n, k1 = logp.shape[-2:]
     lpT = logp.transpose(-1, -2)                              # (..., k+1, n)
-    slot = torch.arange(k1, device=th.device)
-    logp_theta = lpT[..., slot[None, :], th]                  # (..., N, k+1)
-    if active is not None:
-        logp_theta = torch.where(active, logp_theta, torch.zeros_like(logp_theta))
-    total = logp_theta.sum(-1)
+    logp_theta = lpT[..., None, :, 0]                         # (..., 1, k+1)
+    for s in range(1, n):
+        logp_theta = torch.where(th == s, lpT[..., None, :, s], logp_theta)
+    act = None if active is None else active[..., None, :]
+    if act is not None:
+        logp_theta = torch.where(act, logp_theta, torch.zeros_like(logp_theta))
+    total = lane_sum(logp_theta, exact=exact)
     if k1 > 1:
         # normalization of each conditional slot: over the states allowed
         # after the previous slot's state
-        allowed = transitions[th[:, :-1]]                     # (N, k, n)
-        log_norm = _masked_lse(lpT[..., None, 1:, :], allowed, dim=-1)
-        if active is not None:
-            log_norm = torch.where(active[1:], log_norm, torch.zeros_like(log_norm))
-        total = total - log_norm.sum(-1)
-    return total - torch.logsumexp(logp[..., :, 0], dim=-1)[..., None]
+        allowed = transitions[th[..., :-1]]                   # (..., N, k, n)
+        log_norm = _masked_lse(lpT[..., None, 1:, :], allowed, dim=-1,
+                               exact=exact)
+        if act is not None:
+            log_norm = torch.where(act[..., 1:], log_norm,
+                                   torch.zeros_like(log_norm))
+        total = total - lane_sum(log_norm, exact=exact)
+    return total - lane_logsumexp(logp[..., :, 0], exact=exact)[..., None]
 
 
-def _solve_marginals(logf, logg, transitions, maxiter, precision, frozen=None):
+def _solve_marginals(logf, logg, transitions, maxiter, precision, frozen=None,
+                     exact=False):
     """
     Fixed-point solve for slot weights from (current, previous) marginals,
-    all slots at once: ``logf, logg (K, n)`` -> ``(logp (K, n),
-    converged (K,))``. A slot freezes at its first iterate with max-delta
-    < precision; ``frozen`` pre-freezes slots. The loop ends when every
-    slot is frozen (checked every `SOLVE_CHECK_EVERY` iterations) or after
-    ``maxiter`` iterations.
+    all slots (and lanes) at once: ``logf, logg (..., K, n)`` -> ``(logp
+    (..., K, n), converged (..., K))``. A slot freezes at its first iterate
+    with max-delta < precision; ``frozen`` pre-freezes slots. The loop ends
+    when every slot of every lane is frozen (asked of the device every
+    `SOLVE_CHECK_EVERY` iterations) or after ``maxiter`` iterations.
+    ``exact`` makes the log-sum-exps lane-exact (`lanes.lane_logsumexp`).
     """
     i_f0 = logf == -math.inf
     i_g0 = logg == -math.inf
     # Kronecker-delta marginals: weights equal the marginal directly
-    is_delta = (logf == 0).any(dim=1) | (logg == 0).any(dim=1)
+    is_delta = (logf == 0).any(dim=-1) | (logg == 0).any(dim=-1)
     done = is_delta if frozen is None else (is_delta | frozen)
-    tr = transitions[None]
     zero = torch.zeros_like(logf)
     logp = logf
     for it in range(maxiter):
         if it % SOLVE_CHECK_EVERY == 0 and bool(done.all()):
             break
-        log_norm = _masked_lse(logp[:, None, :], tr, dim=2)   # over j, per i
+        log_norm = _masked_lse(logp[..., None, :], transitions, dim=-1,
+                               exact=exact)                              # per i
         log_norm = torch.where(i_g0, zero, log_norm)
-        log_Sgp = _masked_lse((logg - log_norm)[:, :, None], tr, dim=1)
-        log_Sgp = torch.where(i_f0, zero, log_Sgp)            # over i, per j
+        log_Sgp = _masked_lse((logg - log_norm)[..., :, None], transitions,
+                              dim=-2, exact=exact)                       # per j
+        log_Sgp = torch.where(i_f0, zero, log_Sgp)
         lp = logf - log_Sgp
-        lp = lp - torch.logsumexp(lp, dim=1, keepdim=True)
+        lp = lp - lane_logsumexp(lp, dim=-1, keepdim=True, exact=exact)
         delta = torch.where(i_f0, zero, (lp - logp).abs())
-        lp = torch.where(done[:, None], logp, lp)            # freeze finished
-        done = done | (delta.amax(dim=1) < precision)
+        lp = torch.where(done[..., None], logp, lp)          # freeze finished
+        done = done | (delta.amax(dim=-1) < precision)
         logp = lp
-    return torch.where(is_delta[:, None], logf, logp), done
+    return torch.where(is_delta[..., None], logf, logp), done
 
 
 def cfc_logp_from_marginals(log_marginals, transitions, maxiter=1000,
-                            precision=1e-2, active=None):
-    """Weights reproducing the per-slot marginals ``(n, k+1)``. Returns
-    ``(logp, converged)``; inactive slots get uniform weights and never
-    count against convergence."""
-    n, k1 = log_marginals.shape
-    logp0 = log_marginals[:, 0]
+                            precision=1e-2, active=None, exact=False):
+    """Weights reproducing the per-slot marginals ``(..., n, k+1)``.
+    Returns ``(logp, converged (...))``; inactive slots get uniform
+    weights and never count against convergence. ``exact`` as in
+    `_solve_marginals`."""
+    n, k1 = log_marginals.shape[-2:]
+    lead = log_marginals.shape[:-2]
+    logp0 = log_marginals[..., :, 0]
     if k1 == 1:
-        return logp0[:, None], torch.ones((), dtype=torch.bool,
-                                          device=logp0.device)
+        return logp0[..., None], torch.ones(lead, dtype=torch.bool,
+                                            device=logp0.device)
     act = (torch.ones(k1 - 1, dtype=torch.bool, device=logp0.device)
-           if active is None else active[1:])
+           if active is None else active[..., 1:])
     logps, convs = _solve_marginals(
-        log_marginals[:, 1:].T, log_marginals[:, :-1].T, transitions,
-        maxiter, precision, frozen=~act)
-    logps = torch.where(act[:, None], logps,
+        log_marginals[..., :, 1:].transpose(-1, -2),
+        log_marginals[..., :, :-1].transpose(-1, -2), transitions,
+        maxiter, precision, frozen=~act, exact=exact)
+    logps = torch.where(act[..., None], logps,
                         torch.full_like(logps, -math.log(n)))
     convs = convs | ~act
-    return torch.cat([logp0[:, None], logps.T], dim=1), convs.all()
+    return (torch.cat([logp0[..., None], logps.transpose(-1, -2)], dim=-1),
+            convs.all(dim=-1))
 
 
 def cfc_estimate(thetas, log_weights, transitions, n, maxiter=1000,
-                 precision=1e-2, active=None):
-    """Method of marginals: weighted marginals per slot, then the weights
-    that reproduce them. Returns ``(logp, converged)``."""
-    indicators = thetas[None, :, :] == torch.arange(
-        n, device=thetas.device)[:, None, None]               # (n, N, k+1)
-    log_marginals = _masked_lse(log_weights[None, :, None], indicators, dim=1)
-    log_marginals = log_marginals - torch.logsumexp(log_marginals, dim=0,
-                                                    keepdim=True)
+                 precision=1e-2, active=None, exact=False):
+    """Method of marginals: weighted marginals per slot of the traces
+    ``thetas (..., M, k+1)`` with log-weights ``(..., M)``, then the
+    weights that reproduce them. Returns ``(logp (..., n, k+1),
+    converged (...))``; ``exact`` makes every log-sum-exp lane-exact."""
+    indicators = thetas[..., None, :, :] == torch.arange(
+        n, device=thetas.device)[:, None, None]              # (..., n, M, k+1)
+    log_marginals = _masked_lse(log_weights[..., None, :, None], indicators,
+                                dim=-2, exact=exact)         # (..., n, k+1)
+    log_marginals = log_marginals - lane_logsumexp(log_marginals, dim=-2,
+                                                   keepdim=True, exact=exact)
     if active is not None:
         # padded slots carry arbitrary thetas: give the solver uniform ones
         log_marginals = torch.where(
-            active, log_marginals, torch.full_like(log_marginals, -math.log(n)))
+            active[..., None, :], log_marginals,
+            torch.full_like(log_marginals, -math.log(n)))
     return cfc_logp_from_marginals(log_marginals, transitions, maxiter,
-                                   precision, active=active)
+                                   precision, active=active, exact=exact)
 
 
 def _solve_marginals_np(logf, logg, transitions, maxiter, precision):

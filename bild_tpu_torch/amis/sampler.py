@@ -8,10 +8,13 @@ and update the evidence estimate.
 
 All sampler state lives in fixed-size tensors (`AmisState`): ``(S, N, .)``
 buffers for the S = max_fev/N possible steps plus the proposal and evidence
-tracks; only the step counter is a host int. One step is `amis_propose`,
-the model's batched likelihood and `amis_update`, all on the state's
-device. `FixedkSampler.steps` runs several steps and fetches their results
-to the host once, packed in one tensor.
+tracks. The state may carry a leading lane axis: the lockstep runner
+(`parallel.batch`) advances many samplers, one per (k, trajectory) lane,
+with one call per step, where `bild_tpu` vmaps. The step counter is a host
+int shared by all lanes (they step in lockstep). One step is
+`amis_propose`, the model's batched likelihood and `amis_update`, all on
+the state's device. `FixedkSampler` runs one sampler (no lane axis) and
+fetches several steps' results to the host once, packed in one tensor.
 """
 from __future__ import annotations
 
@@ -22,13 +25,14 @@ import math
 import numpy as np
 import torch
 
+from ..lanes import LaneRNG, lane_logsumexp, lane_sum
 from ..profiles import Loopingprofile, st2profile
 from .cfc import CFC, SampleSpaceTooLarge, cfc_sample, cfc_logpmf, cfc_estimate
 from .dirichlet import (dirichlet_logpdf, dirichlet_estimate,
                         dirichlet_sample_masked)
 
 __all__ = ["FixedkSampler", "AmisState", "amis_propose", "amis_update",
-           "informed_proposal"]
+           "informed_proposal", "informed_proposal_batch"]
 
 _FIELDS = ("ss", "thetas", "logLs", "logdeltas", "a_params", "logps",
            "evidences")
@@ -36,7 +40,9 @@ _FIELDS = ("ss", "thetas", "logLs", "logdeltas", "a_params", "logps",
 
 @dataclasses.dataclass
 class AmisState:
-    """State of one fixed-k AMIS sampler; updated in place by `amis_update`."""
+    """State of one fixed-k AMIS sampler, or of L of them with a leading
+    lane axis on every tensor (shapes below without it); updated in place
+    by `amis_update`."""
 
     ss: torch.Tensor          # (S, N, k+1) float — interval fractions
     thetas: torch.Tensor      # (S, N, k+1) int32 — state traces
@@ -45,43 +51,62 @@ class AmisState:
     a_params: torch.Tensor    # (S+1, k+1) float — Dirichlet concentrations
     logps: torch.Tensor       # (S+1, n, k+1) float — CFC weights
     evidences: torch.Tensor   # (S, 3) float — (logev, dlogev, KL) per step
-    n_steps: int              # steps ingested so far
+    n_steps: int              # steps ingested so far (shared by all lanes)
     mom_ok: torch.Tensor      # () bool — CFC fixed point converged at every step
 
     @staticmethod
-    def create(S, N, k, n, a0, logp0, *, device, dtype) -> "AmisState":
-        a_params = torch.zeros((S + 1, k + 1), dtype=dtype, device=device)
-        a_params[0] = torch.as_tensor(a0, dtype=dtype)
-        logps = torch.zeros((S + 1, n, k + 1), dtype=dtype, device=device)
-        logps[0] = torch.as_tensor(logp0, dtype=dtype)
+    def create(S, N, k, n, a0, logp0, *, device, dtype, lanes=None) -> "AmisState":
+        """A fresh state; with ``lanes=L``, ``a0 (L, k+1)`` and ``logp0 (L,
+        n, k+1)`` give each lane its initial proposal."""
+        lead = () if lanes is None else (lanes,)
+        a_params = torch.zeros(lead + (S + 1, k + 1), dtype=dtype, device=device)
+        a_params[..., 0, :] = torch.as_tensor(a0, dtype=dtype)
+        logps = torch.zeros(lead + (S + 1, n, k + 1), dtype=dtype, device=device)
+        logps[..., 0, :, :] = torch.as_tensor(logp0, dtype=dtype)
         return AmisState(
-            ss=torch.zeros((S, N, k + 1), dtype=dtype, device=device),
-            thetas=torch.zeros((S, N, k + 1), dtype=torch.int32, device=device),
-            logLs=torch.zeros((S, N), dtype=dtype, device=device),
-            logdeltas=torch.zeros((S, N), dtype=dtype, device=device),
+            ss=torch.zeros(lead + (S, N, k + 1), dtype=dtype, device=device),
+            thetas=torch.zeros(lead + (S, N, k + 1), dtype=torch.int32,
+                               device=device),
+            logLs=torch.zeros(lead + (S, N), dtype=dtype, device=device),
+            logdeltas=torch.zeros(lead + (S, N), dtype=dtype, device=device),
             a_params=a_params,
             logps=logps,
-            evidences=torch.zeros((S, 3), dtype=dtype, device=device),
+            evidences=torch.zeros(lead + (S, 3), dtype=dtype, device=device),
             n_steps=0,
-            mom_ok=torch.ones((), dtype=torch.bool, device=device),
+            mom_ok=torch.ones(lead, dtype=torch.bool, device=device),
         )
+
+    @property
+    def lanes(self):
+        """The number of lanes, or ``None`` for a single sampler."""
+        return None if self.ss.dim() == 3 else self.ss.shape[0]
+
+    def _map(self, fn) -> "AmisState":
+        return AmisState(**{f: fn(getattr(self, f)) for f in _FIELDS},
+                         n_steps=self.n_steps, mom_ok=fn(self.mom_ok))
+
+    def select(self, idx) -> "AmisState":
+        """A new state holding the lanes ``idx`` (a long tensor)."""
+        return self._map(lambda x: x[idx])
 
     @staticmethod
     def from_numpy(arrays: dict, *, device, dtype) -> "AmisState":
         """A state from numpy arrays under the field names (``thetas`` as
-        ints, ``n_steps`` an int, ``mom_ok`` a bool); e.g. a `bild_tpu`
-        sampler's state, so both packages can run the same update."""
+        ints, ``n_steps`` an int, ``mom_ok`` a bool or bool array); e.g. a
+        `bild_tpu` sampler's state, so both packages can run the same
+        update."""
         fields = {k: torch.as_tensor(np.array(arrays[k]), device=device,
                                      dtype=torch.int32 if k == "thetas" else dtype)
                   for k in _FIELDS}
         return AmisState(**fields, n_steps=int(arrays["n_steps"]),
-                         mom_ok=torch.as_tensor(bool(arrays["mom_ok"]),
-                                                device=device))
+                         mom_ok=torch.as_tensor(np.array(arrays["mom_ok"]),
+                                                dtype=torch.bool, device=device))
 
     def to_numpy(self) -> dict:
         out = {k: getattr(self, k).cpu().numpy() for k in _FIELDS}
         out["n_steps"] = self.n_steps
-        out["mom_ok"] = bool(self.mom_ok)
+        mom = self.mom_ok.cpu().numpy()
+        out["mom_ok"] = bool(mom) if mom.ndim == 0 else mom
         return out
 
 
@@ -92,83 +117,133 @@ def informed_proposal(fracs, theta, n, T):
     ``(k+1) * max(2, sqrt(T))``; CFC slots go 80/20 toward the guessed
     states. Returns numpy ``(a, logp)``.
     """
+    a, logp = informed_proposal_batch(np.asarray(fracs)[None],
+                                      np.asarray(theta)[None], n, T)
+    return a[0], logp[0]
+
+
+def informed_proposal_batch(fracs, theta, n, T):
+    """`informed_proposal` for a batch: ``fracs, theta (B, k+1)`` ->
+    ``(a (B, k+1), logp (B, n, k+1))``, numpy, with no per-row loop."""
     fracs = np.asarray(fracs, dtype=float)
     theta = np.asarray(theta, dtype=int)
-    k1 = len(fracs)
+    B, k1 = fracs.shape
     conc = k1 * max(2.0, float(np.sqrt(T)))
     a = np.maximum(conc * fracs, 0.05)
-    p = np.full((n, k1), 0.2 / max(n - 1, 1))
-    p[theta, np.arange(k1)] = 0.8
+    p = np.full((B, n, k1), 0.2 / max(n - 1, 1))
+    np.put_along_axis(p, theta[:, None, :], 0.8, axis=1)
     return a, np.log(p)
 
 
-def _log_proposal(a, logp, ss, thetas, transitions, active=None):
-    """Joint proposal density Dirichlet(s) x CFC(theta), ``(..., N)`` for
-    parameters with a leading axis. A +inf Dirichlet density (a zero
-    coordinate with concentration < 1) dominates even a -inf CFC part:
-    such points must get zero importance weight, and ``inf + -inf = nan``
-    would poison the mixture."""
-    dlp = dirichlet_logpdf(a, ss, active=active)
-    clp = cfc_logpmf(logp, thetas, transitions, active=active)
+def _log_proposal(a, logp, ss, thetas, transitions, active=None, exact=False):
+    """Joint proposal density Dirichlet(s) x CFC(theta), ``(..., N)``;
+    shapes broadcast as in `dirichlet_logpdf` and `cfc_logpmf`. A +inf
+    Dirichlet density (a zero coordinate with concentration < 1) dominates
+    even a -inf CFC part: such points must get zero importance weight, and
+    ``inf + -inf = nan`` would poison the mixture. ``exact``: lane-exact
+    sums."""
+    dlp = dirichlet_logpdf(a, ss, active=active, exact=exact)
+    clp = cfc_logpmf(logp, thetas, transitions, active=active, exact=exact)
     return torch.where(torch.isposinf(dlp), dlp, dlp + clp)
 
 
+def _lift(x):
+    return None if x is None else x[None]
+
+
 def amis_propose(state: AmisState, generator, transitions, *, N: int, T: int,
-                 active=None, draws=None):
-    """Draw N ``(s, theta)`` pairs from the current proposal and return them
-    with their discretized ``(N, T)`` profiles. ``draws = (ss, thetas)``
-    skips the sampling (the tests feed both packages the same draws).
-    ``active`` (bool ``(K,)``) enables the padded-k mode: padded slots have
-    interval fraction exactly 0 and never produce a switch."""
-    if draws is not None:
-        ss, thetas = draws
-    else:
-        sc = state.n_steps
-        a = state.a_params[sc]
-        mask = (torch.ones_like(a, dtype=torch.bool) if active is None
-                else active)
-        ss = dirichlet_sample_masked(generator, a, mask, N)
-        thetas = cfc_sample(generator, state.logps[sc], transitions, N,
-                            active=active)
-    return ss, thetas, st2profile(ss, thetas, T, active=active)
+                 active=None, draws=None, exact=False):
+    """Draw N ``(s, theta)`` pairs per lane from the current proposals and
+    return them with their discretized profiles: ``(L, N, k+1)`` twice and
+    ``(L, N, T)``, with no lane axis for a single sampler. ``generator`` is
+    a `torch.Generator` or a `LaneRNG` (the streams of this step); ``draws
+    = (ss, thetas)`` skips the sampling (the tests feed both packages the
+    same draws). ``active`` (bool ``(L, K)``, or ``(K,)`` for a single
+    sampler) enables the padded-k mode: padded slots have interval fraction
+    exactly 0 and never produce a switch. ``exact`` makes every float
+    reduction lane-exact (`lanes.lane_sum`), as the lockstep runner needs."""
+    if state.lanes is None:
+        out = _propose_lanes(state._map(_lift), generator, transitions, N, T,
+                             _lift(active),
+                             None if draws is None else tuple(map(_lift, draws)),
+                             exact)
+        return tuple(x[0] for x in out)
+    return _propose_lanes(state, generator, transitions, N, T, active, draws,
+                          exact)
 
 
 def amis_update(state: AmisState, ss_new, th_new, logL_new, transitions,
                 logprior, conc_brake_N, pol_brake_N, *, maxiter: int = 1000,
-                active=None):
+                active=None, exact=False):
     """
-    Ingest one new sample block and run the AMIS ensemble update; updates
-    ``state`` in place and returns ``(state, (logev, dlogev, KL))`` with
-    0-d tensors. ``active`` enables the padded-k mode.
+    Ingest one new sample block per lane and run the AMIS ensemble update;
+    updates ``state`` in place and returns ``(state, (logev, dlogev, KL))``
+    with one value per lane (use the returned state). ``ss_new, th_new (L,
+    N, k+1)``, ``logL_new (L, N)``; ``logprior`` a float or ``(L,)``;
+    ``active`` (bool ``(L, K)``) the per-lane padded-k mask. For a single
+    sampler every lane axis is absent. ``exact`` as in `amis_propose`.
     """
-    S, N = state.logLs.shape
+    if state.lanes is None:
+        st, out = _update_lanes(state._map(_lift), ss_new[None], th_new[None],
+                                logL_new[None], transitions, logprior,
+                                conc_brake_N, pol_brake_N, maxiter,
+                                _lift(active), exact)
+        return st._map(lambda x: x[0]), tuple(x[0] for x in out)
+    return _update_lanes(state, ss_new, th_new, logL_new, transitions,
+                         logprior, conc_brake_N, pol_brake_N, maxiter, active,
+                         exact)
+
+
+def _propose_lanes(state, generator, transitions, N, T, active, draws, exact):
+    if draws is not None:
+        ss, thetas = draws
+    else:
+        sc = state.n_steps
+        a = state.a_params[:, sc]
+        mask = torch.ones_like(a, dtype=torch.bool) if active is None else active
+        gd, gc = ((generator.fold(0), generator.fold(1))
+                  if isinstance(generator, LaneRNG) else (generator, generator))
+        ss = dirichlet_sample_masked(gd, a, mask, N, exact=exact)
+        thetas = cfc_sample(gc, state.logps[:, sc], transitions, N,
+                            active=active)
+    act = None if active is None else active[:, None, :]
+    return ss, thetas, st2profile(ss, thetas, T, active=act, exact=exact)
+
+
+def _update_lanes(state, ss_new, th_new, logL_new, transitions, logprior,
+                  conc_brake_N, pol_brake_N, maxiter, active, exact):
+    L, S, N = state.logLs.shape
     k1 = state.ss.shape[-1]
-    n = state.logps.shape[1]
+    n = state.logps.shape[2]
     sc = state.n_steps                      # index of the step being ingested
     neg_inf = -math.inf
 
-    a_cur = state.a_params[sc]
-    logp_cur = state.logps[sc]
+    a_cur = state.a_params[:, sc]                               # (L, K)
+    logp_cur = state.logps[:, sc]                               # (L, n, K)
 
-    state.ss[sc] = ss_new
-    state.thetas[sc] = th_new
-    state.logLs[sc] = logL_new
+    state.ss[:, sc] = ss_new
+    state.thetas[:, sc] = th_new
+    state.logLs[:, sc] = logL_new
     ss, thetas, logLs = state.ss, state.thetas, state.logLs
+    flat_ss = ss.reshape(L, S * N, k1)
+    flat_th = thetas.reshape(L, S * N, k1)
 
-    # current-proposal density of every stored sample (flat over S*N)
-    clp = _log_proposal(a_cur, logp_cur, ss.reshape(S * N, k1),
-                        thetas.reshape(S * N, k1), transitions,
-                        active=active).reshape(S, N)
+    # current-proposal density of every stored sample
+    clp = _log_proposal(a_cur, logp_cur, flat_ss, flat_th, transitions,
+                        active=active, exact=exact).reshape(L, S, N)
 
     # mixture density of the new block: over the proposals 0..sc
-    all_lp = _log_proposal(state.a_params[:sc + 1], state.logps[:sc + 1],
-                           ss_new, th_new, transitions, active=active)
-    logdelta_new = torch.logsumexp(all_lp, dim=0)
+    all_lp = _log_proposal(
+        state.a_params[:, :sc + 1], state.logps[:, :sc + 1],
+        ss_new[:, None], th_new[:, None], transitions,
+        active=None if active is None else active[:, None, :],
+        exact=exact)                                            # (L, sc+1, N)
+    logdelta_new = lane_logsumexp(all_lp, dim=1, exact=exact)
 
     row = torch.arange(S, device=ss.device)[:, None]
     logdeltas = torch.where(
         row < sc, torch.logaddexp(state.logdeltas, clp),
-        torch.where(row == sc, logdelta_new[None, :].expand(S, N),
+        torch.where(row == sc, logdelta_new[:, None, :].expand(L, S, N),
                     state.logdeltas))
 
     # weights over the valid ensemble; a NaN log-weight marks an
@@ -176,81 +251,100 @@ def amis_update(state: AmisState, ss_new, th_new, logL_new, transitions,
     valid = row <= sc
     log_w = logLs - logdeltas + math.log1p(sc)
     log_w_masked = torch.where(valid & ~torch.isnan(log_w), log_w, neg_inf)
-    flat_lw = log_w_masked.reshape(S * N)
+    flat_lw = log_w_masked.reshape(L, S * N)
 
     # proposal refit; an invalid Dirichlet estimate (non-positive or
     # non-finite concentration) keeps the previous proposal
-    new_a = dirichlet_estimate(ss.reshape(S * N, k1), flat_lw, active=active)
+    new_a = dirichlet_estimate(flat_ss, flat_lw, active=active, exact=exact)
     bad_a = ~torch.isfinite(new_a) | (new_a <= 0)
     if active is not None:
         bad_a = bad_a & active
-    new_a = torch.where(bad_a.any(), a_cur, new_a)
+    new_a = torch.where(bad_a.any(dim=-1, keepdim=True), a_cur, new_a)
 
-    new_logp, mom_conv = cfc_estimate(thetas.reshape(S * N, k1), flat_lw,
-                                      transitions, n, maxiter=maxiter,
-                                      active=active)
-    lp_invalid = torch.isnan(new_logp).any()
-    new_logp = torch.where(lp_invalid, logp_cur, new_logp)
+    new_logp, mom_conv = cfc_estimate(flat_th, flat_lw, transitions, n,
+                                      maxiter=maxiter, active=active,
+                                      exact=exact)
+    lp_invalid = torch.isnan(new_logp).flatten(1).any(dim=1)    # (L,)
+    new_logp = torch.where(lp_invalid[:, None, None], logp_cur, new_logp)
     mom_conv = mom_conv | lp_invalid  # reverted, not a convergence failure
 
     # concentration brake; sums over active slots only, so padded-k results
     # match the exact-k program
     def asum(a):
-        return a.sum() if active is None else torch.where(active, a, 0.0).sum()
+        return lane_sum(a if active is None else torch.where(active, a, 0.0),
+                        exact=exact)
 
-    log_cr = torch.log(asum(new_a) / asum(a_cur))
-    over = log_cr.abs() > conc_brake_N
+    log_cr = torch.log(asum(new_a) / asum(a_cur))               # (L,)
+    over = (log_cr.abs() > conc_brake_N)[:, None]
     new_a = torch.where(
-        over, new_a * torch.exp(torch.sign(log_cr) * conc_brake_N - log_cr),
+        over, new_a * torch.exp(torch.sign(log_cr) * conc_brake_N - log_cr)[:, None],
         new_a)
     if active is not None:
         new_a = torch.where(active, new_a, torch.ones_like(new_a))
 
     # polarization brake, per slot
     old_p = torch.exp(logp_cur)
-    delta = torch.exp(new_logp) - old_p                        # (n, k+1)
-    mad = delta.abs().amax(dim=0)                              # (k+1,)
+    delta = torch.exp(new_logp) - old_p                         # (L, n, K)
+    mad = delta.abs().amax(dim=1, keepdim=True)                 # (L, 1, K)
     safe_mad = torch.where(mad > 0, mad, torch.ones_like(mad))
     braked = torch.log(old_p + pol_brake_N * delta / safe_mad)
-    new_logp = torch.where((mad > pol_brake_N)[None, :], braked, new_logp)
+    new_logp = torch.where(mad > pol_brake_N, braked, new_logp)
     if active is not None:
-        new_logp = torch.where(active[None, :], new_logp,
+        new_logp = torch.where(active[:, None, :], new_logp,
                                torch.full_like(new_logp, -math.log(n)))
 
     # evidence, its standard error, KL
     cnt = float((sc + 1) * N)
-    max_lw = log_w_masked.max()
-    w_o = torch.exp(log_w_masked - max_lw)
-    ev_o = w_o.sum() / cnt
+    max_lw = flat_lw.amax(dim=1)                                # (L,)
+    w_o = torch.exp(log_w_masked - max_lw[:, None, None])       # (L, S, N)
+    ev_o = lane_sum(w_o.reshape(L, S * N), exact=exact) / cnt
     logev = torch.log(ev_o) + max_lw + logprior
-    var = torch.where(valid, (w_o - ev_o) ** 2, 0.0).sum() / (cnt - 1)
+    var = lane_sum(torch.where(valid, (w_o - ev_o[:, None, None]) ** 2, 0.0)
+                   .reshape(L, S * N), exact=exact) / (cnt - 1)
     dlogev = torch.sqrt(var / cnt) / ev_o
     kl_term = w_o * (logLs - clp)
     kl_term = torch.where(valid & ~torch.isnan(kl_term), kl_term, 0.0)
-    KL = kl_term.sum() / cnt / ev_o - logev + logprior
+    KL = (lane_sum(kl_term.reshape(L, S * N), exact=exact) / cnt / ev_o
+          - logev + logprior)
 
     state.logdeltas = logdeltas
-    state.a_params[sc + 1] = new_a
-    state.logps[sc + 1] = new_logp
-    state.evidences[sc] = torch.stack([logev, dlogev, KL])
+    state.a_params[:, sc + 1] = new_a
+    state.logps[:, sc + 1] = new_logp
+    state.evidences[:, sc] = torch.stack([logev, dlogev, KL], dim=-1)
     state.n_steps = sc + 1
     state.mom_ok = state.mom_ok & mom_conv
     return state, (logev, dlogev, KL)
 
 
 def _marginal_posterior(ss, thetas, log_weights, *, T: int, nStates: int,
-                        active=None):
-    """Weighted state marginals over an ensemble: ``(n, T)`` log-probs.
-    NaN log-weights (inconsistent points) get zero weight; with no finite
-    weight at all the result is all -inf."""
+                        active=None, exact=False):
+    """Weighted state marginals over an ensemble: ``(n, T)`` log-probs from
+    ``ss, thetas (M, K)``, ``log_weights (M,)``, or ``(L, n, T)`` from a
+    lane axis on each (``active (L, K)``). NaN log-weights (inconsistent
+    points) get zero weight; with no finite weight at all the result is all
+    -inf. Lanes are processed in groups that bound the ``(lanes, M, n, T)``
+    intermediate; ``exact`` makes the reductions lane-exact."""
+    if log_weights.dim() == 1:
+        return _marginal_posterior(
+            ss[None], thetas[None], log_weights[None], T=T, nStates=nStates,
+            active=None if active is None else active[None], exact=exact)[0]
+    L, M = log_weights.shape
     log_weights = torch.where(torch.isnan(log_weights), -math.inf, log_weights)
-    profs = st2profile(ss, thetas, T, active=active)           # (M, T)
-    indic = profs[:, None, :] == torch.arange(
-        nStates, device=profs.device)[None, :, None]           # (M, n, T)
-    logpost = torch.logsumexp(
-        torch.where(indic, log_weights[:, None, None], -math.inf), dim=0)
-    norm = torch.logsumexp(logpost, dim=0)
-    return torch.where(torch.isfinite(norm), logpost - norm, -math.inf)
+    states = torch.arange(nStates, device=ss.device)[None, None, :, None]
+    group = max(1, 2**24 // max(1, M * nStates * T))
+    out = []
+    for lo in range(0, L, group):
+        sl = slice(lo, lo + group)
+        act = None if active is None else active[sl, None, :]
+        profs = st2profile(ss[sl], thetas[sl], T, active=act,
+                           exact=exact)                          # (l, M, T)
+        indic = profs[:, :, None, :] == states                   # (l, M, n, T)
+        logpost = lane_logsumexp(
+            torch.where(indic, log_weights[sl, :, None, None], -math.inf),
+            dim=1, exact=exact)                                  # (l, n, T)
+        norm = lane_logsumexp(logpost, dim=1, keepdim=True, exact=exact)
+        out.append(torch.where(torch.isfinite(norm), logpost - norm, -math.inf))
+    return torch.cat(out)
 
 
 def draw_seed(generator: torch.Generator) -> int:
@@ -351,9 +445,12 @@ class FixedkSampler:
                     torch.as_tensor(logp_full, dtype=self.dtype, device=self.device))
 
         self.S = max(1, -(-self.max_fev // self.N) - 1)  # max possible steps
-        self.state = AmisState.create(self.S, self.N, self.K1 - 1, self.n,
-                                      a0, logp0, device=self.device,
-                                      dtype=self.dtype)
+        # held as one lane: the steps call the lane functions directly, as
+        # lifting a lane-less state would cost views on every step
+        self._lane = AmisState.create(self.S, self.N, self.K1 - 1, self.n,
+                                      a0[None], logp0[None], device=self.device,
+                                      dtype=self.dtype, lanes=1)
+        self._lane_active = self.active[None]
 
         if hasattr(model, "lockstep_fns_single"):
             per_traj, logL_fn = model.lockstep_fns_single(traj)
@@ -365,6 +462,11 @@ class FixedkSampler:
             self.fix_exhaustive()
         except (self.ExhaustionImpractical, SampleSpaceTooLarge):
             pass  # space too large to enumerate -> AMIS stepping
+
+    @property
+    def state(self) -> AmisState:
+        """The sampler's `AmisState`, without the lane axis (views)."""
+        return self._lane._map(lambda x: x[0])
 
     def _tensor(self, x, dtype=None):
         return torch.as_tensor(np.asarray(x), dtype=dtype or self.dtype,
@@ -469,23 +571,23 @@ class FixedkSampler:
         pb = self.N * self.brakes[1]
         ev_rows, mom_rows = [], []
         for _ in range(n_run):
-            ss, thetas, profiles = amis_propose(
-                self.state, self.generator, self._transitions, N=self.N,
-                T=self.T, active=self.active)
-            logLs = self._logL(profiles).to(self.dtype)
-            self.state, out = amis_update(
-                self.state, ss, thetas, logLs, self._transitions,
-                self.logprior, cb, pb, active=self.active)
+            ss, thetas, profiles = _propose_lanes(
+                self._lane, self.generator, self._transitions, self.N, self.T,
+                self._lane_active, None, False)
+            logLs = self._logL(profiles[0]).to(self.dtype)
+            self._lane, out = _update_lanes(
+                self._lane, ss, thetas, logLs[None], self._transitions,
+                self.logprior, cb, pb, 1000, self._lane_active, False)
             ev_rows.append(torch.stack(out))
             # cumulative convergence after this step: the host drops
             # evidences from a diverged step onward
-            mom_rows.append(self.state.mom_ok)
-            if self._informed is not None and self.state.n_steps == 1:
+            mom_rows.append(self._lane.mom_ok)
+            if self._informed is not None and self._lane.n_steps == 1:
                 # second mixture component <- informed proposal
-                self.state.a_params[1], self.state.logps[1] = self._informed
+                self._lane.a_params[0, 1], self._lane.logps[0, 1] = self._informed
 
         packed = torch.cat([torch.stack(ev_rows).reshape(-1),
-                            torch.stack(mom_rows).to(self.dtype)])
+                            torch.stack(mom_rows).to(self.dtype).reshape(-1)])
         vals = packed.cpu().numpy()                  # ONE fetch for everything
         ev = vals[: 3 * n_run].reshape(n_run, 3)
         mom = vals[3 * n_run:] != 0
@@ -495,7 +597,7 @@ class FixedkSampler:
             ev = ev[: int(np.argmin(mom))]
 
         self.evidences.extend((float(a), float(b), float(c)) for a, b, c in ev)
-        self._steps_host = self.state.n_steps
+        self._steps_host = self._lane.n_steps
         if not mom_ok:
             raise RuntimeError(
                 "CFC method-of-marginals iteration did not converge")

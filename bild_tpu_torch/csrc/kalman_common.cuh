@@ -9,7 +9,8 @@
 
 namespace bild {
 
-// threads per block of both kernels: one block evaluates one profile
+// threads per block of both kernels: one block evaluates one profile of
+// one lane
 constexpr int kThreads = 256;
 constexpr double kLog2Pi = 1.8378770664093453;  // log(2 pi)
 // covariance copies (distinct localization errors) accumulated per pass
@@ -33,16 +34,21 @@ __device__ __forceinline__ int clamp_state(int s, int n) {
 }
 
 // Allow `smem` bytes of dynamic shared memory for `kernel`, launch it with
-// one block per profile, and report the launch error code.
+// one block per (lane, profile): L * P blocks, block b evaluating profile
+// b % P of lane b / P. Returns the launch error code; a grid beyond the x
+// dimension's 2^31 - 1 blocks is refused before launching.
 template <typename Kernel, typename... Args>
-int launch_per_profile(Kernel kernel, int P, size_t smem, int device,
+int launch_per_profile(Kernel kernel, int L, int P, size_t smem, int device,
                        void* stream, Args... args) {
+  const long long blocks = static_cast<long long>(L) * P;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<P, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  kernel<<<static_cast<unsigned int>(blocks), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,9 +1,12 @@
-// Dense-covariance Rouse-Kalman log-likelihood: one block per profile.
+// Dense-covariance Rouse-Kalman log-likelihood: one block per (lane,
+// profile), where a lane is one trajectory and all lanes share the model.
 //
 // Replaces the Pallas kernel bild_tpu/ops/kalman_pallas.py::_kernel. That
 // kernel propagated a tile of 128 profiles through EVERY state and picked
-// each profile's state with one-hot masks; here a block reads its own
-// profile[t] and applies that state's operators only.
+// each profile's state with one-hot masks, and got its trajectory axis
+// from jax.vmap around the call; here a block reads its own profile[t] and
+// applies that state's operators only, and the grid holds every (lane,
+// profile) pair of a lockstep step: block b reads lane b / P's frames.
 //
 // Per frame t, with s = profile[t]:
 //   M' = B_s M + G_s
@@ -38,7 +41,7 @@ kalman_dense_kernel(const scalar_t* __restrict__ Bs,
                     const scalar_t* __restrict__ ydata,
                     const unsigned char* __restrict__ valid,
                     scalar_t* __restrict__ out,
-                    int n, int N, int d, int q, int T) {
+                    int n, int N, int d, int q, int P, int T) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int NN = N * N;
   scalar_t* C = reinterpret_cast<scalar_t*>(smem_raw);  // (q, N, N)
@@ -53,6 +56,9 @@ kalman_dense_kernel(const scalar_t* __restrict__ Bs,
   const int tid = threadIdx.x;
   const int nth = blockDim.x;
   const int* prof = profiles + static_cast<size_t>(blockIdx.x) * T;
+  const size_t traj = blockIdx.x / P;  // this block's lane (trajectory)
+  const scalar_t* y_traj = ydata + traj * T * d;
+  const unsigned char* valid_traj = valid + traj * T;
   scalar_t ll = 0;  // accumulated by thread 0
 
   const int s0 = bild::clamp_state(prof[0], n);
@@ -62,7 +68,7 @@ kalman_dense_kernel(const scalar_t* __restrict__ Bs,
   __syncthreads();
 
   auto update = [&](int t) {
-    const scalar_t* y = ydata + static_cast<size_t>(t) * d;
+    const scalar_t* y = y_traj + static_cast<size_t>(t) * d;
     for (int idx = tid; idx < q * N; idx += nth) {
       const scalar_t* row = C + (idx / N) * NN + (idx % N) * N;
       scalar_t acc = 0;
@@ -100,7 +106,7 @@ kalman_dense_kernel(const scalar_t* __restrict__ Bs,
     __syncthreads();
   };
 
-  if (valid[0]) update(0);
+  if (valid_traj[0]) update(0);
 
   for (int t = 1; t < T; ++t) {
     const int s = bild::clamp_state(prof[t], n);
@@ -134,7 +140,7 @@ kalman_dense_kernel(const scalar_t* __restrict__ Bs,
     for (int idx = tid; idx < N * d; idx += nth) M[idx] = Mn[idx];
     __syncthreads();
 
-    if (valid[t]) update(t);
+    if (valid_traj[t]) update(t);
   }
 
   if (tid == 0) out[blockIdx.x] = ll;
@@ -149,18 +155,18 @@ int launch_dense(const void* Bs, const void* Gs, const void* Sigs,
                  const void* M0s, const void* C0s, const void* w,
                  const void* s2, const void* Cind, const void* profiles,
                  const void* ydata, const void* valid, void* out,
-                 int n, int N, int d, int q, int P, int T, int device,
+                 int n, int N, int d, int q, int L, int P, int T, int device,
                  void* stream) {
   const size_t smem = dense_smem_elems(N, d, q) * sizeof(scalar_t);
   return bild::launch_per_profile(
-      kalman_dense_kernel<scalar_t>, P, smem, device, stream,
+      kalman_dense_kernel<scalar_t>, L, P, smem, device, stream,
       static_cast<const scalar_t*>(Bs), static_cast<const scalar_t*>(Gs),
       static_cast<const scalar_t*>(Sigs), static_cast<const scalar_t*>(M0s),
       static_cast<const scalar_t*>(C0s), static_cast<const scalar_t*>(w),
       static_cast<const scalar_t*>(s2), static_cast<const int*>(Cind),
       static_cast<const int*>(profiles), static_cast<const scalar_t*>(ydata),
       static_cast<const unsigned char*>(valid), static_cast<scalar_t*>(out),
-      n, N, d, q, T);
+      n, N, d, q, P, T);
 }
 
 }  // namespace
@@ -170,10 +176,10 @@ int launch_dense(const void* Bs, const void* Gs, const void* Sigs,
                       const void* M0s, const void* C0s, const void* w,        \
                       const void* s2, const void* Cind, const void* profiles, \
                       const void* ydata, const void* valid, void* out, int n, \
-                      int N, int d, int q, int P, int T, int device,          \
+                      int N, int d, int q, int L, int P, int T, int device,   \
                       void* stream) {                                         \
     return launch_dense<TYPE>(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind, profiles,  \
-                              ydata, valid, out, n, N, d, q, P, T, device,    \
+                              ydata, valid, out, n, N, d, q, L, P, T, device, \
                               stream);                                        \
   }
 

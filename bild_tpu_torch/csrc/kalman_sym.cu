@@ -1,4 +1,5 @@
-// Packed-symmetric Rouse-Kalman log-likelihood: one block per profile.
+// Packed-symmetric Rouse-Kalman log-likelihood: one block per (lane,
+// profile), where a lane is one trajectory and all lanes share the model.
 //
 // Replaces the Pallas kernel bild_tpu/ops/kalman_sym.py::_kernel. The
 // covariance is carried packed: the PP = N(N+1)/2 entries (a, b), a <= b, in
@@ -16,7 +17,10 @@
 //   M += (Cw Sinv)[Cind] (y - w.M)
 //   ll -= 1/2 (xmm^2 Sinv - log Sinv + log 2pi)
 // The Pallas kernel propagated every profile through EVERY state and
-// selected with one-hot masks; here a block applies its own state only.
+// selected with one-hot masks, and got its trajectory axis from jax.vmap
+// around the call; here a block applies its own state only, and the grid
+// holds every (lane, profile) pair of a lockstep step: block b reads lane
+// b / P's frames.
 //
 // What bounds it on the H100: each block streams its state's whole P_s
 // (PP^2 scalars, 176 KB at N=20 in float32) from L2 at every frame, for
@@ -46,8 +50,8 @@ kalman_sym_kernel(const scalar_t* __restrict__ Pall,
                   const scalar_t* __restrict__ ydata,
                   const unsigned char* __restrict__ valid,
                   scalar_t* __restrict__ out,
-                  int n, int N, int d, int q, int T, int PPp, int S_OFF,
-                  int N1p) {
+                  int n, int N, int d, int q, int P, int T, int PPp,
+                  int S_OFF, int N1p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int PP = N * (N + 1) / 2;
   const int N1 = N + 1;
@@ -63,6 +67,9 @@ kalman_sym_kernel(const scalar_t* __restrict__ Pall,
   const int warp = tid >> 5;
   const int nwarps = nth >> 5;
   const int* prof = profiles + static_cast<size_t>(blockIdx.x) * T;
+  const size_t traj = blockIdx.x / P;  // this block's lane (trajectory)
+  const scalar_t* y_traj = ydata + traj * T * d;
+  const unsigned char* valid_traj = valid + traj * T;
   scalar_t ll = 0;  // accumulated by thread 0
 
   // out[(qi, row)] = A[row, :PP] . c[qi, :] (+ bias[row]) for rows 0..nrows-1;
@@ -97,7 +104,7 @@ kalman_sym_kernel(const scalar_t* __restrict__ Pall,
   __syncthreads();
 
   auto update = [&](int t) {
-    const scalar_t* y = ydata + static_cast<size_t>(t) * d;
+    const scalar_t* y = y_traj + static_cast<size_t>(t) * d;
     rows_dot_c(U1, nullptr, N1, N1, R,
                [&](int r) { return r < N ? r : S_OFF; });
     __syncthreads();
@@ -126,7 +133,7 @@ kalman_sym_kernel(const scalar_t* __restrict__ Pall,
     __syncthreads();
   };
 
-  if (valid[0]) update(0);
+  if (valid_traj[0]) update(0);
 
   for (int t = 1; t < T; ++t) {
     const int s = bild::clamp_state(prof[t], n);
@@ -145,7 +152,7 @@ kalman_sym_kernel(const scalar_t* __restrict__ Pall,
     scalar_t* tmp = c; c = cn; cn = tmp;
     tmp = M; M = Mn; Mn = tmp;
 
-    if (valid[t]) update(t);
+    if (valid_traj[t]) update(t);
   }
 
   if (tid == 0) out[blockIdx.x] = ll;
@@ -161,11 +168,11 @@ int launch_sym(const void* Pall, const void* sig, const void* c0,
                const void* U1, const void* Ballw, const void* Gsw,
                const void* M0w, const void* s2, const void* Cind,
                const void* profiles, const void* ydata, const void* valid,
-               void* out, int n, int N, int d, int q, int P, int T, int PPp,
-               int S_OFF, int N1p, int device, void* stream) {
+               void* out, int n, int N, int d, int q, int L, int P, int T,
+               int PPp, int S_OFF, int N1p, int device, void* stream) {
   const size_t smem = sym_smem_elems(N, d, q) * sizeof(scalar_t);
   return bild::launch_per_profile(
-      kalman_sym_kernel<scalar_t>, P, smem, device, stream,
+      kalman_sym_kernel<scalar_t>, L, P, smem, device, stream,
       static_cast<const scalar_t*>(Pall), static_cast<const scalar_t*>(sig),
       static_cast<const scalar_t*>(c0), static_cast<const scalar_t*>(U1),
       static_cast<const scalar_t*>(Ballw), static_cast<const scalar_t*>(Gsw),
@@ -173,7 +180,7 @@ int launch_sym(const void* Pall, const void* sig, const void* c0,
       static_cast<const int*>(Cind), static_cast<const int*>(profiles),
       static_cast<const scalar_t*>(ydata),
       static_cast<const unsigned char*>(valid), static_cast<scalar_t*>(out),
-      n, N, d, q, T, PPp, S_OFF, N1p);
+      n, N, d, q, P, T, PPp, S_OFF, N1p);
 }
 
 }  // namespace
@@ -184,10 +191,10 @@ int launch_sym(const void* Pall, const void* sig, const void* c0,
                       const void* M0w, const void* s2, const void* Cind,      \
                       const void* profiles, const void* ydata,                \
                       const void* valid, void* out, int n, int N, int d,      \
-                      int q, int P, int T, int PPp, int S_OFF, int N1p,       \
-                      int device, void* stream) {                             \
+                      int q, int L, int P, int T, int PPp, int S_OFF,         \
+                      int N1p, int device, void* stream) {                    \
     return launch_sym<TYPE>(Pall, sig, c0, U1, Ballw, Gsw, M0w, s2, Cind,     \
-                            profiles, ydata, valid, out, n, N, d, q, P, T,    \
+                            profiles, ydata, valid, out, n, N, d, q, L, P, T, \
                             PPp, S_OFF, N1p, device, stream);                 \
   }
 

@@ -8,10 +8,12 @@ base one is a host loop over `logL`.
 from __future__ import annotations
 
 import abc
+import hashlib
 
 import numpy as np
 import torch
 
+from ..infer.segment import dp_segment, profile_to_st
 from ..profiles import Loopingprofile
 
 __all__ = ["MultiStateModel"]
@@ -56,12 +58,53 @@ class MultiStateModel(metaclass=abc.ABCMeta):
                              for p in np.asarray(profiles)],
                             dtype=traj.data.dtype, device=traj.data.device)
 
+    def _fingerprint_parts(self):
+        """Hook for `likelihood_fingerprint`: array-likes that together
+        determine the likelihood (and segmentation scores), or ``None``
+        (the default): the model cannot fingerprint."""
+        return None
+
+    def likelihood_fingerprint(self):
+        """Hex digest of everything that determines this model's
+        likelihood, or ``None``. It hashes float64 host arrays, so it does
+        not depend on the device or dtype the model's tensors live in.
+        `parallel.sample_dataset` keys its chunk checkpoints on it."""
+        parts = self._fingerprint_parts()
+        if parts is None:
+            return None
+        h = hashlib.sha256()
+        h.update(type(self).__name__.encode())
+        h.update(np.ascontiguousarray(self.transitions).tobytes())
+        for p in parts:
+            a = np.ascontiguousarray(np.asarray(p, dtype=np.float64))
+            h.update(repr(a.shape).encode())
+            h.update(a.tobytes())
+        return h.hexdigest()
+
+    def _segment_table(self, traj):
+        """``(n, T)`` per-frame state-score table for DP segmentation, or
+        ``None`` if the model has no frame-factorized approximation."""
+        return None
+
     def segment_guess(self, traj, k):
-        """Informed ``(s_fractions, theta)`` initialization for AMIS; needs
-        the DP segmentation of `bild_tpu.infer.segment`, not ported yet."""
-        raise NotImplementedError(
-            "informed initialization needs infer/segment.py, which "
-            "bild_tpu_torch does not port yet; use informed_init=False")
+        """
+        Informed ``(s_fractions, theta)`` initialization for a k-switch AMIS
+        proposal: the optimal k-segmentation of the model's frame-factorized
+        score table (`infer.segment.dp_segment`). ``None`` when unavailable
+        or infeasible.
+        """
+        table = self._segment_table(traj)
+        if table is None:
+            return None
+        profile, _ = dp_segment(np.asarray(table), k, self.transitions)
+        if profile is None:
+            return None
+        return profile_to_st(profile)
+
+    def lockstep_segment_tables(self, batch):
+        """``(B, n, T)`` frame-factorized score tables for a batch, or
+        ``None`` (lockstep informed init then stays uniform)."""
+        return None
 
     # -- generative-path preprocessing ---------------------------------------
     def _preproc_localization_error(self, localization_error):

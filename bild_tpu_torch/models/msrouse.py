@@ -130,10 +130,22 @@ class MultiStateRouse(MultiStateModel):
                                                 device=self.device))
         self._sym_ops = None
         self._single_fns = {}
+        self._lockstep_fns = {}
+        self._factorized = None
 
     @property
     def d(self):
         return self._d
+
+    def _fingerprint_parts(self):
+        # the per-state dynamics, the measurement vector and the model
+        # noise determine the Kalman likelihood; localization_error=None
+        # (per-trajectory noise) is a distinct configuration: a sentinel
+        err = (np.asarray([-1.0]) if self.localization_error is None
+               else self.localization_error)
+        h = self.host
+        return [[self._d], err, h["w"], h["Bs"], h["Gs"], h["Sigs"],
+                h["M0s"], h["C0s"]]
 
     def sym_operators(self) -> SymOperators:
         """The packed-kernel operators, built once from the float64 arrays."""
@@ -212,11 +224,71 @@ class MultiStateRouse(MultiStateModel):
             self._single_fns[key] = logL_fn
         return (traj.data, traj.valid), self._single_fns[key]
 
-    # -- convenience -------------------------------------------------------------
+    def lockstep_fns(self, batch):
+        """
+        Lockstep-mode hooks: ``(per_traj, logL_fn)`` with ``per_traj =
+        (batch.data (B, T, d), batch.valid (B, T))`` and ``logL_fn(profiles
+        (L, P, T), (ydata (L, T, d), valid (L, T)))`` the ``(L, P)``
+        likelihood of each lane's profiles against its own trajectory: one
+        kernel launch for every lane. Needs a model-level
+        ``localization_error`` (one noise model for the dataset). The
+        closure is made once per kernel selection.
+        """
+        if self.localization_error is None:
+            raise ValueError("lockstep batch mode needs model.localization_error")
+        key = rouse_kernel()
+        if key not in self._lockstep_fns:
+            unique, Cind = np.unique(self.localization_error,
+                                     return_inverse=True)
+            s2 = torch.as_tensor(unique**2, dtype=self.dtype, device=self.device)
+            Cind = torch.as_tensor(Cind.astype(np.int32), device=self.device)
+            kern = self._kernel()
+            args = (self.Bs, self.Gs, self.Sigs, self.M0s, self.C0s, self.w,
+                    s2, Cind)
+
+            def logL_fn(profiles, per_lane):
+                ydata, valid = per_lane
+                profiles = torch.as_tensor(profiles, dtype=torch.int32,
+                                           device=self.device).contiguous()
+                return kern(*args, profiles, ydata.contiguous(),
+                            valid.contiguous())
+
+            self._lockstep_fns[key] = logL_fn
+        return (batch.data, batch.valid), self._lockstep_fns[key]
+
+    # -- frame-factorized approximation -------------------------------------
     def toFactorized(self):
-        raise NotImplementedError(
-            "FactorizedModel (models/factorized.py) is not ported to "
-            "bild_tpu_torch yet")
+        """
+        Time-scale-separated approximation: per state, a Maxwell
+        distribution of the distance from the steady-state measurement
+        variance ``w C_ss w`` plus the model noise per dimension.
+        """
+        import scipy.stats
+
+        from .factorized import FactorizedModel
+
+        noise2_per_d = (float(np.sum(self.localization_error**2)) / self.d
+                        if self.localization_error is not None else 0.0)
+        w = self.host["w"]
+        distributions = [
+            scipy.stats.maxwell(scale=np.sqrt(float(w @ C @ w) + noise2_per_d))
+            for C in self.host["C0s"]]
+        return FactorizedModel(distributions, d=self.d, device=self.device,
+                               dtype=self.dtype)
+
+    def _factorized_model(self):
+        if self._factorized is None:
+            self._factorized = self.toFactorized()
+        return self._factorized
+
+    def _segment_table(self, traj):
+        """Frame-factorized scores of the steady-state Maxwell
+        approximation (the one behind `initial_loopingprofile`)."""
+        return self._factorized_model()._segment_table(traj)
+
+    def lockstep_segment_tables(self, batch):
+        """``(B, n, T)`` frame-factorized score tables for a batch."""
+        return self._factorized_model().lockstep_segment_tables(batch)
 
     def initial_loopingprofile(self, traj) -> Loopingprofile:
         return self.toFactorized().initial_loopingprofile(traj)
@@ -264,3 +336,47 @@ class MultiStateRouse(MultiStateModel):
         return Trajectory.create(data, localization_error=localization_error,
                                  loopingprofile=profile,
                                  device=self.device, dtype=self.dtype)
+
+    def trajectories_from_loopingprofiles(
+            self, profiles, localization_error=None,
+            generator: Optional[torch.Generator] = None):
+        """
+        Batched generative model: one trajectory per row of the ``(B, T)``
+        int profile array, all B advanced frame by frame in one tensor.
+        Returns a `parallel.TrajectoryBatch` on the model's device.
+        """
+        from ..parallel.batch import TrajectoryBatch
+
+        if localization_error is None:
+            if self.localization_error is None:
+                raise ValueError("Need localization_error or model.localization_error")
+            localization_error = self.localization_error
+        localization_error = self._preproc_localization_error(localization_error)
+        profiles = torch.as_tensor(np.asarray(profiles, dtype=np.int64),
+                                   device=self.device)
+        B, T = profiles.shape
+        if generator is None:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(int(np.random.randint(2**31)))
+        N = self.Bs.shape[1]
+
+        def normal(*shape):
+            return torch.randn(shape, generator=generator, dtype=self.dtype,
+                               device=self.device)
+
+        st = profiles[:, 0]
+        conf = self.M0s[st] + self.L_sss[st] @ normal(B, N, self.d)  # (B, N, d)
+        meas = [self.w @ conf]
+        for t in range(1, T):
+            st = profiles[:, t]
+            conf = (self.Bs[st] @ conf + self.Gs[st]
+                    + self.L_sigs[st] @ normal(B, N, self.d))
+            meas.append(self.w @ conf)
+        data = torch.stack(meas, dim=1)                             # (B, T, d)
+        err = torch.as_tensor(localization_error, dtype=self.dtype,
+                              device=self.device)
+        data = data + err * normal(B, T, self.d)
+        return TrajectoryBatch(
+            data=data, valid=torch.ones((B, T), dtype=torch.bool,
+                                        device=self.device),
+            lengths=np.full(B, T))

@@ -8,10 +8,10 @@ kernel ``kalman_pallas.py::_kernel``): the same likelihood as
 profile and no re-symmetrization. It is the ``'dense'`` selector and the
 large-N fallback of the packed kernel (`ops.kalman_sym`).
 
-On the H100 one block evaluates one profile, with its covariance in shared
-memory for the whole frame loop; what bounds it is the latency of the
-per-frame ``__syncthreads()`` chain (see the source). Any P runs, with no
-padding.
+On the H100 one block evaluates one profile of one lane (trajectory), with
+its covariance in shared memory for the whole frame loop; what bounds it
+is the latency of the per-frame ``__syncthreads()`` chain (see the
+source). Any L and P run, with no padding.
 
 `msrouse_logL_dense` launches the kernel for CUDA tensors and runs
 `msrouse_logL_dense_torch` for CPU tensors; it never falls back from one to
@@ -25,10 +25,10 @@ import math
 import torch
 
 from . import _build
-from .kalman import in_range_mask, logL_dense_loop
+from .kalman import as_lanes, in_range_mask, logL_dense_loop
 
 __all__ = ["msrouse_logL_dense", "msrouse_logL_dense_torch",
-           "dense_smem_bytes", "SMEM_LIMIT"]
+           "dense_smem_bytes", "SMEM_LIMIT", "MAX_BLOCKS"]
 
 # the most dynamic shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT = 232448
@@ -53,10 +53,16 @@ def msrouse_logL_dense_torch(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind,
 msrouse_logL_dense_torch.calls = 0
 
 
+# blocks of one launch: the grid's x dimension holds at most 2^31 - 1
+MAX_BLOCKS = 2**31 - 1
+
+
 def check_cuda_args(floats: dict, profiles, ydata, valid):
-    """Shared argument checks of the CUDA wrappers: every float tensor on
-    ``ydata``'s device, in one supported dtype, contiguous; int32
-    ``(P, T)`` profiles and a bool ``(T,)`` mask on the same device."""
+    """Shared argument checks of the CUDA wrappers, on the lane form (see
+    `ops.kalman.as_lanes`): every float tensor on ``ydata``'s device, in
+    one supported dtype, contiguous; int32 ``(L, P, T)`` profiles and a
+    bool ``(L, T)`` mask on the same device; at most `MAX_BLOCKS` (lane,
+    profile) pairs. Returns the kernel's dtype suffix."""
     dev, dtype = ydata.device, ydata.dtype
     if dtype not in _FLOAT_SUFFIX:
         raise TypeError(f"kernel computes in float32 or float64, not {dtype}")
@@ -66,16 +72,17 @@ def check_cuda_args(floats: dict, profiles, ydata, valid):
                              f"expected {dtype} on {dev}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if profiles.dim() != 2 or profiles.dtype != torch.int32 \
-            or profiles.device != dev or not profiles.is_contiguous():
-        raise ValueError("profiles must be a contiguous int32 (P, T) tensor "
+    if profiles.dtype != torch.int32 or profiles.device != dev \
+            or not profiles.is_contiguous():
+        raise ValueError("profiles must be a contiguous int32 tensor "
                          f"on {dev}")
-    T = profiles.shape[1]
-    if ydata.dim() != 2 or ydata.shape[0] != T:
-        raise ValueError(f"ydata must be (T={T}, d); got {tuple(ydata.shape)}")
-    if valid.shape != (T,) or valid.dtype != torch.bool \
-            or valid.device != dev or not valid.is_contiguous():
-        raise ValueError(f"valid must be a contiguous bool ({T},) tensor on {dev}")
+    if valid.dtype != torch.bool or valid.device != dev \
+            or not valid.is_contiguous():
+        raise ValueError(f"valid must be a contiguous bool tensor on {dev}")
+    L, P, _ = profiles.shape
+    if L * P > MAX_BLOCKS:
+        raise ValueError(f"{L} lanes x {P} profiles = {L * P} blocks; one "
+                         f"launch takes at most {MAX_BLOCKS}")
     return _FLOAT_SUFFIX[dtype]
 
 
@@ -89,16 +96,18 @@ def cind_tensor(Cind, d, device):
 def msrouse_logL_dense(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind,
                        profiles, ydata, valid):
     """
-    ``(P,)`` log-likelihoods, arguments as `ops.kalman.msrouse_logL_batch`.
-    CUDA tensors launch the kernel on the current stream (no
-    synchronization); CPU tensors run `msrouse_logL_dense_torch`.
-    Out-of-range states give NaN.
+    Log-likelihoods, arguments and shapes as `ops.kalman.msrouse_logL_batch`
+    (``(L, P)`` for L lanes, ``(P,)`` for the single-lane form). CUDA
+    tensors launch the kernel, one block per (lane, profile), on the
+    current stream (no synchronization); CPU tensors run
+    `msrouse_logL_dense_torch`. Out-of-range states give NaN.
     """
     if ydata.device.type == "cpu":
         return msrouse_logL_dense_torch(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind,
                                         profiles, ydata, valid)
     if ydata.device.type != "cuda":
         raise ValueError(f"no kernel for device {ydata.device}")
+    profiles, ydata, valid, single = as_lanes(profiles, ydata, valid)
     n, N, _ = Bs.shape
     d = Gs.shape[2]
     q = s2.shape[0]
@@ -107,7 +116,7 @@ def msrouse_logL_dense(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind,
                           profiles, ydata, valid)
     if Sigs.shape != (n, N, N) or C0s.shape != (n, N, N) \
             or Gs.shape != (n, N, d) or M0s.shape != (n, N, d) \
-            or w.shape != (N,) or ydata.shape[1] != d:
+            or w.shape != (N,) or ydata.shape[2] != d:
         raise ValueError("inconsistent model shapes")
     smem = dense_smem_bytes(N, d, q, ydata.element_size())
     if smem > SMEM_LIMIT:
@@ -115,20 +124,22 @@ def msrouse_logL_dense(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind,
             f"dense kernel needs {smem} B of shared memory per block at "
             f"N={N}, d={d}, q={q}, {ydata.dtype}; Hopper allows {SMEM_LIMIT}")
     Cind = cind_tensor(Cind, d, ydata.device)
-    P, T = profiles.shape
-    out = torch.empty((P,), dtype=ydata.dtype, device=ydata.device)
-    if P == 0:
-        return out
-    lib, fn = _build.entry("kalman_dense", f"bild_kalman_dense_{sfx}", 12, 7)
-    rc = fn(Bs.data_ptr(), Gs.data_ptr(), Sigs.data_ptr(), M0s.data_ptr(),
-            C0s.data_ptr(), w.data_ptr(), s2.data_ptr(), Cind.data_ptr(),
-            profiles.data_ptr(), ydata.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), n, N, d, q, P, T, ydata.device.index or 0,
-            torch.cuda.current_stream(ydata.device).cuda_stream)
-    msrouse_logL_dense.launches += 1
-    _build.check(lib, rc, "kalman_dense launch")
-    return torch.where(in_range_mask(profiles, n), out,
-                       torch.full_like(out, math.nan))
+    L, P, T = profiles.shape
+    out = torch.empty((L, P), dtype=ydata.dtype, device=ydata.device)
+    if L * P > 0:
+        lib, fn = _build.entry("kalman_dense", f"bild_kalman_dense_{sfx}",
+                               12, 8)
+        rc = fn(Bs.data_ptr(), Gs.data_ptr(), Sigs.data_ptr(),
+                M0s.data_ptr(), C0s.data_ptr(), w.data_ptr(), s2.data_ptr(),
+                Cind.data_ptr(), profiles.data_ptr(), ydata.data_ptr(),
+                valid.data_ptr(), out.data_ptr(), n, N, d, q, L, P, T,
+                ydata.device.index or 0,
+                torch.cuda.current_stream(ydata.device).cuda_stream)
+        msrouse_logL_dense.launches += 1
+        _build.check(lib, rc, "kalman_dense launch")
+        out = torch.where(in_range_mask(profiles, n), out,
+                          torch.full_like(out, math.nan))
+    return out[0] if single else out
 
 
 msrouse_logL_dense.launches = 0

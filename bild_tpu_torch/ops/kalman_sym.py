@@ -14,7 +14,8 @@ contraction ``R = U1 c`` gives ``Cw`` and ``w.C.w``; the rank-1 downdate is
 ``c[(a,b)] -= Cw_a Cw_b / S``. The mean propagator carries an extra
 ``w.B_s`` row, so the predicted measurement mean comes with it.
 
-On the H100 one block evaluates one profile. Each frame it streams its
+On the H100 one block evaluates one profile of one lane (trajectory), so
+one launch covers a whole lockstep AMIS step. Each frame it streams its
 state's ``P_s`` rows from L2, which is what bounds it (see the source).
 Operators larger than `SYM_OPERATOR_BUDGET` would no longer stay in L2,
 and the dense kernel needs only ``n N^2`` operator scalars: above it the
@@ -34,7 +35,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .kalman import LOG_2PI, in_range_mask
+from .kalman import LOG_2PI, as_lanes, in_range_mask
 from .kalman_dense import (SMEM_LIMIT, check_cuda_args, cind_tensor,
                            msrouse_logL_dense)
 
@@ -158,54 +159,58 @@ class SymOperators:
 def msrouse_logL_sym_torch(ops: SymOperators, s2, Cind, profiles, ydata,
                            valid):
     """Plain PyTorch version of the packed kernel: the same algorithm on
-    the same operators, every profile of the batch in one tensor."""
+    the same operators, every profile of every lane in one tensor. Shapes
+    as `ops.kalman.msrouse_logL_batch` (lane or single-lane form)."""
     msrouse_logL_sym_torch.calls += 1
+    profiles, ydata, valid, single = as_lanes(profiles, ydata, valid)
     n, N, PPp, S_OFF, N1p = ops.n, ops.N, ops.PPp, ops.S_OFF, ops.N1p
-    P, T = profiles.shape
+    L, P, T = profiles.shape
+    R = L * P
     q = s2.shape[0]
     dev = ydata.device
     Cind = torch.as_tensor(Cind, dtype=torch.long, device=dev)
-    prof = profiles.long().clamp(0, n - 1)
-    valid_host = valid.tolist()
+    prof = profiles.reshape(R, T).long().clamp(0, n - 1)
+    lane = torch.arange(R, device=dev) // P                # row -> lane
     ia, ja = (torch.as_tensor(i, device=dev) for i in np.triu_indices(N))
 
     st0 = prof[:, 0]
-    c = ops.c0[st0][:, None, :].expand(P, q, PPp)          # (P, q, PPp)
-    M = ops.M0w[st0]                                       # (P, N1p, d)
-    acc = torch.zeros((P,), dtype=ydata.dtype, device=dev)
+    c = ops.c0[st0][:, None, :].expand(R, q, PPp)          # (R, q, PPp)
+    M = ops.M0w[st0]                                       # (R, N1p, d)
+    acc = torch.zeros((R,), dtype=ydata.dtype, device=dev)
 
-    def update(c, M, y):
-        R1 = c @ ops.U1.T                                  # (P, q, U1Rows)
-        Sinv = 1.0 / (R1[..., S_OFF] + s2)                 # (P, q)
-        Cw = R1[..., :N]                                   # (P, q, N)
+    def observe(t, c, M, acc):
+        y = ydata[lane, t]                                 # (R, d)
+        R1 = c @ ops.U1.T                                  # (R, q, U1Rows)
+        Sinv = 1.0 / (R1[..., S_OFF] + s2)                 # (R, q)
+        Cw = R1[..., :N]                                   # (R, q, N)
         upd = torch.zeros_like(c)
         upd[..., :len(ia)] = Cw[..., ia] * Cw[..., ja]
-        c = c - upd * Sinv[..., None]
-        xmm = y[None, :] - M[:, N, :]                      # (P, d)
-        K = Cw * Sinv[..., None]                           # (P, q, N)
+        c_u = c - upd * Sinv[..., None]
+        xmm = y - M[:, N, :]                               # (R, d)
+        K = Cw * Sinv[..., None]                           # (R, q, N)
         M_top = M[:, :N] + K[:, Cind].transpose(1, 2) * xmm[:, None, :]
-        M = torch.cat([M_top, M[:, N:]], dim=1)
-        Sd = Sinv[:, Cind]                                 # (P, d)
-        ll = -0.5 * (xmm * xmm * Sd - torch.log(Sd) + LOG_2PI)
-        return c, M, ll.sum(dim=1)
+        M_u = torch.cat([M_top, M[:, N:]], dim=1)
+        Sd = Sinv[:, Cind]                                 # (R, d)
+        ll = (-0.5 * (xmm * xmm * Sd - torch.log(Sd) + LOG_2PI)).sum(dim=1)
+        v = valid[lane, t]                                 # (R,)
+        return (torch.where(v[:, None, None], c_u, c),
+                torch.where(v[:, None, None], M_u, M),
+                acc + torch.where(v, ll, 0.0))
 
-    if valid_host[0]:
-        c, M, ll = update(c, M, ydata[0])
-        acc = acc + ll
-
-    rows = torch.arange(P, device=dev)
+    c, M, acc = observe(0, c, M, acc)
+    rows = torch.arange(R, device=dev)
     for t in range(1, T):
         st = prof[:, t]
-        Pc = (c @ ops.Pall.T).view(P, q, n, PPp)           # every state
+        Pc = (c @ ops.Pall.T).view(R, q, n, PPp)           # every state
         c = Pc[rows, :, st] + ops.sig[st][:, None, :]
         BM = torch.einsum("rk,pkd->prd", ops.Ballw, M[:, :N])
-        M = BM.view(P, n, N1p, -1)[rows, st] + ops.Gsw[st]
-        if valid_host[t]:
-            c, M, ll = update(c, M, ydata[t])
-            acc = acc + ll
+        M = BM.view(R, n, N1p, -1)[rows, st] + ops.Gsw[st]
+        c, M, acc = observe(t, c, M, acc)
 
-    return torch.where(in_range_mask(profiles, n), acc,
-                       torch.full_like(acc, math.nan))
+    acc = acc.view(L, P)
+    out = torch.where(in_range_mask(profiles, n), acc,
+                      torch.full_like(acc, math.nan))
+    return out[0] if single else out
 
 
 msrouse_logL_sym_torch.calls = 0
@@ -214,11 +219,12 @@ msrouse_logL_sym_torch.calls = 0
 def msrouse_logL_sym(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind, profiles, ydata,
                      valid, ops: SymOperators | None = None):
     """
-    ``(P,)`` log-likelihoods, arguments as `ops.kalman.msrouse_logL_batch`,
-    plus the prebuilt packed operators ``ops`` (built here if omitted;
-    models pass theirs, built once in float64). Shapes that `sym_fits`
-    refuses go to the dense kernel. CUDA tensors launch the kernel on the
-    current stream (no synchronization); CPU tensors run
+    Log-likelihoods, arguments and shapes as `ops.kalman.msrouse_logL_batch`
+    (``(L, P)`` for L lanes, ``(P,)`` for the single-lane form), plus the
+    prebuilt packed operators ``ops`` (built here if omitted; models pass
+    theirs, built once in float64). Shapes that `sym_fits` refuses go to
+    the dense kernel. CUDA tensors launch the kernel, one block per (lane,
+    profile), on the current stream (no synchronization); CPU tensors run
     `msrouse_logL_sym_torch`. Out-of-range states give NaN.
     """
     n, N, _ = Bs.shape
@@ -234,30 +240,31 @@ def msrouse_logL_sym(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind, profiles, ydata,
         return msrouse_logL_sym_torch(ops, s2, Cind, profiles, ydata, valid)
     if ydata.device.type != "cuda":
         raise ValueError(f"no kernel for device {ydata.device}")
+    profiles, ydata, valid, single = as_lanes(profiles, ydata, valid)
     sfx = check_cuda_args(dict(Pall=ops.Pall, sig=ops.sig, c0=ops.c0,
                                U1=ops.U1, Ballw=ops.Ballw, Gsw=ops.Gsw,
                                M0w=ops.M0w, s2=s2, ydata=ydata),
                           profiles, ydata, valid)
     if ops.n != n or ops.N != N or ops.Gsw.shape[2] != d \
-            or ydata.shape[1] != d:
+            or ydata.shape[2] != d:
         raise ValueError("packed operators do not match the model shapes")
     Cind = cind_tensor(Cind, d, ydata.device)
-    P, T = profiles.shape
-    out = torch.empty((P,), dtype=ydata.dtype, device=ydata.device)
-    if P == 0:
-        return out
-    lib, fn = _build.entry("kalman_sym", f"bild_kalman_sym_{sfx}", 13, 10)
-    rc = fn(ops.Pall.data_ptr(), ops.sig.data_ptr(), ops.c0.data_ptr(),
-            ops.U1.data_ptr(), ops.Ballw.data_ptr(), ops.Gsw.data_ptr(),
-            ops.M0w.data_ptr(), s2.data_ptr(), Cind.data_ptr(),
-            profiles.data_ptr(), ydata.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), n, N, d, q, P, T, ops.PPp, ops.S_OFF, ops.N1p,
-            ydata.device.index or 0,
-            torch.cuda.current_stream(ydata.device).cuda_stream)
-    msrouse_logL_sym.launches += 1
-    _build.check(lib, rc, "kalman_sym launch")
-    return torch.where(in_range_mask(profiles, n), out,
-                       torch.full_like(out, math.nan))
+    L, P, T = profiles.shape
+    out = torch.empty((L, P), dtype=ydata.dtype, device=ydata.device)
+    if L * P > 0:
+        lib, fn = _build.entry("kalman_sym", f"bild_kalman_sym_{sfx}", 13, 11)
+        rc = fn(ops.Pall.data_ptr(), ops.sig.data_ptr(), ops.c0.data_ptr(),
+                ops.U1.data_ptr(), ops.Ballw.data_ptr(), ops.Gsw.data_ptr(),
+                ops.M0w.data_ptr(), s2.data_ptr(), Cind.data_ptr(),
+                profiles.data_ptr(), ydata.data_ptr(), valid.data_ptr(),
+                out.data_ptr(), n, N, d, q, L, P, T, ops.PPp, ops.S_OFF,
+                ops.N1p, ydata.device.index or 0,
+                torch.cuda.current_stream(ydata.device).cuda_stream)
+        msrouse_logL_sym.launches += 1
+        _build.check(lib, rc, "kalman_sym launch")
+        out = torch.where(in_range_mask(profiles, n), out,
+                          torch.full_like(out, math.nan))
+    return out[0] if single else out
 
 
 msrouse_logL_sym.launches = 0

@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .lanes import lane_cumsum
+
 __all__ = [
     "Loopingprofile",
     "state_probabilities",
@@ -110,7 +112,7 @@ def count_switches(states: torch.Tensor) -> torch.Tensor:
 
 
 def st2profile(s: torch.Tensor, theta: torch.Tensor, T: int,
-               active=None) -> torch.Tensor:
+               active=None, exact=False) -> torch.Tensor:
     """
     Convert ``(s, θ)`` to discrete profiles: ``s, θ (..., k+1)`` ->
     ``(..., T)`` int32.
@@ -118,20 +120,22 @@ def st2profile(s: torch.Tensor, theta: torch.Tensor, T: int,
     Floor discretization as in `bild_tpu.profiles.st2profile`: switch
     positions ``cumsum(s)[:k]`` in [0, 1) map to frames
     ``floor(pos * (T-1)) + 1``, and frame ``t`` takes ``θ`` of the number of
-    switches at or before it. ``active`` (bool ``(k+1,)``, padded-k mode)
-    disables the switches into padded slots: the cumulative position at the
-    end of the active slots is 1 only up to round-off, and ``1 - eps``
-    would floor to a spurious switch at the last frame.
+    switches at or before it. ``active`` (bool, broadcastable to ``s``:
+    ``(k+1,)``, or one mask per lane; padded-k mode) disables the switches
+    into padded slots: the cumulative position at the end of the active
+    slots is 1 only up to round-off, and ``1 - eps`` would floor to a
+    spurious switch at the last frame. The positions are a `lane_cumsum`,
+    lane-exact with ``exact`` (the lockstep runner).
     """
     theta = theta.to(torch.int32)
     k = s.shape[-1] - 1
     if k == 0:
         return theta[..., :1].expand(*theta.shape[:-1], T).clone()
-    switchpos = torch.cumsum(s, dim=-1)[..., :-1]                      # (..., k)
+    switchpos = lane_cumsum(s[..., :-1], exact=exact)                 # (..., k)
     switches = torch.floor(switchpos * (T - 1)).to(torch.int32) + 1
     t_idx = torch.arange(T, dtype=torch.int32, device=s.device)
     counts = switches[..., None, :] <= t_idx[:, None]                # (..., T, k)
     if active is not None:
-        counts = counts & active[1:]
+        counts = counts & active[..., None, 1:]
     iv_idx = counts.sum(dim=-1)                                      # (..., T)
     return torch.gather(theta, -1, iv_idx).to(torch.int32)

@@ -88,8 +88,25 @@ class Trajectory:
         val = self.valid.cpu().numpy()
         return np.where(val[:, None], dat, np.nan)[key]
 
+    def magnitudes(self) -> torch.Tensor:
+        """``(T,)`` distance magnitudes; 0 at missing frames (use ``valid``)."""
+        return torch.linalg.vector_norm(self.data, dim=1)
+
     def count_valid_frames(self) -> int:
         return int(self.valid.sum())
+
+    # -- hashing for memo tables: on the host data, not on tensor identity
+    def __hash__(self):
+        return hash((tuple(self.data.shape),
+                     self.data.detach().cpu().numpy().tobytes()))
+
+    def __eq__(self, other):
+        if not isinstance(other, Trajectory):
+            return NotImplemented
+        return (self.data.shape == other.data.shape
+                and self.data.dtype == other.data.dtype
+                and torch.equal(self.data.cpu(), other.data.cpu())
+                and torch.equal(self.valid.cpu(), other.valid.cpu()))
 
 
 def make_trajectory(obj, localization_error=None, *, device="cpu",

@@ -5,7 +5,8 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
     python3 chip_smoke.py          (from the repository root)
 
 1. Builds the CUDA kernels of ``bild_tpu_torch/csrc/`` (into
-   ``bild_tpu_torch/_build/``) and prints the build seconds.
+   ``bild_tpu_torch/_build/``), one nvcc per source, all at once, and
+   prints the build seconds.
 2. Kernel phase: each kernel against its plain PyTorch version on the card
    (float32, rtol 2e-5 per profile) and against the float64 oracle
    (float32: rtol 2e-5; the kernels' float64 build: rtol 1e-9), at the
@@ -18,6 +19,21 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    and `bild_tpu_torch.sample()` with its defaults, once per kernel
    selector. The launch counters must show that the run went through the
    selected kernel and never through a plain version.
+5. Lane phase: both kernels on one lane batch (L=6 trajectories with their
+   own missing frames, P=37, T=100, out-of-range rows in two lanes), in
+   float32 and float64, against the plain version, the f64 oracle and six
+   single-lane launches of the same kernel (bit for bit).
+6. Lockstep phase: both kernels against their plain versions at every lane
+   shape the dataset run below launches (per 64-trajectory chunk: scout
+   L=320, refine L=192, P=128; the boundary climb L=64, P=9) and at
+   L=640, P=128 (config 3 in one chunk), where both are also timed.
+7. Dataset phase (bench_e2e.py config 3): 128 trajectories of T=100 made by
+   the port's batched generator, `parallel.sample_dataset` with informed
+   init, the scout/refine schedule, marginals, the boundary climb and chunk
+   checkpoints, once per kernel selector: accuracy against the truths, the
+   launch counters, a rerun that loads both chunks, the device-busy share
+   under torch.profiler, and the per-k checkpointed `sample_batch` equal to
+   the all-k one on a 16-trajectory chunk.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -27,8 +43,11 @@ printed. Without a CUDA device it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -36,6 +55,10 @@ import torch
 RTOL_F32 = 2e-5
 RTOL_F64 = 1e-9
 SLICE_ACCURACY = 0.9
+# the dataset phase's bars; bild_tpu's own run of this configuration
+# recorded 0.993 and 0.852 (PERF_r04.json)
+DATASET_FRAME_ACCURACY = 0.97
+DATASET_SWITCH_ACCURACY = 0.75
 N, D, KSPRING, DIM, T = 20, 1.0, 5.0, 3, 100
 DEVICE = "cuda"
 
@@ -138,6 +161,340 @@ def kernel_phase(bt, rng):
     return max_abs
 
 
+def counters():
+    """Every kernel's launch counter and every plain version's call
+    counter, as (function, attribute) by name."""
+    from bild_tpu_torch.ops import kalman, kalman_dense, kalman_sym
+    return {
+        "kalman_sym": (kalman_sym.msrouse_logL_sym, "launches"),
+        "kalman_dense": (kalman_dense.msrouse_logL_dense, "launches"),
+        "plain_sym": (kalman_sym.msrouse_logL_sym_torch, "calls"),
+        "plain_dense": (kalman_dense.msrouse_logL_dense_torch, "calls"),
+        "plain_torch": (kalman.msrouse_logL_batch, "calls"),
+    }
+
+
+def reset_counts():
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_counts():
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+
+
+def lane_kernel_phase(bt, rng, max_abs):
+    """Both kernels on one (L=6, P=37, T=100) lane batch: per lane its own
+    trajectory and missing frames (lane 1 misses its first frame), and
+    out-of-range rows in lanes 1 and 4. Each launch is held against its
+    plain version, the f64 oracle on two rows per lane, and six single-lane
+    launches of the same kernel, which must agree bit for bit."""
+    from bild_tpu_torch.ops.kalman_dense import (msrouse_logL_dense,
+                                                 msrouse_logL_dense_torch)
+    from bild_tpu_torch.ops.kalman_sym import (msrouse_logL_sym,
+                                               msrouse_logL_sym_torch)
+    from bild_tpu_torch.ops.oracle import msrouse_logL_numpy
+
+    L, P = 6, 37
+    bad = {(1, 3): 2, (4, 11): -1}
+    prof = np.stack([make_profiles(rng, P, 2, T) for _ in range(L)])
+    for (lane, row), state in bad.items():
+        prof[lane, row, T // 2] = state
+    nan_rows = np.zeros((L, P), dtype=bool)
+    for lane, row in bad:
+        nan_rows[lane, row] = True
+    valid = np.ones((L, T), dtype=bool)
+    valid[1, 0] = False
+    for lane in range(2, L):
+        valid[lane, rng.choice(T, size=3 * lane, replace=False)] = False
+    for dtype, rtol in ((torch.float32, RTOL_F32), (torch.float64, RTOL_F64)):
+        model = bt.models.MultiStateRouse(
+            N, D, KSPRING, d=DIM, localization_error=(0.1, 0.2, 0.1),
+            device=DEVICE, dtype=dtype)
+        batch = model.trajectories_from_loopingprofiles(
+            make_profiles(rng, L, 2, T),
+            generator=torch.Generator(device=DEVICE).manual_seed(11))
+        valid_t = torch.as_tensor(valid, device=DEVICE)
+        ydata = torch.where(valid_t[..., None], batch.data, 0.0).contiguous()
+        prof_t = torch.as_tensor(prof, device=DEVICE)
+        s2, Cind = model._noise_arrays(bt.Trajectory(ydata[0], valid_t[0]))
+        args = (model.Bs, model.Gs, model.Sigs, model.M0s, model.C0s,
+                model.w, s2, Cind)
+        ops = model.sym_operators()
+        kernels = {
+            "kalman_sym": (lambda *a: msrouse_logL_sym(*args, *a, ops=ops),
+                           lambda *a: msrouse_logL_sym_torch(ops, s2, Cind, *a)),
+            "kalman_dense": (lambda *a: msrouse_logL_dense(*args, *a),
+                             lambda *a: msrouse_logL_dense_torch(*args, *a)),
+        }
+        h = model.host
+        data_nan = np.where(valid[..., None], ydata.cpu().numpy(), np.nan)
+        for name, (kern, plain) in kernels.items():
+            got = kern(prof_t, ydata, valid_t)
+            singles = [kern(prof_t[i], ydata[i], valid_t[i]) for i in range(L)]
+            want = plain(prof_t, ydata, valid_t)
+            torch.cuda.synchronize()
+            got, want = got.cpu().numpy(), want.cpu().numpy()
+            label = f"{name:12s} {str(dtype)[6:]:7s} lanes L={L} P={P}"
+            check(got.shape == (L, P), f"{label}: result shape {got.shape}")
+            check(np.array_equal(np.isnan(got), nan_rows),
+                  f"{label}: NaN exactly on the out-of-range rows")
+            check(all(np.array_equal(one.cpu().numpy(), got[i], equal_nan=True)
+                      for i, one in enumerate(singles)),
+                  f"{label}: single-lane launches equal the lane launch bit for bit")
+            e_plain = rel_err(got, want)
+            orc_err = 0.0
+            for lane in range(L):
+                rows = [r for r in range(P) if not nan_rows[lane, r]][:2]
+                orc = np.array([msrouse_logL_numpy(
+                    h["Bs"], h["Gs"], h["Sigs"], h["M0s"], h["C0s"], h["w"],
+                    np.array([0.1, 0.2, 0.1]), prof[lane, r], data_nan[lane])
+                    for r in rows])
+                orc_err = max(orc_err, rel_err(got[lane, rows], orc))
+            line = f"{label}  plain rel {e_plain:.2e}  oracle rel {orc_err:.2e}"
+            check(e_plain <= rtol, f"{line}: plain within {rtol}")
+            check(orc_err <= rtol, f"{line}: oracle within {rtol}")
+            if dtype == torch.float32:
+                fin = ~nan_rows
+                max_abs[name] = max(max_abs[name], float(
+                    np.max(np.abs(got[fin] - want[fin]))))
+            print(line, flush=True)
+
+
+# (label, lanes, profiles per lane, trajectories the lanes cycle over): the
+# launches of the dataset phase. Per 64-trajectory chunk the scout steps
+# run 5 k x 64 lanes and the refine steps 3 x 64, 128 proposals each; the
+# boundary climb scores 2 Kb + 1 = 9 candidates (Kb = k_max = 4) of each
+# of up to 64 trajectories. The last shape is config 3 in one chunk.
+LOCKSTEP_SHAPES = (
+    ("chunk scout", 320, 128, 64),
+    ("chunk refine", 192, 128, 64),
+    ("boundary climb", 64, 9, 64),
+    ("one chunk of 128", 640, 128, 128),
+)
+
+
+def lockstep_phase(bt, rng, max_abs):
+    """Both kernels against their plain versions (float32, rtol 2e-5 per
+    profile, NaN exactly where the plain version has NaN) at every shape of
+    `LOCKSTEP_SHAPES`: the dataset phase's trajectories, each lane with its
+    own missing frames, and out-of-range rows in the first and the last
+    lane. At the largest shape both are also timed, in the order plain,
+    kernel, kernel, plain."""
+    from bild_tpu_torch.ops.kalman_dense import (msrouse_logL_dense,
+                                                 msrouse_logL_dense_torch)
+    from bild_tpu_torch.ops.kalman_sym import (msrouse_logL_sym,
+                                               msrouse_logL_sym_torch)
+
+    L_max = max(s[1] for s in LOCKSTEP_SHAPES)
+    P_max = max(s[2] for s in LOCKSTEP_SHAPES)
+    model = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
+                                      localization_error=0.1,
+                                      device=DEVICE, dtype=torch.float32)
+    batch = model.trajectories_from_loopingprofiles(
+        truth_profiles(np.random.default_rng(3), 128, T, 2),
+        generator=torch.Generator(device=DEVICE).manual_seed(3))
+    profs = np.stack([make_profiles(rng, P_max, 2, T) for _ in range(L_max)])
+    valid_all = rng.random((L_max, T)) > 0.05
+    ops = model.sym_operators()
+    s2, Cind = model._noise_arrays(bt.Trajectory(batch.data[0], batch.valid[0]))
+    args = (model.Bs, model.Gs, model.Sigs, model.M0s, model.C0s, model.w,
+            s2, Cind)
+    kernels = {
+        "kalman_sym": (lambda *a: msrouse_logL_sym(*args, *a, ops=ops),
+                       lambda *a: msrouse_logL_sym_torch(ops, s2, Cind, *a)),
+        "kalman_dense": (lambda *a: msrouse_logL_dense(*args, *a),
+                         lambda *a: msrouse_logL_dense_torch(*args, *a)),
+    }
+    times = {}
+    for label, L, P, B in LOCKSTEP_SHAPES:
+        rows = torch.arange(L, device=DEVICE) % B
+        valid = torch.as_tensor(valid_all[:L], device=DEVICE)
+        ydata = batch.data[rows].contiguous()
+        prof = profs[:L, :P].copy()
+        prof[0, P // 2, T // 3] = 2
+        prof[L - 1, P - 1, T - 1] = -1
+        nan_rows = np.zeros((L, P), dtype=bool)
+        nan_rows[0, P // 2] = nan_rows[L - 1, P - 1] = True
+        prof = torch.as_tensor(prof, device=DEVICE)
+        for name, (kern, plain) in kernels.items():
+            got = kern(prof, ydata, valid)
+            want = plain(prof, ydata, valid)
+            torch.cuda.synchronize()
+            got, want = got.cpu().numpy(), want.cpu().numpy()
+            line = f"{name:12s} lockstep {label:17s} L={L:3d} P={P:3d}"
+            check(got.shape == (L, P), f"{line}: result shape {got.shape}")
+            check(np.array_equal(np.isnan(got), np.isnan(want))
+                  and np.array_equal(np.isnan(got), nan_rows),
+                  f"{line}: NaN exactly on the out-of-range rows, as the "
+                  "plain version")
+            e_plain = rel_err(got, want)
+            line += f"  plain rel {e_plain:.2e}"
+            check(e_plain <= RTOL_F32, f"{line}: plain within {RTOL_F32}")
+            fin = ~nan_rows
+            max_abs[name] = max(max_abs[name], float(
+                np.max(np.abs(got[fin] - want[fin]))))
+            print(line, flush=True)
+            if L == L_max and P == P_max:
+                p1 = time_ms(lambda: plain(prof, ydata, valid), 1)
+                k1, k2 = (time_ms(lambda: kern(prof, ydata, valid), 2)
+                          for _ in range(2))
+                p2 = time_ms(lambda: plain(prof, ydata, valid), 1)
+                ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+                times[name] = (ms, plain_ms)
+                print(f"time {name:12s} lockstep L={L} P={P}  kernel "
+                      f"{ms:9.3f} ms ({L * P / ms * 1e3:12.1f} profiles/s)  "
+                      f"plain {plain_ms:9.3f} ms "
+                      f"({L * P / plain_ms * 1e3:12.1f} profiles/s)",
+                      flush=True)
+    return times
+
+
+def truth_profiles(rng, B, T, n_states, k_max=4):
+    """Random piecewise-constant truth profiles with 0..k_max switches (as
+    bench_e2e.py's, which imports JAX and so is not imported here)."""
+    profs = np.zeros((B, T), dtype=int)
+    for b in range(B):
+        k = int(rng.integers(0, k_max + 1))
+        cuts = np.sort(rng.choice(np.arange(1, T), size=k, replace=False))
+        bounds = np.concatenate([[0], cuts, [T]])
+        s = int(rng.integers(0, n_states))
+        for i in range(k + 1):
+            profs[b, bounds[i]:bounds[i + 1]] = s
+            choices = [c for c in range(n_states) if c != s]
+            s = int(rng.choice(choices))
+    return profs
+
+
+def device_time_by_name(prof):
+    """``{name: (ms, count)}`` of the device's events (kernels, copies) in
+    a torch.profiler trace; empty if the trace holds none."""
+    out = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            ms, cnt = out.get(evt.name, (0.0, 0))
+            out[evt.name] = (ms + evt.time_range.elapsed_us() / 1e3, cnt + 1)
+    return out
+
+
+def dataset_phase(bt, B=128, chunk_size=64, sub_B=16):
+    """bench_e2e.py config 3 through `parallel.sample_dataset`, once per
+    kernel selector (see the module docstring)."""
+    from bild_tpu_torch.parallel import (TrajectoryBatch, sample_batch,
+                                         sample_dataset)
+    from bild_tpu_torch.parallel.batch import run_lanes
+    from bild_tpu_torch.postproc import optimize_boundary_batch
+
+    model = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
+                                      localization_error=0.1,
+                                      device=DEVICE, dtype=torch.float32)
+    truths = truth_profiles(np.random.default_rng(3), B, T, 2)
+    true_k = np.sum(truths[:, 1:] != truths[:, :-1], axis=1)
+    batch = model.trajectories_from_loopingprofiles(
+        truths, generator=torch.Generator(device=DEVICE).manual_seed(3))
+    trajs = [bt.Trajectory(data=batch.data[i], valid=batch.valid[i],
+                           localization_error=np.full(DIM, 0.1))
+             for i in range(B)]
+    kw = dict(k_max=4, steps_per_k=12, N=128, informed_init=True,
+              scout_steps=4, refine_top=3, marginals=True,
+              optimize_boundaries=True, chunk_size=chunk_size)
+    n_chunks = -(-B // chunk_size)
+    out = {}
+    for selector in ("sym", "dense"):
+        bt.config.set_rouse_kernel(selector)
+        with tempfile.TemporaryDirectory() as ck:
+            def run():
+                return sample_dataset(model, trajs, **kw, checkpoint_dir=ck,
+                                      generator=torch.Generator().manual_seed(7))
+
+            reset_counts()
+            run_lanes.steps = run_lanes.lane_steps = 0
+            optimize_boundary_batch.evaluations = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ran = read_counts()
+            evals = run_lanes.lane_steps * kw["N"] + optimize_boundary_batch.evaluations
+            steps, lane_steps = run_lanes.steps, run_lanes.lane_steps
+            check(len(os.listdir(ck)) == n_chunks, f"{n_chunks} chunk files written")
+            reset_counts()
+            again = run()
+            reloaded = read_counts()
+        acc = float(np.mean(np.concatenate(res.best_profile()) == truths.ravel()))
+        sw = float(np.mean(res.best_k() == true_k))
+        acc_opt = float(np.mean(np.concatenate(res.optimized) == truths.ravel()))
+        print(f"dataset selector={selector}: wall {wall:.3f} s, "
+              f"{B / wall:.2f} trajectories/s, {evals / wall:.1f} profile "
+              f"evaluations/s ({evals} evaluations), lockstep AMIS steps "
+              f"{steps} ({lane_steps} lane-steps), frame accuracy {acc:.4f}, "
+              f"switch-count accuracy {sw:.4f}, after the boundary climb "
+              f"{acc_opt:.4f} ({int(res.eliminated.sum())} eliminated), "
+              f"launches {ran}", flush=True)
+        check(ran[f"kalman_{selector}"] > 0, f"{selector} kernel launched")
+        check(all(ran[k] == 0 for k in ran if k.startswith("plain")),
+              "no plain version ran on the CUDA path")
+        check(acc >= DATASET_FRAME_ACCURACY,
+              f"frame accuracy {acc:.4f} >= {DATASET_FRAME_ACCURACY}")
+        check(sw >= DATASET_SWITCH_ACCURACY,
+              f"switch-count accuracy {sw:.4f} >= {DATASET_SWITCH_ACCURACY}")
+        check(np.all(np.isfinite(res.evidence)), "every evidence finite (k < T)")
+        check(res.mom_ok.all(), "CFC fixed point converged in every lane")
+        check(all(np.allclose(np.exp(m).sum(axis=1), 1.0, rtol=1e-4)
+                  for m in res.marginals), "marginals normalized")
+        check(all(v == 0 for v in reloaded.values()),
+              f"rerun loaded both chunks, launched nothing: {reloaded}")
+        check(np.array_equal(again.evidence, res.evidence)
+              and all(np.array_equal(a, b) for a, b in zip(
+                  again.profiles_by_k + again.marginals + again.optimized,
+                  res.profiles_by_k + res.marginals + res.optimized)),
+              "rerun from the chunk checkpoints returns identical arrays")
+
+        # device-busy share of one more run, traced
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            sample_dataset(model, trajs, **kw,
+                           generator=torch.Generator().manual_seed(7))
+            torch.cuda.synchronize()
+            wall_p = time.perf_counter() - t0
+        by_name = device_time_by_name(prof)
+        busy = sum(ms for ms, _ in by_name.values())
+        share = (f"{busy / 1e3 / wall_p:.4f} ({busy:.1f} ms of {wall_p:.3f} s "
+                 f"profiled wall, {sum(c for _, c in by_name.values())} device "
+                 "events)" if busy > 0 else "not measured (no device events "
+                 "in the trace)")
+        print(f"dataset selector={selector}: device busy share {share}",
+              flush=True)
+        for name, (ms, cnt) in sorted(by_name.items(),
+                                      key=lambda kv: -kv[1][0])[:5]:
+            print(f"    {ms:10.1f} ms {cnt:7d}x  {name[:90]}", flush=True)
+
+        # the per-k checkpointed schedule equals the all-k one
+        sub = TrajectoryBatch(data=batch.data[:sub_B], valid=batch.valid[:sub_B],
+                              lengths=np.full(sub_B, T))
+        bk = dict(k_max=4, steps_per_k=12, N=128, informed_init=True,
+                  marginals=True)
+        fused = sample_batch(model, sub, **bk,
+                             generator=torch.Generator().manual_seed(9))
+        with tempfile.TemporaryDirectory() as d:
+            per_k = sample_batch(model, sub, **bk,
+                                 checkpoint=os.path.join(d, "ck.npz"),
+                                 generator=torch.Generator().manual_seed(9))
+        same = all(np.array_equal(getattr(fused, f), getattr(per_k, f))
+                   for f in ("evidence", "evidence_se", "map_profiles",
+                             "marginals", "mom_ok"))
+        print(f"dataset selector={selector}: per-k checkpointed sample_batch "
+              f"on {sub_B} trajectories equals the all-k one: {same}",
+              flush=True)
+        check(same, "per-k checkpoint path equals the fused path")
+        out[selector] = ran
+    bt.config.set_rouse_kernel("sym")
+    return out
+
+
 def time_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -191,8 +548,6 @@ def timing_phase(bt, rng):
 
 def slice_phase(bt):
     """`sample()` on the README trajectory under each kernel selector."""
-    from bild_tpu_torch.ops import kalman, kalman_dense, kalman_sym
-
     model = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
                                       localization_error=0.1,
                                       device=DEVICE, dtype=torch.float32)
@@ -204,21 +559,9 @@ def slice_phase(bt):
     lls = lls.cpu().numpy()
     check(np.argmax(lls) == 0, f"true profile ranks first: {lls}")
 
-    counters = {
-        "kalman_sym": (kalman_sym.msrouse_logL_sym, "launches"),
-        "kalman_dense": (kalman_dense.msrouse_logL_dense, "launches"),
-        "plain_sym": (kalman_sym.msrouse_logL_sym_torch, "calls"),
-        "plain_dense": (kalman_dense.msrouse_logL_dense_torch, "calls"),
-        "plain_torch": (kalman.msrouse_logL_batch, "calls"),
-    }
-
-    def counts():
-        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
-
-    for fn, attr in counters.values():
-        setattr(fn, attr, 0)
+    reset_counts()
     for selector in ("sym", "dense"):
-        before = counts()
+        before = read_counts()
         bt.config.set_rouse_kernel(selector)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -226,7 +569,7 @@ def slice_phase(bt):
                         generator=torch.Generator(device=DEVICE).manual_seed(7))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        ran = {k: v - before[k] for k, v in counts().items()}
+        ran = {k: v - before[k] for k, v in read_counts().items()}
         best = np.asarray(res.best_profile()[:])
         acc = float(np.mean(best == true))
         post = res.log_marginal_posterior(dE="average")
@@ -245,7 +588,7 @@ def slice_phase(bt):
         check(all(ran[k] == 0 for k in ran if k.startswith("plain")),
               "no plain version ran on the CUDA path")
     bt.config.set_rouse_kernel("sym")
-    return counts()
+    return read_counts()
 
 
 def main():
@@ -263,14 +606,19 @@ def main():
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     bt.config.exact_fp32()
 
-    for name in ("kalman_sym", "kalman_dense"):
-        _build.load(name)
+    names = ("kalman_sym", "kalman_dense")
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_build.load, names))      # one nvcc per source, at once
+    for name in names:
         print(f"build {name}: {_build.build_seconds[name]:.2f} s", flush=True)
 
     rng = np.random.default_rng(20261016)
     max_abs = kernel_phase(bt, rng)
     times = timing_phase(bt, rng)
     launches = slice_phase(bt)
+    lane_kernel_phase(bt, rng, max_abs)
+    lock_times = lockstep_phase(bt, rng, max_abs)
+    ds_launches = dataset_phase(bt)
 
     replaces = {"kalman_sym": "bild_tpu/ops/kalman_sym.py:189",
                 "kalman_dense": "bild_tpu/ops/kalman_pallas.py:50"}
@@ -278,11 +626,13 @@ def main():
         "name": name, "route": "cuda",
         "source": f"bild_tpu_torch/csrc/{name}.cu",
         "replaces": replaces[name],
-        "launches": launches[name],
+        "launches": launches[name] + sum(r[name] for r in ds_launches.values()),
         "max_abs_err": max_abs[name],
         "ms": times[(name, 100)][0],
         "plain_ms": times[(name, 100)][1],
-    } for name in ("kalman_sym", "kalman_dense")]
+        "lockstep_ms": lock_times[name][0],
+        "lockstep_plain_ms": lock_times[name][1],
+    } for name in names]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,6 +2,7 @@
 densities and estimates, and one AMIS update on the same state and sample
 block (float64, rtol 1e-10); plus distribution checks of the samplers,
 whose random streams differ from jax.random by design."""
+import functools
 import itertools
 import math
 
@@ -17,6 +18,7 @@ from bild_tpu.amis import sampler as jsam
 from bild_tpu_torch.amis import cfc as tcfc
 from bild_tpu_torch.amis import dirichlet as tdir
 from bild_tpu_torch.amis import sampler as tsam
+import test_torch_kalman  # noqa: F401  (one torch thread per worker)
 
 RTOL = 1e-10
 F64 = torch.float64
@@ -264,3 +266,146 @@ def test_solve_marginals_freezes_like_bild_tpu(rng):
             jnp.asarray(lm), jnp.asarray(tr), precision=precision)
         assert_close(got, want)
         assert bool(conv) == bool(jconv)
+
+
+@pytest.mark.parametrize("steps", [0, 2])
+@pytest.mark.parametrize("tname", ["n=2", "n=3 chain"])
+def test_lane_batched_update_matches_vmapped_bild_tpu(rng, steps, tname):
+    """Three lanes at different k (one per-lane mask and prior each), fed
+    the same states and draws as bild_tpu's update under jax.vmap."""
+    tr = TRANSITIONS[tname]
+    S, N, K, n = 5, 32, 5, tr.shape[0]
+    k_acts = (1, 3, 2)
+    lanes = [_jax_state(rng, S, N, K, n, k, steps, tr, True) for k in k_acts]
+    jst = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs),
+                                 *[st for st, _, _ in lanes])
+    active = jnp.stack([act for _, act, _ in lanes])
+    draws = [jsam.amis_propose(st, key, jnp.asarray(tr), N=N, T=20, active=act)
+             for st, act, key in lanes]
+    ss, th, jprof = (jnp.stack(x) for x in zip(*draws))
+    lls = rng.normal(size=(3, N)) * 5 - 50
+    logprior = np.array([-1.0, -3.0, -2.0])
+
+    tst = tsam.AmisState.from_numpy(_to_numpy_lanes(jst), device="cpu",
+                                    dtype=F64)
+    assert tst.lanes == 3 and tst.n_steps == steps
+    t_act = T_(np.asarray(active))
+    _, _, tprof = tsam.amis_propose(tst, None, T_(tr), N=N, T=20,
+                                    active=t_act,
+                                    draws=(T_(ss), T_(th, torch.int32)))
+    np.testing.assert_array_equal(tprof.numpy(), np.asarray(jprof))
+
+    jst2, jout = jax.vmap(lambda st, s, t, ll, lp, act: jsam.amis_update(
+        st, s, t, ll, jnp.asarray(tr), lp, 1.0, 0.1, active=act))(
+        jst, ss, th, jnp.asarray(lls), jnp.asarray(logprior), active)
+    tst2, tout = tsam.amis_update(tst, T_(ss), T_(th, torch.int32), T_(lls),
+                                  T_(tr), T_(logprior), 1.0, 0.1, active=t_act)
+    for g, w in zip(tout, jout):
+        assert_close(g, w)
+    got, want = tst2.to_numpy(), _to_numpy_lanes(jst2)
+    assert got["n_steps"] == steps + 1
+    np.testing.assert_array_equal(got["mom_ok"], want["mom_ok"])
+    for f in tsam._FIELDS:
+        assert_close(got[f], want[f])
+
+
+def _to_numpy_lanes(st):
+    out = {f: np.asarray(getattr(st, f)) for f in tsam._FIELDS}
+    steps = np.asarray(st.n_steps)
+    assert np.all(steps == steps[0])
+    out["n_steps"] = int(steps[0])
+    out["mom_ok"] = np.asarray(st.mom_ok)
+    return out
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_lane_functions_equal_single_lane_calls(rng, exact):
+    """Each lane of a lane-batched Dirichlet/CFC density and estimate
+    equals the same lane computed alone: bit for bit with lane-exact
+    reductions, to round-off with PyTorch's."""
+    tr = T_(TRANSITIONS["n=3"])
+    L, M, K, n = 4, 60, 5, 3
+    a = T_(rng.gamma(2.0, size=(L, K)))
+    logp = T_(np.log(rng.dirichlet(np.ones(n), size=(L, K)).transpose(0, 2, 1)))
+    ss = T_(rng.dirichlet(np.ones(K), size=(L, M)))
+    th = T_(rng.integers(0, n, size=(L, M, K)), torch.int32)
+    lw = T_(rng.normal(size=(L, M)))
+    active = T_(np.arange(K)[None, :] <= np.array([0, 2, 4, 3])[:, None])
+
+    def run(i=slice(None)):
+        return (tdir.dirichlet_logpdf(a[i], ss[i], active[i], exact=exact),
+                tcfc.cfc_logpmf(logp[i], th[i], tr, active[i], exact=exact),
+                tdir.dirichlet_estimate(ss[i], lw[i], active[i], exact=exact),
+                tcfc.cfc_estimate(th[i], lw[i], tr, n, active=active[i],
+                                  exact=exact)[0])
+
+    lanes = run()
+    for i in range(L):
+        for x, y in zip(lanes, run(i)):
+            if exact:
+                assert torch.equal(x[i], y)
+            else:
+                assert_close(x[i], y.numpy())
+
+
+def test_lane_rng_streams_do_not_depend_on_grouping():
+    from bild_tpu_torch.lanes import LaneRNG
+    rng_all = LaneRNG.from_seeds([11, 12, 13, 14, 15], "cpu").fold(3)
+    a = torch.ones((5, 8), dtype=F64)
+    active = torch.ones((5, 8), dtype=torch.bool)
+    g_all = tdir.dirichlet_sample_masked(rng_all, a, active, 40)
+    c_all = tcfc.cfc_sample(rng_all, torch.zeros((5, 3, 8), dtype=F64),
+                            T_(TRANSITIONS["n=3"]), 40)
+    sub = torch.tensor([3, 1])
+    g_sub = tdir.dirichlet_sample_masked(rng_all[sub], a[sub], active[sub], 40)
+    c_sub = tcfc.cfc_sample(rng_all[sub], torch.zeros((2, 3, 8), dtype=F64),
+                            T_(TRANSITIONS["n=3"]), 40)
+    assert torch.equal(g_sub, g_all[sub]) and torch.equal(c_sub, c_all[sub])
+    assert not torch.equal(g_all[0], g_all[1])
+
+
+def test_lane_rng_dirichlet_moments():
+    from bild_tpu_torch.lanes import LaneRNG
+    a = torch.tensor([[0.4, 2.0, 5.0, 1.0], [3.0, 3.0, 1.0, 1.0]], dtype=F64)
+    active = torch.tensor([[True, True, True, False], [True] * 4])
+    n = 20000
+    x = tdir.dirichlet_sample_masked(LaneRNG.from_seeds([1, 2], "cpu"), a,
+                                     active, n).numpy()
+    assert np.all(x[0, :, 3] == 0)
+    np.testing.assert_allclose(x.sum(-1), 1.0, rtol=1e-12)
+    for lane in range(2):
+        act = active[lane].numpy()
+        A = a[lane].numpy()[act].sum()
+        m = a[lane].numpy()[act] / A
+        se = np.sqrt(m * (1 - m) / (A + 1) / n)
+        assert np.all(np.abs(x[lane][:, act].mean(0) - m) < 4 * se)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+def test_lane_sum_does_not_depend_on_lane_count(dtype):
+    from bild_tpu_torch.lanes import lane_cumsum, lane_logsumexp, lane_sum
+    x = torch.as_tensor(np.random.default_rng(0).normal(size=(16, 1537)) * 1e3,
+                        dtype=dtype)
+    _check_lane_reductions(
+        x, dtype, *(functools.partial(f, exact=True)
+                    for f in (lane_sum, lane_logsumexp, lane_cumsum)))
+    # without exact=True they are PyTorch's own
+    assert torch.equal(lane_sum(x), x.sum(-1))
+    assert torch.equal(lane_cumsum(x), torch.cumsum(x, -1))
+
+
+def _check_lane_reductions(x, dtype, lane_sum, lane_logsumexp, lane_cumsum):
+    full = lane_sum(x)
+    assert all(torch.equal(lane_sum(x[i:i + 1])[0], full[i]) for i in range(16))
+    np.testing.assert_allclose(full.double().numpy(), x.double().sum(1).numpy(),
+                               rtol=1e-5 if dtype == torch.float32 else 1e-12)
+    y = x.clone()
+    y[3] = -math.inf
+    lse = lane_logsumexp(y)
+    assert lse[3] == -math.inf
+    np.testing.assert_allclose(lse.double().numpy(),
+                               torch.logsumexp(y, 1).double().numpy(), rtol=1e-5)
+    cs = lane_cumsum(x[:, :40])
+    assert all(torch.equal(lane_cumsum(x[i:i + 1, :40])[0], cs[i]) for i in range(16))
+    np.testing.assert_allclose(cs.double().numpy(), np.cumsum(x[:, :40].double().numpy(), 1),
+                               rtol=1e-4 if dtype == torch.float32 else 1e-12, atol=1e-2)

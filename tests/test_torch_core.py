@@ -12,6 +12,7 @@ import torch
 import bild_tpu as bj
 import bild_tpu_torch as bt
 from bild_tpu_torch.amis.sampler import FixedkSampler
+import test_torch_kalman  # noqa: F401  (one torch thread per worker)
 
 F64 = torch.float64
 REPO = os.path.join(os.path.dirname(__file__), "..")
@@ -81,11 +82,25 @@ def test_fixedk_sampler_views(case):
     assert FixedkSampler(traj, tm, k=40).evidences[0][0] == -np.inf
 
 
-def test_informed_init_needs_segmentation(case):
-    _, _, tm, data = case
-    with pytest.raises(NotImplementedError, match="segment"):
-        FixedkSampler(bt.make_trajectory(data, dtype=F64), tm, k=3,
-                      informed_init=True)
+def test_informed_init_matches_bild_tpu(case):
+    """sample() runs with informed init, and FixedkSampler's informed
+    mixture component (the DP segmentation of the factorized scores) equals
+    bild_tpu's for the same trajectory."""
+    true, jm, tm, data = case
+    res = bt.sample(data, tm, k_max=3, init_runs=4,
+                    sampler_kw={"informed_init": True},
+                    generator=torch.Generator().manual_seed(2))
+    assert np.mean(np.asarray(res.best_profile()[:]) == true) >= 0.85
+    traj = bt.make_trajectory(data, dtype=F64)
+    for k in (2, 3):
+        ts = FixedkSampler(traj, tm, k=k, k_pad=5, informed_init=True,
+                           generator=torch.Generator().manual_seed(1))
+        js = bj.amis.FixedkSampler(bj.Trajectory.create(data), jm, k=k,
+                                   k_pad=5, informed_init=True,
+                                   key=jax.random.key(1))
+        for got, want in zip(ts._informed, js._informed):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-12)
 
 
 def test_import_pulls_in_neither_jax_nor_bild_tpu():

@@ -12,6 +12,11 @@ from bild_tpu.ops.kalman import msrouse_logL_batch as j_logL
 from bild_tpu.ops.oracle import msrouse_logL_numpy
 from bild_tpu_torch.ops import kalman
 
+# one intra-op thread per process: the tier-1 run puts several pytest
+# workers on one host, and a torch thread pool in each oversubscribes it.
+# Every port test file that runs torch imports this module for it.
+torch.set_num_threads(1)
+
 RTOL = 1e-10
 
 CASES = {
@@ -96,3 +101,67 @@ def test_call_counter(rng):
     before = kalman.msrouse_logL_batch.calls
     kalman.msrouse_logL_batch(*targs)
     assert kalman.msrouse_logL_batch.calls == before + 1
+
+
+def make_lane_case(rng, L=4, N=8, d=3, T=20, P=7, locerr=(0.1, 0.2, 0.1),
+                   loops=(None, (0, -1)), bad=((1, 2), (2, 0))):
+    """A lane batch: L trajectories with different missing frames (lane 0
+    none, lane 1 its first frame), random profiles per lane, and
+    out-of-range rows at the (lane, row) pairs ``bad``. Returns (jax model
+    args, torch model args, profiles (L, P, T), ydata (L, T, d), valid (L,
+    T), oracle inputs, NaN-sentinel data per lane)."""
+    model = MultiStateRouse(N, 1.0, 4.0, d=d, localization_error=locerr,
+                            looppositions=loops)
+    n = model.nStates
+    data = rng.normal(size=(L, T, d))
+    for lane in range(1, L):
+        miss = [0] if lane == 1 else rng.choice(T, size=lane + 1, replace=False)
+        data[lane, miss] = np.nan
+    trajs = [Trajectory.create(x) for x in data]
+    prof = rng.integers(0, n, size=(L, P, T)).astype(np.int32)
+    for (lane, r), state in zip(bad, (n, -1)):
+        prof[lane, r, T // 2] = state
+    s2, Cind = model._noise_arrays(trajs[0])
+    jargs = (model.Bs, model.Gs, model.Sigs, model.M0s, model.C0s, model.w,
+             s2, Cind)
+    targs = [torch.as_tensor(np.array(a)) for a in jargs[:7]] + [np.asarray(Cind)]
+    ydata = np.stack([np.asarray(t.data) for t in trajs])
+    valid = np.stack([np.asarray(t.valid) for t in trajs])
+    oracle = [np.asarray(a) for a in jargs[:6]] + [model._get_noise(trajs[0])]
+    return jargs, targs, prof, ydata, valid, oracle, [t[:] for t in trajs]
+
+
+@pytest.mark.parametrize("symmetrize", [True, False])
+def test_lanes_match_vmapped_bild_tpu_and_oracle(rng, symmetrize):
+    import jax
+    jargs, targs, prof, ydata, valid, oracle, datas = make_lane_case(rng)
+    got = kalman.msrouse_logL_batch(
+        *targs, torch.as_tensor(prof), torch.as_tensor(ydata),
+        torch.as_tensor(valid), symmetrize=symmetrize).numpy()
+    want = np.asarray(jax.vmap(
+        lambda p, y, v: j_logL(*jargs, p, y, v, symmetrize=symmetrize))(
+        jnp.asarray(prof), jnp.asarray(ydata), jnp.asarray(valid)))
+    assert got.shape == prof.shape[:2]
+    bad = np.any((prof < 0) | (prof >= 2), axis=2)
+    assert np.array_equal(np.isnan(got), bad) and bad.sum() == 2
+    np.testing.assert_allclose(got[~bad], want[~bad], rtol=RTOL)
+    for lane in range(prof.shape[0]):
+        rows = np.flatnonzero(~bad[lane])[:2]
+        orc = [msrouse_logL_numpy(*oracle, prof[lane, r], datas[lane]) for r in rows]
+        np.testing.assert_allclose(got[lane, rows], orc, rtol=RTOL)
+
+
+def test_single_lane_form_is_lane_one(rng):
+    _, targs, prof, ydata, valid, *_ = make_lane_case(rng, L=2, bad=())
+    lanes = kalman.msrouse_logL_batch(*targs, torch.as_tensor(prof),
+                                      torch.as_tensor(ydata),
+                                      torch.as_tensor(valid))
+    one = kalman.msrouse_logL_batch(*targs, torch.as_tensor(prof[1]),
+                                    torch.as_tensor(ydata[1]),
+                                    torch.as_tensor(valid[1]))
+    assert one.shape == (prof.shape[1],)
+    assert torch.equal(one, lanes[1])
+    with pytest.raises(ValueError, match="do not match"):
+        kalman.msrouse_logL_batch(*targs, torch.as_tensor(prof),
+                                  torch.as_tensor(ydata[:1]),
+                                  torch.as_tensor(valid[:1]))

@@ -2,13 +2,14 @@
 plain version against bild_tpu's Pallas kernel (`ops/kalman_pallas.py`) in
 interpret mode, the wrapper's dispatch and shared-memory bound, and (on a
 GPU) the CUDA kernel against the plain version."""
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from bild_tpu.ops.kalman_pallas import msrouse_logL_pallas
 from bild_tpu_torch.ops import kalman_dense
-from test_torch_kalman import make_case
+from test_torch_kalman import make_case, make_lane_case
 
 RTOL = 1e-9
 
@@ -85,3 +86,38 @@ def test_cuda_rejects_oversized_shared_memory(rng, cuda):
     targs[10] = targs[10].to(cuda)
     with pytest.raises(ValueError, match="shared memory"):
         kalman_dense.msrouse_logL_dense(*targs)
+
+
+def test_plain_lanes_match_pallas_interpret_per_lane(rng):
+    """Lanes whose missing frames differ (one misses its first frame)."""
+    jargs, targs, prof, ydata, valid, *_ = make_lane_case(rng, L=3, N=6,
+                                                          T=12, P=5)
+    lane_args = (torch.as_tensor(prof), torch.as_tensor(ydata),
+                 torch.as_tensor(valid))
+    got = kalman_dense.msrouse_logL_dense_torch(*targs, *lane_args).numpy()
+    for lane in range(3):
+        want = np.asarray(msrouse_logL_pallas(*jargs, jnp.asarray(prof[lane]), jnp.asarray(ydata[lane]), jnp.asarray(valid[lane]), interpret=True))
+        np.testing.assert_allclose(got[lane], want, rtol=RTOL)
+        assert np.array_equal(np.isnan(got[lane]), np.isnan(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 2e-5), (torch.float64, 1e-9)])
+def test_cuda_lanes_match_plain_and_single_lanes(rng, cuda, dtype, rtol):
+    """One lane-batched launch against its plain version, and bit for bit
+    against one single-lane launch per lane."""
+    _, targs, prof, ydata, valid, *_ = make_lane_case(rng, L=6, N=20,
+                                                      T=100, P=37)
+    model = [x.to(cuda, dtype) for x in targs[:7]] + [targs[7]]
+    lane_args = (torch.as_tensor(prof, device=cuda),
+                 torch.as_tensor(ydata, device=cuda, dtype=dtype),
+                 torch.as_tensor(valid, device=cuda))
+    got = kalman_dense.msrouse_logL_dense(*model, *lane_args)
+    want = kalman_dense.msrouse_logL_dense_torch(*model, *lane_args)
+    singles = [kalman_dense.msrouse_logL_dense(*model, *(x[i] for x in lane_args))
+               for i in range(6)]
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=rtol)
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    for i, one in enumerate(singles):
+        np.testing.assert_array_equal(one.cpu().numpy(), got[i])

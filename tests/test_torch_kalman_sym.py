@@ -2,6 +2,7 @@
 plain version against bild_tpu's Pallas kernel in interpret mode, the
 operator construction, the wrapper's dispatch, and (on a GPU) the CUDA
 kernel against the plain version."""
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -9,7 +10,7 @@ import torch
 from bild_tpu.ops.kalman_sym import (_build_sym_operators,
                                      msrouse_logL_pallas_sym)
 from bild_tpu_torch.ops import kalman_dense, kalman_sym
-from test_torch_kalman import make_case
+from test_torch_kalman import make_case, make_lane_case
 
 # the bound of tests/test_kalman_sym.py: the packed form is exact algebra
 RTOL = 1e-9
@@ -101,3 +102,41 @@ def test_cuda_kernel_matches_plain(rng, cuda, dtype, rtol):
     want = kalman_sym.msrouse_logL_sym_torch(ops, *targs[6:]).cpu()
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=rtol)
     assert torch.isnan(got[7]) and torch.isfinite(got[:7]).all()
+
+
+def test_plain_lanes_match_pallas_interpret_per_lane(rng):
+    """Lanes whose missing frames differ (one misses its first frame)."""
+    jargs, targs, prof, ydata, valid, *_ = make_lane_case(rng, L=3, N=6,
+                                                          T=12, P=5)
+    lane_args = (torch.as_tensor(prof), torch.as_tensor(ydata),
+                 torch.as_tensor(valid))
+    ops = kalman_sym.SymOperators.build(*targs[:6], device="cpu",
+                                        dtype=torch.float64)
+    got = kalman_sym.msrouse_logL_sym_torch(ops, *targs[6:], *lane_args).numpy()
+    for lane in range(3):
+        want = np.asarray(msrouse_logL_pallas_sym(*jargs, jnp.asarray(prof[lane]), jnp.asarray(ydata[lane]), jnp.asarray(valid[lane]), interpret=True))
+        np.testing.assert_allclose(got[lane], want, rtol=RTOL)
+        assert np.array_equal(np.isnan(got[lane]), np.isnan(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 2e-5), (torch.float64, 1e-9)])
+def test_cuda_lanes_match_plain_and_single_lanes(rng, cuda, dtype, rtol):
+    """One lane-batched launch against its plain version, and bit for bit
+    against one single-lane launch per lane."""
+    _, targs, prof, ydata, valid, *_ = make_lane_case(rng, L=6, N=20,
+                                                      T=100, P=37)
+    model = [x.to(cuda, dtype) for x in targs[:7]] + [targs[7]]
+    lane_args = (torch.as_tensor(prof, device=cuda),
+                 torch.as_tensor(ydata, device=cuda, dtype=dtype),
+                 torch.as_tensor(valid, device=cuda))
+    ops = kalman_sym.SymOperators.build(*model[:6], device=cuda, dtype=dtype)
+    got = kalman_sym.msrouse_logL_sym(*model, *lane_args, ops=ops)
+    want = kalman_sym.msrouse_logL_sym_torch(ops, *model[6:], *lane_args)
+    singles = [kalman_sym.msrouse_logL_sym(*model, *(x[i] for x in lane_args), ops=ops)
+               for i in range(6)]
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=rtol)
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    for i, one in enumerate(singles):
+        np.testing.assert_array_equal(one.cpu().numpy(), got[i])

@@ -7,6 +7,7 @@ import bild_tpu as bj
 import bild_tpu_torch as bt
 from bild_tpu_torch import config
 from bild_tpu_torch.ops import kalman
+import test_torch_kalman  # noqa: F401  (one torch thread per worker)
 
 F64 = torch.float64
 ARRAYS = ("Bs", "Gs", "Sigs", "M0s", "C0s", "L_sigs", "w")
@@ -124,9 +125,13 @@ def test_trajectory_generation_statistics():
 
 
 def test_toFactorized_not_ported():
-    _, tm = _pair(MODELS["2 states"])
-    with pytest.raises(NotImplementedError, match="factorized"):
-        tm.toFactorized()
+    """`toFactorized` (once not ported) builds the same per-state Maxwell
+    distributions as bild_tpu's, on the model's device and dtype."""
+    jm, tm = _pair(MODELS["2 states"])
+    tf, jf = tm.toFactorized(), jm.toFactorized()
+    assert isinstance(tf, bt.models.FactorizedModel) and tf.dtype == F64
+    for t, j in zip(tf.distributions, jf.distributions):
+        assert t.kwds["scale"] == pytest.approx(j.kwds["scale"], rel=1e-12)
 
 
 def test_trajectory_coercion():

@@ -7,6 +7,7 @@ import torch
 
 import bild_tpu.profiles as jprof
 import bild_tpu_torch.profiles as tprof
+import test_torch_kalman  # noqa: F401  (one torch thread per worker)
 
 
 def _jax_st2profile(ss, th, T, active=None):

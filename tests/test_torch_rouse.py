@@ -5,6 +5,7 @@ import torch
 
 from bild_tpu.physics import rouse as jrouse
 from bild_tpu_torch.physics import rouse as trouse
+import test_torch_kalman  # noqa: F401  (one torch thread per worker)
 
 F64 = torch.float64
 
