@@ -2,8 +2,10 @@
 Kernel selection and float32 policy for bild_tpu_torch.
 
 Unlike the JAX package there is no global dtype switch: every constructor
-takes an explicit ``device=`` and ``dtype=``. The CPU tests run in float64;
-the GPU runs float32.
+takes an explicit ``device=`` and ``dtype=``. Models run on the GPU unless
+the caller asks for the CPU (``device="cpu"``, as the CPU tests do); on a
+machine without a GPU a model built without ``device=`` raises
+(`resolve_device`). The CPU tests run in float64; the GPU runs float32.
 
 The selector only matters for CUDA tensors. A model whose tensors lie on
 the CPU always takes the plain path (`ops.kalman.msrouse_logL_batch`).
@@ -12,7 +14,11 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["KERNELS", "rouse_kernel", "set_rouse_kernel", "exact_fp32"]
+__all__ = ["KERNELS", "DEFAULT_DEVICE", "resolve_device", "rouse_kernel",
+           "set_rouse_kernel", "exact_fp32"]
+
+# where models live unless the caller says otherwise
+DEFAULT_DEVICE = "cuda"
 
 # Which Rouse-Kalman likelihood a CUDA model dispatches to:
 #   "sym"   — packed-symmetric CUDA kernel (`ops.kalman_sym`, the default,
@@ -21,6 +27,17 @@ __all__ = ["KERNELS", "rouse_kernel", "set_rouse_kernel", "exact_fp32"]
 #   "torch" — the plain PyTorch recursion (`ops.kalman`)
 KERNELS = ("sym", "dense", "torch")
 _ROUSE_KERNEL = "sym"
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a `torch.device`; raises if it is a CUDA device and no
+    GPU is available, so that nothing quietly runs elsewhere."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but no CUDA device is available; "
+            "models run on the GPU unless built with device='cpu'")
+    return device
 
 
 def rouse_kernel() -> str:

@@ -15,6 +15,7 @@ import torch
 from scipy.special import logsumexp
 
 from ..amis.sampler import FixedkSampler, draw_seed, spawn_generator
+from ..config import DEFAULT_DEVICE, resolve_device
 from ..trajectory import make_trajectory
 from .choice import ChoiceSampler
 
@@ -50,7 +51,7 @@ def sample(traj, model,
     -------
     SamplingResults
     """
-    device = getattr(model, "device", torch.device("cpu"))
+    device = resolve_device(getattr(model, "device", DEFAULT_DEVICE))
     traj = make_trajectory(traj, device=device,
                            dtype=getattr(model, "dtype", torch.float32))
     if generator is None:

@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..config import DEFAULT_DEVICE, resolve_device
 from ..lanes import lane_sum
 from ..profiles import Loopingprofile
 from ..trajectory import Trajectory
@@ -43,14 +44,15 @@ class FactorizedModel(MultiStateModel):
     ``distributions`` need a ``logpdf()`` accepting arrays; ``rvs()`` is
     needed only for `trajectory_from_loopingprofile`. Localization error is
     assumed baked into the distributions, so ``traj.localization_error`` is
-    ignored. ``device``/``dtype`` say where the score tables live.
+    ignored. ``device``/``dtype`` say where the score tables live (the GPU
+    unless ``device="cpu"``).
     """
 
-    def __init__(self, distributions, d=3, *, device="cpu",
+    def __init__(self, distributions, d=3, *, device=DEFAULT_DEVICE,
                  dtype=torch.float32):
         self.distributions = list(distributions)
         self._d = d
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = dtype
         self._known_trajs = {}
         self._seg_cache = None

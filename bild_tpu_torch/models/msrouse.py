@@ -15,7 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import rouse_kernel
+from ..config import DEFAULT_DEVICE, resolve_device, rouse_kernel
 from ..ops.kalman import msrouse_logL_batch
 from ..ops.kalman_dense import msrouse_logL_dense
 from ..ops.kalman_sym import SymOperators, msrouse_logL_sym
@@ -54,13 +54,14 @@ class MultiStateRouse(MultiStateModel):
         model-side noise; if ``None``, use ``traj.localization_error``.
     dt : float              frame interval
     device, dtype           where and in which float type the tensors live
+                            (the GPU unless ``device="cpu"``)
     """
 
     def __init__(self, N, D, k, d=3,
                  looppositions=(None, (0, -1)),
                  measurement="end2end",
                  localization_error=None,
-                 dt=1.0, *, device="cpu", dtype=torch.float32):
+                 dt=1.0, *, device=DEFAULT_DEVICE, dtype=torch.float32):
         if isinstance(measurement, str) and measurement == "end2end":
             measurement = np.zeros(N)
             measurement[0] = -1
@@ -93,7 +94,7 @@ class MultiStateRouse(MultiStateModel):
 
     @classmethod
     def from_arrays(cls, Bs, Gs, Sigs, M0s, C0s, L_sigs, w,
-                    localization_error, transitions, *, device="cpu",
+                    localization_error, transitions, *, device=DEFAULT_DEVICE,
                     dtype=torch.float32) -> "MultiStateRouse":
         """A model with the given per-state operators (numpy arrays, e.g.
         those of a `bild_tpu` model): ``Bs, Sigs, C0s, L_sigs (n, N, N)``,
@@ -111,7 +112,7 @@ class MultiStateRouse(MultiStateModel):
 
     def _setup(self, host, d, localization_error, transitions, device, dtype):
         self._d = d
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = dtype
         if localization_error is not None:
             if np.isscalar(localization_error):

@@ -14,13 +14,16 @@ contraction ``R = U1 c`` gives ``Cw`` and ``w.C.w``; the rank-1 downdate is
 ``c[(a,b)] -= Cw_a Cw_b / S``. The mean propagator carries an extra
 ``w.B_s`` row, so the predicted measurement mean comes with it.
 
-On the H100 one block evaluates one profile of one lane (trajectory), so
-one launch covers a whole lockstep AMIS step. Each frame it streams its
-state's ``P_s`` rows from L2, which is what bounds it (see the source).
-Operators larger than `SYM_OPERATOR_BUDGET` would no longer stay in L2,
-and the dense kernel needs only ``n N^2`` operator scalars: above it the
-wrapper calls `ops.kalman_dense.msrouse_logL_dense`, as the reference
-falls back from its packed kernel to its dense one.
+On the H100 one block evaluates a tile of up to 32 profiles of one lane
+(trajectory), so one launch covers a whole lockstep AMIS step. Per frame
+the block sorts its profiles by state and multiplies each state's ``P_s``
+(streamed from L2 in slabs) into all of that state's packed covariances
+at once (see the source). `sym_plan` chooses the tile width and the
+shared memory from the launch's shape. Operators larger than
+`SYM_OPERATOR_BUDGET` would no longer stay in L2, and the dense kernel
+needs only ``n N^2`` operator scalars: above it the wrapper calls
+`ops.kalman_dense.msrouse_logL_dense`, as the reference falls back from
+its packed kernel to its dense one.
 
 `msrouse_logL_sym` launches the kernel for CUDA tensors and runs
 `msrouse_logL_sym_torch` for CPU tensors, with no fallback between them.
@@ -29,6 +32,7 @@ Counters: ``msrouse_logL_sym.launches``, ``msrouse_logL_sym_torch.calls``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -36,11 +40,13 @@ import torch
 
 from . import _build
 from .kalman import LOG_2PI, as_lanes, in_range_mask
-from .kalman_dense import (SMEM_LIMIT, check_cuda_args, cind_tensor,
-                           msrouse_logL_dense)
+from .kalman_dense import (H100_SMS, SMEM_LIMIT, SMEM_PER_SM,
+                           check_cuda_args, cind_tensor, msrouse_logL_dense,
+                           sm_count)
 
 __all__ = ["SymOperators", "build_sym_operators", "msrouse_logL_sym",
-           "msrouse_logL_sym_torch", "sym_fits", "SYM_OPERATOR_BUDGET"]
+           "msrouse_logL_sym_torch", "sym_fits", "sym_plan", "SymPlan",
+           "sym_smem_bytes", "SYM_OPERATOR_BUDGET", "SYM_TILES"]
 
 # Bytes of the stacked packed operators (n * PPp^2 scalars) above which the
 # dense kernel runs instead. Every block reads its state's P_s once per
@@ -54,17 +60,89 @@ def _pad(x, pad):
     return -(-x // pad) * pad
 
 
-def sym_smem_bytes(N, d, q, itemsize) -> int:
-    """Shared memory of one block of the packed kernel."""
+# profiles per block of the packed kernel, largest first (at most 32: the
+# block sorts its profiles by state with one warp ballot per state)
+SYM_TILES = (32, 16, 8, 4, 2, 1)
+# the kernel's constants (csrc/kalman_sym.cu): threads per block, operator
+# columns per slab, operator rows per slab at most, covariance columns
+# per thread tile, spatial dimensions at most
+SYM_THREADS, _BK, _ROWS_MAX, _TN, _MAX_D = 256, 8, 256, 4, 4
+
+
+def _a16(nbytes):
+    return -(-nbytes // 16) * 16
+
+
+def sym_smem_bytes(tile, n, N, d, q, itemsize) -> int:
+    """Shared memory of one block of the packed kernel with ``tile``
+    profiles (``sym_layout`` in ``csrc/kalman_sym.cu``): two packed
+    covariance buffers of ``tile * q`` columns (stride ``PPp`` plus one
+    16-byte vector), two ``P_s`` slabs for each of the n states,
+    two mean buffers, ``Cw`` and ``1/S`` per column, the log-likelihoods,
+    the mean operators ``Ballw, Gsw``, ``w``, ``s2``, one frame's data,
+    the packed index table, ``Cind``, the column lists and two slab
+    barriers."""
     PP = N * (N + 1) // 2
-    return (2 * q * PP + q * (N + 1) + 2 * (N + 1) * d) * itemsize
+    PPp = _pad(PP, 8)
+    ld = PPp + 16 // itemsize
+    ncol = tile * q
+    nct = -(-ncol // _TN) + n
+    rows_slab = min(PPp, _ROWS_MAX)
+    floats = (ncol * ld, ncol * ld, 2 * n * rows_slab * _BK,
+              tile * (N + 1) * d, tile * (N + 1) * d, ncol * N, ncol, tile,
+              n * (N + 1) * N, n * (N + 1) * d, N, q, d)
+    ints = (d, nct * _TN, nct, tile)
+    return (sum(_a16(x * itemsize) for x in floats) + _a16(2 * PP)
+            + sum(_a16(4 * x) for x in ints) + 16 + 16)
+
+
+def _tile_fits(tile, n, N, d, q, itemsize):
+    return (sym_smem_bytes(tile, n, N, d, q, itemsize) <= SMEM_LIMIT
+            and -(-tile * q // _TN) + n <= SYM_THREADS)
 
 
 def sym_fits(n, N, d, q, itemsize) -> bool:
     """Whether the packed kernel takes this shape (else: the dense one)."""
     PPp = _pad(N * (N + 1) // 2, 8)
-    return (n * PPp * PPp * itemsize <= SYM_OPERATOR_BUDGET
-            and sym_smem_bytes(N, d, q, itemsize) <= SMEM_LIMIT)
+    return (n * PPp * PPp * itemsize <= SYM_OPERATOR_BUDGET and d <= _MAX_D
+            and _tile_fits(SYM_TILES[-1], n, N, d, q, itemsize))
+
+
+@dataclasses.dataclass(frozen=True)
+class SymPlan:
+    """One launch of the packed kernel: ``tile`` profiles per block."""
+
+    tile: int
+    tiles_per_lane: int
+    blocks: int
+    smem: int
+
+
+def sym_plan(L, P, n, N, d, q, itemsize, sms=H100_SMS) -> SymPlan:
+    """
+    Tile width for an ``(L, P)`` launch. The widest tile (of `SYM_TILES`)
+    that fits `SMEM_LIMIT`, keeps two blocks resident per SM and still
+    gives every SM two blocks; else the widest that gives every SM one
+    block; else the narrowest, so that a single-trajectory step (L=1,
+    P=100) spreads over as many SMs as it has profiles. Raises for shapes
+    that `sym_fits` refuses.
+    """
+    fits = [t for t in SYM_TILES if _tile_fits(t, n, N, d, q, itemsize)]
+    if not fits:
+        raise ValueError(f"packed kernel does not fit n={n}, N={N}, d={d}, "
+                         f"q={q}, {itemsize}-byte floats")
+
+    def blocks(t):
+        return L * -(-P // t)
+
+    def smem(t):
+        return sym_smem_bytes(t, n, N, d, q, itemsize)
+
+    two = [t for t in fits if 2 * (smem(t) + 1024) <= SMEM_PER_SM
+           and blocks(t) >= 2 * sms]
+    one = [t for t in fits if blocks(t) >= sms]
+    chosen = (two or one or fits[-1:])[0]
+    return SymPlan(chosen, -(-P // chosen), blocks(chosen), smem(chosen))
 
 
 def build_sym_operators(Bs, Gs, Sigs, M0s, C0s, w, pad=8):
@@ -123,17 +201,39 @@ def build_sym_operators(Bs, Gs, Sigs, M0s, C0s, w, pad=8):
     return (Pall, sig_pack, c0_pack, U1, Ballw, Gsw, M0w, PPp, (S_OFF, N1p))
 
 
+def slab_operators(Pall, n, PPp, itemsize):
+    """``Pall (n*PPp, PPp)`` in the order the kernel streams it: per state,
+    per slab of 8 operator columns, the PPp rows of 8 scalars each
+    contiguous, ``(n, PPp/8, PPp, 8)``, so that one bulk copy moves one
+    slab; within a row, 16-byte chunk ch of row r sits at chunk ``ch ^ ((r
+    // (8 // CH)) % CH)`` (CH chunks per row), the kernel's bank swizzle."""
+    CH = _BK * itemsize // 16
+    vw = _BK // CH
+    nkb = PPp // _BK
+    A = np.asarray(Pall).reshape(n, PPp, nkb, CH, vw)
+    r = np.arange(PPp)
+    out = np.zeros((n, nkb, PPp, CH, vw), dtype=A.dtype)
+    for ch in range(CH):
+        dest = ch ^ ((r // (8 // CH)) % CH)
+        out[:, :, r, dest, :] = A[:, :, :, ch, :].transpose(0, 2, 1, 3)
+    return out.reshape(n, nkb, PPp, _BK)
+
+
 @dataclasses.dataclass(frozen=True)
 class SymOperators:
-    """The packed operators as tensors of one dtype on one device."""
+    """The packed operators as tensors of one dtype on one device. The
+    CUDA kernel reads ``Pslab``, the propagators in its order
+    (`slab_operators`; built for a CUDA device only). The plain version
+    reads ``Pall`` and ``U1``, made on the device from the float64 host
+    arrays ``host`` when it first runs."""
 
-    Pall: torch.Tensor
     sig: torch.Tensor
     c0: torch.Tensor
-    U1: torch.Tensor
     Ballw: torch.Tensor
     Gsw: torch.Tensor
     M0w: torch.Tensor
+    Pslab: torch.Tensor | None
+    host: tuple = dataclasses.field(repr=False)    # (Pall, U1), numpy
     PPp: int
     S_OFF: int
     N1p: int
@@ -143,9 +243,28 @@ class SymOperators:
         """Build from model arrays (numpy or tensors; computed in float64)."""
         host = [x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
                 for x in (Bs, Gs, Sigs, M0s, C0s, w)]
-        *arrs, PPp, (S_OFF, N1p) = build_sym_operators(*host)
-        return SymOperators(*(torch.as_tensor(a, dtype=dtype, device=device)
-                              for a in arrs), PPp=PPp, S_OFF=S_OFF, N1p=N1p)
+        (Pall, sig, c0, U1, Ballw, Gsw, M0w, PPp,
+         (S_OFF, N1p)) = build_sym_operators(*host)
+        n = sig.shape[0]
+
+        def dev(a):
+            return torch.as_tensor(a, dtype=dtype, device=device)
+
+        Pslab = (dev(slab_operators(Pall, n, PPp,
+                                    torch.empty((), dtype=dtype).element_size()))
+                 if torch.device(device).type == "cuda" else None)
+        return SymOperators(dev(sig), dev(c0), dev(Ballw), dev(Gsw), dev(M0w),
+                            Pslab, (Pall, U1), PPp=PPp, S_OFF=S_OFF, N1p=N1p)
+
+    @functools.cached_property
+    def Pall(self) -> torch.Tensor:
+        return torch.as_tensor(self.host[0], dtype=self.sig.dtype,
+                               device=self.sig.device)
+
+    @functools.cached_property
+    def U1(self) -> torch.Tensor:
+        return torch.as_tensor(self.host[1], dtype=self.sig.dtype,
+                               device=self.sig.device)
 
     @property
     def n(self) -> int:
@@ -223,8 +342,9 @@ def msrouse_logL_sym(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind, profiles, ydata,
     (``(L, P)`` for L lanes, ``(P,)`` for the single-lane form), plus the
     prebuilt packed operators ``ops`` (built here if omitted; models pass
     theirs, built once in float64). Shapes that `sym_fits` refuses go to
-    the dense kernel. CUDA tensors launch the kernel, one block per (lane,
-    profile), on the current stream (no synchronization); CPU tensors run
+    the dense kernel. CUDA tensors launch the kernel, one block per tile
+    of profiles of one lane (the width from `sym_plan`), on the current
+    stream (no synchronization); CPU tensors run
     `msrouse_logL_sym_torch`. Out-of-range states give NaN.
     """
     n, N, _ = Bs.shape
@@ -241,24 +361,30 @@ def msrouse_logL_sym(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind, profiles, ydata,
     if ydata.device.type != "cuda":
         raise ValueError(f"no kernel for device {ydata.device}")
     profiles, ydata, valid, single = as_lanes(profiles, ydata, valid)
-    sfx = check_cuda_args(dict(Pall=ops.Pall, sig=ops.sig, c0=ops.c0,
-                               U1=ops.U1, Ballw=ops.Ballw, Gsw=ops.Gsw,
+    if ops.Pslab is None:
+        raise ValueError(f"packed operators built for {ops.sig.device}, "
+                         f"not for {ydata.device}")
+    sfx = check_cuda_args(dict(Pslab=ops.Pslab, sig=ops.sig, c0=ops.c0,
+                               w=w, Ballw=ops.Ballw, Gsw=ops.Gsw,
                                M0w=ops.M0w, s2=s2, ydata=ydata),
                           profiles, ydata, valid)
-    if ops.n != n or ops.N != N or ops.Gsw.shape[2] != d \
+    if ops.n != n or ops.N != N or ops.Gsw.shape[2] != d or w.shape != (N,) \
             or ydata.shape[2] != d:
         raise ValueError("packed operators do not match the model shapes")
     Cind = cind_tensor(Cind, d, ydata.device)
     L, P, T = profiles.shape
+    index = ydata.device.index or 0
+    plan = sym_plan(L, P, n, N, d, q, ydata.element_size(),
+                    sms=sm_count(index))
     out = torch.empty((L, P), dtype=ydata.dtype, device=ydata.device)
     if L * P > 0:
-        lib, fn = _build.entry("kalman_sym", f"bild_kalman_sym_{sfx}", 13, 11)
-        rc = fn(ops.Pall.data_ptr(), ops.sig.data_ptr(), ops.c0.data_ptr(),
-                ops.U1.data_ptr(), ops.Ballw.data_ptr(), ops.Gsw.data_ptr(),
+        lib, fn = _build.entry("kalman_sym", f"bild_kalman_sym_{sfx}", 13, 12)
+        rc = fn(ops.Pslab.data_ptr(), ops.sig.data_ptr(), ops.c0.data_ptr(),
+                w.data_ptr(), ops.Ballw.data_ptr(), ops.Gsw.data_ptr(),
                 ops.M0w.data_ptr(), s2.data_ptr(), Cind.data_ptr(),
                 profiles.data_ptr(), ydata.data_ptr(), valid.data_ptr(),
-                out.data_ptr(), n, N, d, q, L, P, T, ops.PPp, ops.S_OFF,
-                ops.N1p, ydata.device.index or 0,
+                out.data_ptr(), n, N, d, q, L, P, T, ops.PPp, ops.N1p,
+                plan.tile, plan.smem, index,
                 torch.cuda.current_stream(ydata.device).cuda_stream)
         msrouse_logL_sym.launches += 1
         _build.check(lib, rc, "kalman_sym launch")

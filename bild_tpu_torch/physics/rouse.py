@@ -19,6 +19,8 @@ import numpy as np
 import torch
 from scipy.special import erfc as _erfc
 
+from ..config import DEFAULT_DEVICE, resolve_device
+
 __all__ = ["RouseModel", "two_locus_msd"]
 
 _FREE_MODE_TOL = 1e-10
@@ -91,7 +93,8 @@ class RouseModel:
     monomer 1d diffusion constant, ``k`` the backbone spring constant, ``d``
     the spatial dimension, ``dt`` the frame interval.
 
-    Tensors (``dtype`` on ``device``): ``B, Sig, C_ss, L_ss, L_sig (N, N)``,
+    Tensors (``dtype`` on ``device``, the GPU unless ``device="cpu"``):
+    ``B, Sig, C_ss, L_ss, L_sig (N, N)``,
     ``G, M_ss (N, d)``. ``host`` holds the same arrays in numpy float64.
     """
 
@@ -101,7 +104,7 @@ class RouseModel:
     d: int
     dt: float
     add_bonds: Optional[Tuple] = None
-    device: torch.device | str = "cpu"
+    device: torch.device | str = DEFAULT_DEVICE
     dtype: torch.dtype = torch.float32
 
     host: dict = dataclasses.field(init=False, repr=False)
@@ -114,6 +117,7 @@ class RouseModel:
     L_sig: torch.Tensor = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
         host = rouse_arrays(self.N, self.D, self.k, self.d, self.dt,
                             self.add_bonds)
         object.__setattr__(self, "host", host)

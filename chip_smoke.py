@@ -13,7 +13,10 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    shapes `sample()` gives them (P = 2, 198, 100; N=20, d=3, T=100) and at
    the edges of their contract (3 states, 3 distinct localization errors,
    missing frames, an unobserved first frame, out-of-range states -> NaN).
-3. Timing phase: kernel and plain version at P = 100 and 8192 (CUDA events).
+3. Timing phase: kernel and plain version at P = 100 and 8192 (CUDA events),
+   beside the least time of the same work on the card (`kernel_work`: the
+   likelihood's least FLOP and bytes, the same for both kernels; `bound_ms`:
+   FLOP over the float32 peak or HBM bytes over its rate).
 4. Slice phase: the README model, MultiStateRouse(N=20, D=1, k=5, d=3,
    localization_error=0.1), a T=100 trajectory with a loop at frames 30-60,
    and `bild_tpu_torch.sample()` with its defaults, once per kernel
@@ -23,10 +26,15 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    own missing frames, P=37, T=100, out-of-range rows in two lanes), in
    float32 and float64, against the plain version, the f64 oracle and six
    single-lane launches of the same kernel (bit for bit).
-6. Lockstep phase: both kernels against their plain versions at every lane
-   shape the dataset run below launches (per 64-trajectory chunk: scout
-   L=320, refine L=192, P=128; the boundary climb L=64, P=9) and at
-   L=640, P=128 (config 3 in one chunk), where both are also timed.
+6. Lockstep phase: both kernels against their plain versions and against
+   their own float64 build at every lane shape the dataset run below
+   launches (per 64-trajectory chunk: scout L=320, refine L=192, P=128;
+   the boundary climb L=64, P=9) and at L=640, P=128 (config 3 in one
+   chunk). There the profiles permuted within each lane must give the
+   permuted results, and 7 profiles launched alone and three lanes
+   launched alone (one profile per block) the same results, bit for bit
+   (no tile or block shares anything between profiles), and both kernels
+   are timed beside their bound.
 7. Dataset phase (bench_e2e.py config 3): 128 trajectories of T=100 made by
    the port's batched generator, `parallel.sample_dataset` with informed
    init, the scout/refine schedule, marginals, the boundary climb and chunk
@@ -34,6 +42,9 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    launch counters, a rerun that loads both chunks, the device-busy share
    under torch.profiler, and the per-k checkpointed `sample_batch` equal to
    the all-k one on a 16-trajectory chunk.
+8. Range phase: the dense kernel at the largest chains one warp takes
+   (float32 N=168 at q=1 and N=120 at q=3, float64 N=116), its operators
+   then in global memory, against its plain version or the f64 oracle.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -54,6 +65,10 @@ import torch
 
 RTOL_F32 = 2e-5
 RTOL_F64 = 1e-9
+# NVIDIA H100 SXM peaks (data sheet, at the 700 W power limit): float32
+# outside the tensor cores (the kernels use none: TF32 is off), HBM3
+PEAK_FLOPS_F32 = 67e12
+PEAK_BYTES = 3.35e12
 SLICE_ACCURACY = 0.9
 # the dataset phase's bars; bild_tpu's own run of this configuration
 # recorded 0.993 and 0.852 (PERF_r04.json)
@@ -61,6 +76,51 @@ DATASET_FRAME_ACCURACY = 0.97
 DATASET_SWITCH_ACCURACY = 0.75
 N, D, KSPRING, DIM, T = 20, 1.0, 5.0, 3, 100
 DEVICE = "cuda"
+
+
+def kernel_work(L, P, T, n, N, d, q, observed):
+    """``(FLOP, HBM bytes)`` that one float32 evaluation of the likelihood
+    needs on these inputs, whichever kernel computes it: the least work of
+    the direct recursion, C' and the downdate symmetric. ``observed``
+    (lane, frame) pairs of the (L, T) mask take the measurement update,
+    every profile propagates T-1 frames. Propagation, per profile-frame:
+    per copy ``X = B C`` in full, ``2 N^3``, and ``C' = X B + Sig`` on the
+    upper triangle, ``N (N+1) (2N+1) / 2``; the means ``d N (2N+1)``.
+    Update: per copy ``Cw = C w`` (``2 N^2``), ``w.Cw`` (``2N``) and the
+    downdate on the upper triangle (``N (N+1) + N``); ``w.M`` (``2 N d``),
+    the mean update (``3 N d``) and the log-likelihood (``8 d``). Bytes:
+    profiles, data, mask and results once, and the model's ``B, Sig, C0,
+    G, M0, w`` once."""
+    prop = q * (2 * N ** 3 + N * (N + 1) * (2 * N + 1) // 2) + d * N * (2 * N + 1)
+    upd = q * (3 * N * N + 4 * N) + 5 * N * d + 8 * d
+    ops = 3 * n * N * N + 2 * n * N * d + N
+    flops = L * P * (T - 1) * prop + P * observed * upd
+    nbytes = 4 * (L * P * T + L * T * d + L * P + ops) + L * T
+    return flops, nbytes
+
+
+def algorithm_flops(name, L, P, T, N, d, q, observed):
+    """FLOP that kernel ``name``'s own algorithm spends on the same inputs,
+    padding left out, as `kernel_work` counts them. Propagation: sym
+    ``q (2 PP^2 + PP)`` (the packed operator, PP = N(N+1)/2) and the means
+    ``d (N+1) (2N+1)`` (with the w.M row); dense ``q (4 N^3 + N^2)`` (both
+    products in full) and ``d N (2N+1)``. Update: sym ``q (2 N^2 + 2N + 3
+    PP)``, dense ``q (4 N^2 + 3N)`` (the full downdate), both plus ``5 N d
+    + 8 d``."""
+    PP = N * (N + 1) // 2
+    if name == "kalman_sym":
+        prop = q * (2 * PP * PP + PP) + d * (N + 1) * (2 * N + 1)
+        upd = q * (2 * N * N + 2 * N + 3 * PP)
+    else:
+        prop = q * (4 * N ** 3 + N * N) + d * N * (2 * N + 1)
+        upd = q * (4 * N * N + 3 * N)
+    return L * P * (T - 1) * prop + P * observed * (upd + 5 * N * d + 8 * d)
+
+
+def bound_ms(flops, nbytes):
+    """The least time of that work on the card and what sets it."""
+    t_ops, t_bytes = flops / PEAK_FLOPS_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def check(ok, what):
@@ -275,12 +335,17 @@ LOCKSTEP_SHAPES = (
 
 
 def lockstep_phase(bt, rng, max_abs):
-    """Both kernels against their plain versions (float32, rtol 2e-5 per
-    profile, NaN exactly where the plain version has NaN) at every shape of
-    `LOCKSTEP_SHAPES`: the dataset phase's trajectories, each lane with its
-    own missing frames, and out-of-range rows in the first and the last
-    lane. At the largest shape both are also timed, in the order plain,
-    kernel, kernel, plain."""
+    """Both kernels at every shape of `LOCKSTEP_SHAPES` (the dataset phase's
+    trajectories, each lane with its own missing frames, out-of-range rows
+    in the first and the last lane): against their plain versions and
+    against their own float64 build on the same data (float32, rtol 2e-5
+    per profile; NaN exactly on the out-of-range rows). At the largest
+    shape: profiles permuted within each lane give the permuted results,
+    and 7 chosen profiles launched alone and three lanes launched alone
+    (one profile per block) give the same bits as in the full launch, so a
+    tile or a block shares nothing between profiles; and both
+    kernels are timed, in the order plain, kernel, kernel, plain.
+    Returns ``{name: (ms, plain_ms, bound_ms)}`` at the largest shape."""
     from bild_tpu_torch.ops.kalman_dense import (msrouse_logL_dense,
                                                  msrouse_logL_dense_torch)
     from bild_tpu_torch.ops.kalman_sym import (msrouse_logL_sym,
@@ -288,52 +353,87 @@ def lockstep_phase(bt, rng, max_abs):
 
     L_max = max(s[1] for s in LOCKSTEP_SHAPES)
     P_max = max(s[2] for s in LOCKSTEP_SHAPES)
-    model = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
-                                      localization_error=0.1,
-                                      device=DEVICE, dtype=torch.float32)
-    batch = model.trajectories_from_loopingprofiles(
-        truth_profiles(np.random.default_rng(3), 128, T, 2),
-        generator=torch.Generator(device=DEVICE).manual_seed(3))
+    truths = truth_profiles(np.random.default_rng(3), 128, T, 2)
     profs = np.stack([make_profiles(rng, P_max, 2, T) for _ in range(L_max)])
     valid_all = rng.random((L_max, T)) > 0.05
-    ops = model.sym_operators()
-    s2, Cind = model._noise_arrays(bt.Trajectory(batch.data[0], batch.valid[0]))
-    args = (model.Bs, model.Gs, model.Sigs, model.M0s, model.C0s, model.w,
-            s2, Cind)
-    kernels = {
-        "kalman_sym": (lambda *a: msrouse_logL_sym(*args, *a, ops=ops),
-                       lambda *a: msrouse_logL_sym_torch(ops, s2, Cind, *a)),
-        "kalman_dense": (lambda *a: msrouse_logL_dense(*args, *a),
-                         lambda *a: msrouse_logL_dense_torch(*args, *a)),
-    }
+    kernels, data = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        model = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
+                                          localization_error=0.1,
+                                          device=DEVICE, dtype=dtype)
+        if dtype == torch.float32:
+            data = model.trajectories_from_loopingprofiles(
+                truths, generator=torch.Generator(device=DEVICE).manual_seed(3)).data
+        ops = model.sym_operators()
+        s2, Cind = model._noise_arrays(bt.Trajectory(data[0], valid_all[0]))
+        args = (model.Bs, model.Gs, model.Sigs, model.M0s, model.C0s,
+                model.w, s2, Cind)
+        kernels[dtype] = {
+            "kalman_sym": (
+                lambda *a, args=args, ops=ops: msrouse_logL_sym(*args, *a, ops=ops),
+                lambda *a, ops=ops, s2=s2, Cind=Cind: msrouse_logL_sym_torch(ops, s2, Cind, *a)),
+            "kalman_dense": (
+                lambda *a, args=args: msrouse_logL_dense(*args, *a),
+                lambda *a, args=args: msrouse_logL_dense_torch(*args, *a)),
+        }
     times = {}
     for label, L, P, B in LOCKSTEP_SHAPES:
         rows = torch.arange(L, device=DEVICE) % B
         valid = torch.as_tensor(valid_all[:L], device=DEVICE)
-        ydata = batch.data[rows].contiguous()
+        ydata = data[rows].contiguous()
+        ydata64 = ydata.double()
         prof = profs[:L, :P].copy()
         prof[0, P // 2, T // 3] = 2
         prof[L - 1, P - 1, T - 1] = -1
         nan_rows = np.zeros((L, P), dtype=bool)
         nan_rows[0, P // 2] = nan_rows[L - 1, P - 1] = True
         prof = torch.as_tensor(prof, device=DEVICE)
-        for name, (kern, plain) in kernels.items():
+        for name in ("kalman_sym", "kalman_dense"):
+            kern, plain = kernels[torch.float32][name]
+            kern64 = kernels[torch.float64][name][0]
             got = kern(prof, ydata, valid)
             want = plain(prof, ydata, valid)
+            got64 = kern64(prof, ydata64, valid)
             torch.cuda.synchronize()
-            got, want = got.cpu().numpy(), want.cpu().numpy()
+            got, want, got64 = (x.cpu().numpy() for x in (got, want, got64))
             line = f"{name:12s} lockstep {label:17s} L={L:3d} P={P:3d}"
             check(got.shape == (L, P), f"{line}: result shape {got.shape}")
             check(np.array_equal(np.isnan(got), np.isnan(want))
+                  and np.array_equal(np.isnan(got), np.isnan(got64))
                   and np.array_equal(np.isnan(got), nan_rows),
                   f"{line}: NaN exactly on the out-of-range rows, as the "
-                  "plain version")
-            e_plain = rel_err(got, want)
-            line += f"  plain rel {e_plain:.2e}"
+                  "plain version and the float64 build")
+            e_plain, e_f64 = rel_err(got, want), rel_err(got, got64)
+            line += f"  plain rel {e_plain:.2e}  f64 build rel {e_f64:.2e}"
             check(e_plain <= RTOL_F32, f"{line}: plain within {RTOL_F32}")
+            check(e_f64 <= RTOL_F32, f"{line}: f64 build within {RTOL_F32}")
             fin = ~nan_rows
             max_abs[name] = max(max_abs[name], float(
                 np.max(np.abs(got[fin] - want[fin]))))
+            if L == L_max and P == P_max:
+                perm = torch.stack([torch.randperm(P, generator=torch.Generator().manual_seed(i))
+                                    for i in range(L)]).to(DEVICE)
+                permuted = kern(torch.gather(prof, 1, perm[..., None].expand(-1, -1, T))
+                                .contiguous(), ydata, valid)
+                chosen = torch.as_tensor([0, 5, 17, P // 2, 90, P - 2, P - 1], device=DEVICE)
+                alone = kern(prof[:, chosen].contiguous(), ydata, valid)
+                lanes = (0, L // 2, L - 1)
+                singles = [kern(prof[i], ydata[i], valid[i]) for i in lanes]
+                torch.cuda.synchronize()
+                same_perm = np.array_equal(permuted.cpu().numpy(),
+                                           np.take_along_axis(got, perm.cpu().numpy(), 1),
+                                           equal_nan=True)
+                same_alone = np.array_equal(alone.cpu().numpy(),
+                                            got[:, chosen.cpu().numpy()], equal_nan=True)
+                same_single = all(np.array_equal(one.cpu().numpy(), got[i], equal_nan=True)
+                                  for i, one in zip(lanes, singles))
+                line += (f"  permuted within lanes: {'same bits' if same_perm else 'DIFFER'}"
+                         f"  7 profiles alone: {'same bits' if same_alone else 'DIFFER'}"
+                         f"  lanes alone: {'same bits' if same_single else 'DIFFER'}")
+                check(same_perm, f"{line}: permuting profiles permutes the results bit for bit")
+                check(same_alone, f"{line}: a subset of profiles gives the same bits")
+                check(same_single, f"{line}: a lane launched alone (narrower tiles) "
+                      "gives the same bits")
             print(line, flush=True)
             if L == L_max and P == P_max:
                 p1 = time_ms(lambda: plain(prof, ydata, valid), 1)
@@ -341,13 +441,73 @@ def lockstep_phase(bt, rng, max_abs):
                           for _ in range(2))
                 p2 = time_ms(lambda: plain(prof, ydata, valid), 1)
                 ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-                times[name] = (ms, plain_ms)
+                observed = int(valid.sum())
+                flops, nbytes = kernel_work(L, P, T, 2, N, DIM, 1, observed)
+                bnd, by = bound_ms(flops, nbytes)
+                own = algorithm_flops(name, L, P, T, N, DIM, 1, observed)
+                times[name] = (ms, plain_ms, bnd)
                 print(f"time {name:12s} lockstep L={L} P={P}  kernel "
                       f"{ms:9.3f} ms ({L * P / ms * 1e3:12.1f} profiles/s)  "
                       f"plain {plain_ms:9.3f} ms "
-                      f"({L * P / plain_ms * 1e3:12.1f} profiles/s)",
-                      flush=True)
+                      f"({L * P / plain_ms * 1e3:12.1f} profiles/s)  bound "
+                      f"{bnd:.3f} ms ({by}: {flops / 1e9:.1f} GFLOP, "
+                      f"{nbytes / 1e6:.1f} MB), {bnd / ms:.1%} of bound; its "
+                      f"own algorithm {own / 1e9:.1f} GFLOP, "
+                      f"{own / ms / 1e9:.2f} TFLOP/s", flush=True)
     return times
+
+
+# the largest chains the dense kernel takes, its operators then in global
+# memory (ops/kalman_dense.py::dense_plan): (N, localization errors, dtype)
+RANGE_CASES = ((168, 0.1, torch.float32), (120, (0.1, 0.2, 0.15), torch.float32),
+               (116, 0.1, torch.float64))
+
+
+def range_phase(bt, rng):
+    """The dense kernel at the largest N one warp takes (8 profiles, T=100,
+    README-like model otherwise): float32 against its plain version (rtol
+    2e-5), float64 against the f64 oracle on two profiles (rtol 1e-9), and
+    both timed once beside the plain version."""
+    from bild_tpu_torch.ops.kalman_dense import (dense_plan, msrouse_logL_dense,
+                                                 msrouse_logL_dense_torch)
+    from bild_tpu_torch.ops.oracle import msrouse_logL_numpy
+
+    P = 8
+    for n_mono, err, dtype in RANGE_CASES:
+        model = bt.models.MultiStateRouse(n_mono, D, KSPRING, d=DIM,
+                                          localization_error=err,
+                                          device=DEVICE, dtype=dtype)
+        true = np.zeros(T, dtype=int)
+        true[30:60] = 1
+        traj = model.trajectory_from_loopingprofile(
+            true, generator=torch.Generator(device=DEVICE).manual_seed(n_mono))
+        prof = make_profiles(rng, P, 2, T)
+        s2, Cind = model._noise_arrays(traj)
+        plan = dense_plan(1, P, 2, n_mono, DIM, s2.shape[0], model.Bs.element_size())
+        label = f"kalman_dense range N={n_mono} q={s2.shape[0]} {str(dtype)[6:]}"
+        check(not plan.ops_shared, f"{label}: operators in global memory")
+        args = (model.Bs, model.Gs, model.Sigs, model.M0s, model.C0s, model.w,
+                s2, Cind, torch.as_tensor(prof, device=DEVICE), traj.data, traj.valid)
+        got = msrouse_logL_dense(*args)
+        want = msrouse_logL_dense_torch(*args)
+        torch.cuda.synchronize()
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        check(np.all(np.isfinite(got)), f"{label}: finite")
+        e_plain = rel_err(got, want)
+        line = f"{label} ({plan.smem} B shared)  plain rel {e_plain:.2e}"
+        if dtype == torch.float32:
+            check(e_plain <= RTOL_F32, f"{line}: plain within {RTOL_F32}")
+        else:
+            h = model.host
+            orc = np.array([msrouse_logL_numpy(
+                h["Bs"], h["Gs"], h["Sigs"], h["M0s"], h["C0s"], h["w"],
+                np.asarray(model._get_noise(traj)), prof[p], traj[:]) for p in (0, 1)])
+            e_orc = rel_err(got[:2], orc)
+            line += f"  oracle rel {e_orc:.2e}"
+            check(e_orc <= RTOL_F64, f"{line}: oracle within {RTOL_F64}")
+        ms = time_ms(lambda: msrouse_logL_dense(*args), 1)
+        plain_ms = time_ms(lambda: msrouse_logL_dense_torch(*args), 1)
+        print(f"{line}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms", flush=True)
 
 
 def truth_profiles(rng, B, T, n_states, k_max=4):
@@ -510,7 +670,9 @@ def time_ms(fn, reps):
 
 def timing_phase(bt, rng):
     """Kernel and plain version at the AMIS step (P=100) and at the bench
-    shape (P=8192), in the order plain, kernel, kernel, plain."""
+    shape (P=8192), in the order plain, kernel, kernel, plain, beside the
+    bound computed from the same inputs. Returns ``{(name, P): (ms,
+    plain_ms, bound_ms, bound_by)}``."""
     from bild_tpu_torch.ops.kalman_dense import (msrouse_logL_dense,
                                                  msrouse_logL_dense_torch)
     from bild_tpu_torch.ops.kalman_sym import (msrouse_logL_sym,
@@ -539,10 +701,13 @@ def timing_phase(bt, rng):
         for name, (kern, plain) in fns.items():
             p1, k1, k2, p2 = (time_ms(f, reps) for f in (plain, kern, kern, plain))
             ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-            times[(name, P)] = (ms, plain_ms)
+            bnd, by = bound_ms(*kernel_work(1, P, T, 2, N, DIM, 1,
+                                            int(traj.valid.sum())))
+            times[(name, P)] = (ms, plain_ms, bnd, by)
             print(f"time {name:12s} P={P:5d}  kernel {ms:9.3f} ms "
                   f"({P / ms * 1e3:12.1f} profiles/s)  plain {plain_ms:9.3f} ms "
-                  f"({P / plain_ms * 1e3:12.1f} profiles/s)", flush=True)
+                  f"({P / plain_ms * 1e3:12.1f} profiles/s)  bound {bnd:.4f} ms "
+                  f"({by}), {bnd / ms:.1%} of bound", flush=True)
     return times
 
 
@@ -559,6 +724,7 @@ def slice_phase(bt):
     lls = lls.cpu().numpy()
     check(np.argmax(lls) == 0, f"true profile ranks first: {lls}")
 
+    totals = {}
     reset_counts()
     for selector in ("sym", "dense"):
         before = read_counts()
@@ -570,13 +736,19 @@ def slice_phase(bt):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         ran = {k: v - before[k] for k, v in read_counts().items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bt.sample(traj, model, generator=torch.Generator(device=DEVICE).manual_seed(7))
+        torch.cuda.synchronize()
+        again = time.perf_counter() - t0
         best = np.asarray(res.best_profile()[:])
         acc = float(np.mean(best == true))
         post = res.log_marginal_posterior(dE="average")
         steps = sum(s.n_steps_host for s in res.samplers)
         evals = sum(len(s._exhaustive["logLs"]) if s._exhaustive is not None
                     else s.n_steps_host * s.N for s in res.samplers)
-        print(f"slice selector={selector}: wall {wall:.3f} s, AMIS steps "
+        print(f"slice selector={selector}: wall {wall:.3f} s (again: "
+              f"{again:.3f} s), AMIS steps "
               f"{steps}, logL evaluations {evals}, best_k {res.best_k()}, "
               f"frame accuracy {acc:.3f}, evidence {np.round(res.evidence, 3).tolist()}, "
               f"launches {ran}", flush=True)
@@ -587,8 +759,9 @@ def slice_phase(bt):
         check(ran[f"kalman_{selector}"] > 0, f"{selector} kernel launched")
         check(all(ran[k] == 0 for k in ran if k.startswith("plain")),
               "no plain version ran on the CUDA path")
+        totals = {k: totals.get(k, 0) + v for k, v in ran.items()}
     bt.config.set_rouse_kernel("sym")
-    return read_counts()
+    return totals
 
 
 def main():
@@ -619,9 +792,14 @@ def main():
     lane_kernel_phase(bt, rng, max_abs)
     lock_times = lockstep_phase(bt, rng, max_abs)
     ds_launches = dataset_phase(bt)
+    range_phase(bt, rng)
 
     replaces = {"kalman_sym": "bild_tpu/ops/kalman_sym.py:189",
                 "kalman_dense": "bild_tpu/ops/kalman_pallas.py:50"}
+    # "ms", "plain_ms" and "bound_ms" at the AMIS step of sample() (one
+    # trajectory, P=100); "lockstep_*" at config 3's lockstep launch (L=640,
+    # P=128). No single PyTorch call computes the recursion: library_ms is
+    # null.
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"bild_tpu_torch/csrc/{name}.cu",
@@ -630,8 +808,12 @@ def main():
         "max_abs_err": max_abs[name],
         "ms": times[(name, 100)][0],
         "plain_ms": times[(name, 100)][1],
+        "bound_ms": times[(name, 100)][2],
+        "bound_by": times[(name, 100)][3],
+        "library_ms": None,
         "lockstep_ms": lock_times[name][0],
         "lockstep_plain_ms": lock_times[name][1],
+        "lockstep_bound_ms": lock_times[name][2],
     } for name in names]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,7 +34,7 @@ def shared():
     """Models of both packages and one batch made by bild_tpu."""
     kw = dict(N=8, D=1.0, k=5.0, d=3, localization_error=0.1)
     jm = bj.models.MultiStateRouse(**kw)
-    tm = bt.models.MultiStateRouse(**kw, dtype=F64)
+    tm = bt.models.MultiStateRouse(**kw, device="cpu", dtype=F64)
     prof = truths()
     jb = jm.trajectories_from_loopingprofiles(prof, key=jax.random.key(0))
     tb = TrajectoryBatch(data=torch.as_tensor(np.array(jb.data)),
@@ -183,7 +183,7 @@ def test_factorized_model_matches_bild_tpu():
     import scipy.stats
     dists = [scipy.stats.maxwell(scale=0.3), scipy.stats.maxwell(scale=1.0)]
     jm = bj.models.FactorizedModel(dists, d=3)
-    tm = bt.models.FactorizedModel(dists, d=3, dtype=F64)
+    tm = bt.models.FactorizedModel(dists, d=3, device="cpu", dtype=F64)
     prof = truths(T=30)[:5]
     datas = [jm.trajectory_from_loopingprofile(p, key=jax.random.key(i))[:]
              for i, p in enumerate(prof)]

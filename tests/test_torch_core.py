@@ -25,7 +25,7 @@ def case():
     true[12:25] = 1
     jm = bj.models.MultiStateRouse(10, 1, 5, d=3, localization_error=0.1)
     tm = bt.models.MultiStateRouse(10, 1, 5, d=3, localization_error=0.1,
-                                   dtype=F64)
+                                   device="cpu", dtype=F64)
     data = jm.trajectory_from_loopingprofile(true, key=jax.random.key(0))[:]
     return true, jm, tm, data
 

@@ -29,7 +29,7 @@ KW = dict(k_max=3, steps_per_k=6, N=40, scout_steps=2, refine_top=2,
 def shared():
     kw = dict(N=8, D=1.0, k=5.0, d=3, localization_error=0.1)
     jm = bj.models.MultiStateRouse(**kw)
-    tm = bt.models.MultiStateRouse(**kw, dtype=F64)
+    tm = bt.models.MultiStateRouse(**kw, device="cpu", dtype=F64)
     full = np.zeros((len(LENGTHS), 36), dtype=int)
     for i, T in enumerate(LENGTHS):
         full[i, T // 3: T // 3 + 10 + i] = 1

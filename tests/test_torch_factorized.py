@@ -32,7 +32,7 @@ def _data(rng, T, missing=()):
 
 def test_tables_logL_and_mle_equal(rng, dists):
     jm = bj.models.FactorizedModel(dists, d=3)
-    tm = bt.models.FactorizedModel(dists, d=3, dtype=F64)
+    tm = bt.models.FactorizedModel(dists, d=3, device="cpu", dtype=F64)
     data = _data(rng, 30, missing=(0, 7, 8))
     jt, tt = bj.Trajectory.create(data), bt.Trajectory.create(data, dtype=F64)
     np.testing.assert_allclose(tm._segment_table(tt), jm._segment_table(jt),
@@ -51,7 +51,7 @@ def test_tables_logL_and_mle_equal(rng, dists):
 
 def test_lockstep_tables_and_logL_equal(rng, dists):
     jm = bj.models.FactorizedModel(dists, d=3)
-    tm = bt.models.FactorizedModel(dists, d=3, dtype=F64)
+    tm = bt.models.FactorizedModel(dists, d=3, device="cpu", dtype=F64)
     datas = [_data(rng, T, missing=(1,)) for T in (20, 14, 20)]
     jb = j_stack([bj.Trajectory.create(x) for x in datas])
     tb = t_stack([bt.Trajectory.create(x, dtype=F64) for x in datas])
@@ -71,7 +71,7 @@ def test_lockstep_tables_and_logL_equal(rng, dists):
 def test_rouse_factorized_approximation_equal(rng, locerr):
     kw = dict(N=8, D=1.0, k=5.0, d=3, localization_error=locerr)
     jm = bj.models.MultiStateRouse(**kw)
-    tm = bt.models.MultiStateRouse(**kw, dtype=F64)
+    tm = bt.models.MultiStateRouse(**kw, device="cpu", dtype=F64)
     jf, tf = jm.toFactorized(), tm.toFactorized()
     for jd, td in zip(jf.distributions, tf.distributions):
         assert td.kwds["scale"] == pytest.approx(jd.kwds["scale"], rel=RTOL)
@@ -93,14 +93,14 @@ def test_rouse_factorized_approximation_equal(rng, locerr):
 
 def test_fingerprint_is_device_and_dtype_free(dists):
     kw = dict(N=8, D=1.0, k=5.0, d=3, localization_error=0.1)
-    a = bt.models.MultiStateRouse(**kw, dtype=F64).likelihood_fingerprint()
-    b = bt.models.MultiStateRouse(**kw, dtype=torch.float32).likelihood_fingerprint()
-    c = bt.models.MultiStateRouse(**dict(kw, k=4.0)).likelihood_fingerprint()
-    d = bt.models.MultiStateRouse(**dict(kw, localization_error=None)).likelihood_fingerprint()
+    a = bt.models.MultiStateRouse(**kw, device="cpu", dtype=F64).likelihood_fingerprint()
+    b = bt.models.MultiStateRouse(**kw, device="cpu", dtype=torch.float32).likelihood_fingerprint()
+    c = bt.models.MultiStateRouse(**dict(kw, k=4.0), device="cpu").likelihood_fingerprint()
+    d = bt.models.MultiStateRouse(**dict(kw, localization_error=None), device="cpu").likelihood_fingerprint()
     assert a == b and len({a, c, d}) == 3
-    f1 = bt.models.FactorizedModel(dists, dtype=F64).likelihood_fingerprint()
-    f2 = bt.models.FactorizedModel(dists[:2]).likelihood_fingerprint()
-    assert f1 == bt.models.FactorizedModel(dists).likelihood_fingerprint() != f2
+    f1 = bt.models.FactorizedModel(dists, device="cpu", dtype=F64).likelihood_fingerprint()
+    f2 = bt.models.FactorizedModel(dists[:2], device="cpu").likelihood_fingerprint()
+    assert f1 == bt.models.FactorizedModel(dists, device="cpu").likelihood_fingerprint() != f2
 
 
 def test_trajectory_hash_eq_magnitudes(rng):
@@ -115,7 +115,7 @@ def test_trajectory_hash_eq_magnitudes(rng):
 
 
 def test_factorized_generator_reproducible(dists):
-    tm = bt.models.FactorizedModel(dists, d=3, dtype=F64)
+    tm = bt.models.FactorizedModel(dists, d=3, device="cpu", dtype=F64)
     prof = np.repeat([0, 2, 1], 10)
     np.random.seed(0)
     a = tm.trajectory_from_loopingprofile(prof, generator=torch.Generator().manual_seed(4))

@@ -103,6 +103,24 @@ def test_call_counter(rng):
     assert kalman.msrouse_logL_batch.calls == before + 1
 
 
+# (L, P) of every kernel launch that chip_smoke.py and the main path make:
+# sample() (P = 2, 198, 100), bench.py's batch (P = 8192), the lane phase
+# (6 x 37), the subset check (P = 7 of each of 640 lanes), per dataset
+# chunk the scout (320 x 128), refine (192 x 128) and boundary-climb
+# (64 x 9) steps, and config 3 in one chunk (640 x 128)
+LAUNCHES = [(1, 2), (1, 100), (1, 198), (1, 8192), (6, 37), (640, 7),
+            (320, 128), (192, 128), (64, 9), (640, 128)]
+
+
+def covers_once(ranges, total):
+    """Whether the half-open ranges of item indices cover ``[0, total)``,
+    every item exactly once."""
+    ranges = sorted((r.start, r.stop) for r in ranges)
+    return (ranges[0][0] == 0 and ranges[-1][1] == total
+            and all(a < b for a, b in ranges)
+            and all(x[1] == y[0] for x, y in zip(ranges, ranges[1:])))
+
+
 def make_lane_case(rng, L=4, N=8, d=3, T=20, P=7, locerr=(0.1, 0.2, 0.1),
                    loops=(None, (0, -1)), bad=((1, 2), (2, 0))):
     """A lane batch: L trajectories with different missing frames (lane 0

@@ -23,14 +23,14 @@ MODELS = {
 
 def _pair(kw):
     return (bj.models.MultiStateRouse(**kw),
-            bt.models.MultiStateRouse(**kw, dtype=F64))
+            bt.models.MultiStateRouse(**kw, device="cpu", dtype=F64))
 
 
 def _from_arrays(jmodel, **kw):
     return bt.models.MultiStateRouse.from_arrays(
         *(np.asarray(getattr(jmodel, a)) for a in ARRAYS),
         localization_error=jmodel.localization_error,
-        transitions=jmodel.transitions, dtype=F64, **kw)
+        transitions=jmodel.transitions, device="cpu", dtype=F64, **kw)
 
 
 @pytest.mark.parametrize("name", list(MODELS))
@@ -148,3 +148,36 @@ def test_trajectory_coercion():
         bt.Trajectory.create(np.zeros((3, 2)), localization_error=[1, 2, 3])
     with pytest.raises(ValueError):
         bt.make_trajectory(np.zeros((3, 4, 2)))
+
+
+DEFAULT_BUILDS = {
+    "MultiStateRouse": lambda: bt.models.MultiStateRouse(8, 1.0, 4.0, d=3),
+    "from_arrays": lambda: bt.models.MultiStateRouse.from_arrays(
+        *(np.asarray(getattr(bj.models.MultiStateRouse(6, 1.0, 4.0), a))
+          for a in ARRAYS), localization_error=0.1,
+        transitions=~np.eye(2, dtype=bool)),
+    "FactorizedModel": lambda: bt.models.FactorizedModel([]),
+    "RouseModel": lambda: bt.physics.rouse.RouseModel(N=5, D=1.0, k=3.0,
+                                                       d=3, dt=1.0),
+}
+
+
+@pytest.mark.parametrize("build", list(DEFAULT_BUILDS))
+def test_models_default_to_the_gpu(build):
+    """Built without device=, a model lives on the GPU; without a GPU it
+    raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        assert DEFAULT_BUILDS[build]().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            DEFAULT_BUILDS[build]()
+
+
+def test_sample_defaults_to_the_gpu():
+    """sample() with a model that names no device takes the GPU: without
+    one it raises."""
+    if torch.cuda.is_available():
+        assert config.resolve_device(config.DEFAULT_DEVICE).type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bt.sample(np.zeros((5, 3)), object())

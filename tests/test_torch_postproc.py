@@ -21,7 +21,7 @@ F64 = torch.float64
 def shared():
     kw = dict(N=8, D=1.0, k=5.0, d=3, localization_error=0.1)
     jm = bj.models.MultiStateRouse(**kw)
-    tm = bt.models.MultiStateRouse(**kw, dtype=F64)
+    tm = bt.models.MultiStateRouse(**kw, device="cpu", dtype=F64)
     truth = np.zeros((5, 40), dtype=int)
     truth[0, 10:25] = 1
     truth[1, 5:30] = 1

@@ -22,7 +22,7 @@ CHAINS = [
 def test_operators_match_bild_tpu(N, bonds):
     want = jrouse.RouseModel(N=N, D=1.3, k=4.0, d=3, dt=0.7, add_bonds=bonds)
     got = trouse.RouseModel(N=N, D=1.3, k=4.0, d=3, dt=0.7, add_bonds=bonds,
-                            dtype=F64)
+                            device="cpu", dtype=F64)
     for name in ("B", "G", "Sig", "C_ss", "M_ss", "L_ss", "L_sig"):
         t = getattr(got, name)
         assert t.dtype == F64 and t.device.type == "cpu"
@@ -38,7 +38,7 @@ def test_laplacian_matches_bild_tpu(N, bonds):
 
 def test_factors_reproduce_covariances():
     m = trouse.RouseModel(N=15, D=1.0, k=5.0, d=3, dt=1.0,
-                          add_bonds=((0, -1),), dtype=F64)
+                          add_bonds=((0, -1),), device="cpu", dtype=F64)
     np.testing.assert_allclose((m.L_ss @ m.L_ss.T).numpy(), m.C_ss.numpy(),
                                atol=1e-12)
     np.testing.assert_allclose((m.L_sig @ m.L_sig.T).numpy(), m.Sig.numpy(),
@@ -52,7 +52,7 @@ def test_factors_reproduce_covariances():
 
 
 def test_sampling_shapes_and_reproducibility():
-    m = trouse.RouseModel(N=6, D=1.0, k=2.0, d=2, dt=1.0, dtype=F64)
+    m = trouse.RouseModel(N=6, D=1.0, k=2.0, d=2, dt=1.0, device="cpu", dtype=F64)
     a = m.evolve(m.conf_ss(torch.Generator().manual_seed(1)),
                  torch.Generator().manual_seed(2))
     b = m.evolve(m.conf_ss(torch.Generator().manual_seed(1)),
@@ -62,7 +62,7 @@ def test_sampling_shapes_and_reproducibility():
 
 
 def test_steady_state_sample_covariance():
-    m = trouse.RouseModel(N=5, D=1.0, k=3.0, d=1, dt=1.0, dtype=F64)
+    m = trouse.RouseModel(N=5, D=1.0, k=3.0, d=1, dt=1.0, device="cpu", dtype=F64)
     g = torch.Generator().manual_seed(0)
     x = torch.stack([m.conf_ss(g)[:, 0] for _ in range(4000)])
     np.testing.assert_allclose(np.cov(x.numpy().T), m.C_ss.numpy(), atol=0.03)
