@@ -5,8 +5,10 @@ hand-written CUDA kernels for NVIDIA Hopper (H100).
 A port of `bild_tpu` (JAX/Pallas), which stays the reference. Public
 surface as there: ``sample``, ``SamplingResults``, ``Loopingprofile``,
 ``Trajectory`` and the submodules, with ``parallel`` (the lockstep dataset
-runner: `parallel.sample_batch`, `parallel.sample_dataset`), ``postproc``
-and ``stats``. Every constructor takes an explicit
+runner: `parallel.sample_batch`, `parallel.sample_dataset`, lockstep or
+adaptive), ``postproc`` and ``stats``; ``io`` (CSV loading), ``fit``
+(Rouse calibration), ``utils`` (result checkpoints) and the CLI ``python
+-m bild_tpu_torch`` are imported on use. Every constructor takes an explicit
 ``device=`` and ``dtype=``; every random draw comes from an explicit
 `torch.Generator`. The CUDA kernels (``csrc/``) build on first use on a
 CUDA tensor; importing the package needs neither a GPU nor ``nvcc``.

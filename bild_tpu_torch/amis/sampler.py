@@ -11,7 +11,9 @@ buffers for the S = max_fev/N possible steps plus the proposal and evidence
 tracks. The state may carry a leading lane axis: the lockstep runner
 (`parallel.batch`) advances many samplers, one per (k, trajectory) lane,
 with one call per step, where `bild_tpu` vmaps. The step counter is a host
-int shared by all lanes (they step in lockstep). One step is
+int shared by all lanes (they step in lockstep), or an ``(L,)`` tensor of
+per-lane counts (the adaptive rounds of `infer.adaptive`, whose slots sit
+at different steps). One step is
 `amis_propose`, the model's batched likelihood and `amis_update`, all on
 the state's device. `FixedkSampler` runs one sampler (no lane axis) and
 fetches several steps' results to the host once, packed in one tensor.
@@ -51,7 +53,8 @@ class AmisState:
     a_params: torch.Tensor    # (S+1, k+1) float — Dirichlet concentrations
     logps: torch.Tensor       # (S+1, n, k+1) float — CFC weights
     evidences: torch.Tensor   # (S, 3) float — (logev, dlogev, KL) per step
-    n_steps: int              # steps ingested so far (shared by all lanes)
+    n_steps: int              # steps ingested so far: shared by all lanes,
+                              # or an (L,) long tensor of per-lane counts
     mom_ok: torch.Tensor      # () bool — CFC fixed point converged at every step
 
     @staticmethod
@@ -82,12 +85,20 @@ class AmisState:
         return None if self.ss.dim() == 3 else self.ss.shape[0]
 
     def _map(self, fn) -> "AmisState":
+        per_lane = isinstance(self.n_steps, torch.Tensor)
         return AmisState(**{f: fn(getattr(self, f)) for f in _FIELDS},
-                         n_steps=self.n_steps, mom_ok=fn(self.mom_ok))
+                         n_steps=fn(self.n_steps) if per_lane else self.n_steps,
+                         mom_ok=fn(self.mom_ok))
 
     def select(self, idx) -> "AmisState":
         """A new state holding the lanes ``idx`` (a long tensor)."""
         return self._map(lambda x: x[idx])
+
+    def put(self, idx, part: "AmisState") -> None:
+        """Write the lanes of ``part`` into lanes ``idx`` (distinct) of this
+        state, in place; both carry per-lane step counts."""
+        for f in _FIELDS + ("n_steps", "mom_ok"):
+            getattr(self, f)[idx] = getattr(part, f)
 
     @staticmethod
     def from_numpy(arrays: dict, *, device, dtype) -> "AmisState":
@@ -199,15 +210,31 @@ def _propose_lanes(state, generator, transitions, N, T, active, draws, exact):
         ss, thetas = draws
     else:
         sc = state.n_steps
-        a = state.a_params[:, sc]
+        a = _at(state.a_params, sc)
         mask = torch.ones_like(a, dtype=torch.bool) if active is None else active
         gd, gc = ((generator.fold(0), generator.fold(1))
                   if isinstance(generator, LaneRNG) else (generator, generator))
         ss = dirichlet_sample_masked(gd, a, mask, N, exact=exact)
-        thetas = cfc_sample(gc, state.logps[:, sc], transitions, N,
+        thetas = cfc_sample(gc, _at(state.logps, sc), transitions, N,
                             active=active)
     act = None if active is None else active[:, None, :]
     return ss, thetas, st2profile(ss, thetas, T, active=act, exact=exact)
+
+
+def _at(x, sc):
+    """``x[:, sc]``: every lane's row at the shared step ``sc``, or at its
+    own step where ``sc`` is an ``(L,)`` tensor."""
+    if isinstance(sc, torch.Tensor):
+        return x[torch.arange(x.shape[0], device=x.device), sc]
+    return x[:, sc]
+
+
+def _put(x, sc, value):
+    """``x[:, sc] = value``, per lane where ``sc`` is an ``(L,)`` tensor."""
+    if isinstance(sc, torch.Tensor):
+        x[torch.arange(x.shape[0], device=x.device), sc] = value
+    else:
+        x[:, sc] = value
 
 
 def _update_lanes(state, ss_new, th_new, logL_new, transitions, logprior,
@@ -216,14 +243,19 @@ def _update_lanes(state, ss_new, th_new, logL_new, transitions, logprior,
     k1 = state.ss.shape[-1]
     n = state.logps.shape[2]
     sc = state.n_steps                      # index of the step being ingested
+    per_lane = isinstance(sc, torch.Tensor)
+    if per_lane:
+        # a full lane (sc == S) computes on its last row: the caller keeps
+        # its old state
+        sc = sc.clamp(max=S - 1)
     neg_inf = -math.inf
 
-    a_cur = state.a_params[:, sc]                               # (L, K)
-    logp_cur = state.logps[:, sc]                               # (L, n, K)
+    a_cur = _at(state.a_params, sc)                             # (L, K)
+    logp_cur = _at(state.logps, sc)                             # (L, n, K)
 
-    state.ss[:, sc] = ss_new
-    state.thetas[:, sc] = th_new
-    state.logLs[:, sc] = logL_new
+    _put(state.ss, sc, ss_new)
+    _put(state.thetas, sc, th_new)
+    _put(state.logLs, sc, logL_new)
     ss, thetas, logLs = state.ss, state.thetas, state.logLs
     flat_ss = ss.reshape(L, S * N, k1)
     flat_th = thetas.reshape(L, S * N, k1)
@@ -232,24 +264,39 @@ def _update_lanes(state, ss_new, th_new, logL_new, transitions, logprior,
     clp = _log_proposal(a_cur, logp_cur, flat_ss, flat_th, transitions,
                         active=active, exact=exact).reshape(L, S, N)
 
-    # mixture density of the new block: over the proposals 0..sc
+    # mixture density of the new block: over the proposals 0..sc. With
+    # per-lane steps over all S, the later ones masked: -inf terms add
+    # exact zeros, so the lane-exact sum is the same
+    row = torch.arange(S, device=ss.device)[:, None]
+    scb = sc[:, None, None] if per_lane else sc
+    upto = S if per_lane else sc + 1
     all_lp = _log_proposal(
-        state.a_params[:, :sc + 1], state.logps[:, :sc + 1],
+        state.a_params[:, :upto], state.logps[:, :upto],
         ss_new[:, None], th_new[:, None], transitions,
         active=None if active is None else active[:, None, :],
-        exact=exact)                                            # (L, sc+1, N)
+        exact=exact)                                            # (L, upto, N)
+    if per_lane:
+        all_lp = torch.where(row <= scb, all_lp, neg_inf)
     logdelta_new = lane_logsumexp(all_lp, dim=1, exact=exact)
 
-    row = torch.arange(S, device=ss.device)[:, None]
     logdeltas = torch.where(
-        row < sc, torch.logaddexp(state.logdeltas, clp),
-        torch.where(row == sc, logdelta_new[:, None, :].expand(L, S, N),
+        row < scb, torch.logaddexp(state.logdeltas, clp),
+        torch.where(row == scb, logdelta_new[:, None, :].expand(L, S, N),
                     state.logdeltas))
 
     # weights over the valid ensemble; a NaN log-weight marks an
     # inconsistent point (conflicting infinities) -> zero weight
-    valid = row <= sc
-    log_w = logLs - logdeltas + math.log1p(sc)
+    valid = row <= scb
+    if per_lane:
+        # the host's log1p of each step count, as the shared step's is
+        log1p_sc = torch.tensor([math.log1p(i) for i in range(S)],
+                                dtype=torch.float64).to(
+            device=ss.device, dtype=logLs.dtype)[sc][:, None, None]
+        cnt = ((sc + 1) * N).to(logLs.dtype)                    # (L,)
+    else:
+        log1p_sc = math.log1p(sc)
+        cnt = float((sc + 1) * N)
+    log_w = logLs - logdeltas + log1p_sc
     log_w_masked = torch.where(valid & ~torch.isnan(log_w), log_w, neg_inf)
     flat_lw = log_w_masked.reshape(L, S * N)
 
@@ -294,7 +341,6 @@ def _update_lanes(state, ss_new, th_new, logL_new, transitions, logprior,
                                torch.full_like(new_logp, -math.log(n)))
 
     # evidence, its standard error, KL
-    cnt = float((sc + 1) * N)
     max_lw = flat_lw.amax(dim=1)                                # (L,)
     w_o = torch.exp(log_w_masked - max_lw[:, None, None])       # (L, S, N)
     ev_o = lane_sum(w_o.reshape(L, S * N), exact=exact) / cnt
@@ -308,9 +354,9 @@ def _update_lanes(state, ss_new, th_new, logL_new, transitions, logprior,
           - logev + logprior)
 
     state.logdeltas = logdeltas
-    state.a_params[:, sc + 1] = new_a
-    state.logps[:, sc + 1] = new_logp
-    state.evidences[:, sc] = torch.stack([logev, dlogev, KL], dim=-1)
+    _put(state.a_params, sc + 1, new_a)
+    _put(state.logps, sc + 1, new_logp)
+    _put(state.evidences, sc, torch.stack([logev, dlogev, KL], dim=-1))
     state.n_steps = sc + 1
     state.mom_ok = state.mom_ok & mom_conv
     return state, (logev, dlogev, KL)

@@ -96,6 +96,7 @@ def _i64(c: int) -> int:
 _GOLDEN = _i64(0x9E3779B97F4A7C15)
 _M1 = _i64(0xBF58476D1CE4E5B9)
 _M2 = _i64(0x94D049BB133111EB)
+_FOLD = 0x632BE59BD9B4E019
 
 
 def _shr(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -124,7 +125,7 @@ class LaneRNG:
     Independent random streams, one per lane. ``keys`` is an ``(L,)``
     int64 tensor on the device the draws are made on. `fold` derives the
     streams of a sub-task (a step, a call site, a rejection round) from a
-    host int; a draw of shape ``(L, *shape)`` at tag ``t`` gives element
+    host int, or per lane from a tensor of ints; a draw of shape ``(L, *shape)`` at tag ``t`` gives element
     ``i`` of lane ``l`` the value ``mix64(mix64(keys[l] ^ c(t)) + (i+1) G)``
     with G the golden-ratio increment of SplitMix64, so a lane's values
     depend only on its key, the tags and the element index.
@@ -145,8 +146,13 @@ class LaneRNG:
     def lanes(self) -> int:
         return self.keys.shape[0]
 
-    def fold(self, tag: int) -> "LaneRNG":
-        return LaneRNG(mix64(self.keys ^ mix_int(tag + 0x632BE59BD9B4E019)))
+    def fold(self, tag) -> "LaneRNG":
+        """The streams folded by a host int, or per lane by an ``(L,)``
+        int64 tensor: lane ``l`` then gets what ``fold(int(tag[l]))``
+        gives it."""
+        if isinstance(tag, torch.Tensor):
+            return LaneRNG(mix64(self.keys ^ mix64(tag + _FOLD)))
+        return LaneRNG(mix64(self.keys ^ mix_int(tag + _FOLD)))
 
     def __getitem__(self, idx) -> "LaneRNG":
         """The streams of a subset of lanes (an index tensor or slice)."""

@@ -66,19 +66,31 @@ class TrajectoryBatch:
     def T(self):
         return self.data.shape[1]
 
+    def to(self, device=None, dtype=None) -> "TrajectoryBatch":
+        """The same batch on ``device`` and in ``dtype`` (itself if it is
+        there already)."""
+        data = self.data.to(device=device, dtype=dtype)
+        valid = self.valid.to(device=device)
+        if data is self.data and valid is self.valid:
+            return self
+        return dataclasses.replace(self, data=data, valid=valid)
+
 
 def stack_trajectories(trajs: Sequence[Trajectory],
-                       T_pad: Optional[int] = None) -> TrajectoryBatch:
+                       T_pad: Optional[int] = None, *, device=None,
+                       dtype=None) -> TrajectoryBatch:
     """Stack `Trajectory` objects, padding to the longest (or ``T_pad``),
-    on the first trajectory's device and in its dtype."""
+    on ``device`` and in ``dtype`` (default: the first trajectory's)."""
     T_max = max(len(t) for t in trajs)
     T_pad = T_max if T_pad is None else T_pad
     if T_pad < T_max:
         raise ValueError(f"T_pad={T_pad} < longest trajectory ({T_max})")
     d = trajs[0].d
     ref = trajs[0].data
-    data = torch.zeros((len(trajs), T_pad, d), dtype=ref.dtype, device=ref.device)
-    valid = torch.zeros((len(trajs), T_pad), dtype=torch.bool, device=ref.device)
+    device = ref.device if device is None else device
+    dtype = ref.dtype if dtype is None else dtype
+    data = torch.zeros((len(trajs), T_pad, d), dtype=dtype, device=device)
+    valid = torch.zeros((len(trajs), T_pad), dtype=torch.bool, device=device)
     for i, t in enumerate(trajs):
         if t.d != d:
             raise ValueError("All trajectories in a batch need the same d")
@@ -102,13 +114,15 @@ def pad_batch_rows(batch: TrajectoryBatch, n_rows: int) -> TrajectoryBatch:
 
 
 def bucket_trajectories(trajs: Sequence[Trajectory],
-                        bucket_edges=(64, 128, 256, 512, 1024)):
+                        bucket_edges=(64, 128, 256, 512, 1024), *,
+                        device=None, dtype=None):
     """
     Group ragged-length trajectories into padded batches by length bucket.
     Returns a list of ``(indices, TrajectoryBatch)`` where ``indices`` maps
     each batch row back to its position in ``trajs``. Padding frames behave
     exactly like trailing missing frames; `sample_batch` trims a bucket's
-    all-invalid tail before running it.
+    all-invalid tail before running it. ``device``, ``dtype`` as in
+    `stack_trajectories`.
     """
     edges = sorted(bucket_edges)
     buckets = {}
@@ -122,7 +136,8 @@ def bucket_trajectories(trajs: Sequence[Trajectory],
     for pad in sorted(buckets):
         idx = buckets[pad]
         out.append((np.array(idx),
-                    stack_trajectories([trajs[i] for i in idx], T_pad=pad)))
+                    stack_trajectories([trajs[i] for i in idx], T_pad=pad,
+                                       device=device, dtype=dtype)))
     return out
 
 
@@ -148,6 +163,12 @@ class BatchResults:
     # weights (logL - logdelta)
     top_profiles: Optional[np.ndarray] = None  # (K+1, B, M, T)
     top_logw: Optional[np.ndarray] = None      # (K+1, B, M)
+    # `infer.adaptive.sample_batch_adaptive` only: likelihood evaluations
+    # spent per trajectory (B,), AMIS steps per (trajectory, k) lane (B,
+    # K+1), and the number of adaptive rounds
+    evals: Optional[np.ndarray] = None
+    steps: Optional[np.ndarray] = None
+    rounds: Optional[int] = None
 
     def best_k(self, dE=None) -> np.ndarray:
         """(B,) smallest k within dE of each trajectory's max evidence."""
@@ -236,6 +257,20 @@ def run_lanes(logL_fn, lane_data, state: AmisState, rng: LaneRNG,
 
 run_lanes.steps = 0
 run_lanes.lane_steps = 0
+
+
+def _trim_tail(batch: TrajectoryBatch):
+    """``(batch, T_eff)``: the batch without the frames past every
+    trajectory's true length (they cost full likelihood propagation and
+    contribute nothing); results are edge-padded back by the caller."""
+    T_eff = batch.T
+    if batch.lengths is not None and batch.B > 0:
+        T_eff = min(max(int(np.max(batch.lengths)), 1), batch.T)
+    if T_eff == batch.T:
+        return batch, T_eff
+    return TrajectoryBatch(data=batch.data[:, :T_eff],
+                           valid=batch.valid[:, :T_eff],
+                           lengths=batch.lengths), T_eff
 
 
 def _summaries(state: AmisState, active, n_done, T, n, marginals, top_m):
@@ -415,7 +450,8 @@ def sample_batch(model, batch: TrajectoryBatch,
     of the JAX key:
 
     model : a model with ``lockstep_fns`` (`MultiStateRouse`,
-        `FactorizedModel`)
+        `FactorizedModel`); the batch is moved to its ``device`` and cast to
+        its ``dtype`` first
     k_max, steps_per_k, N : every k gets ``steps_per_k`` AMIS steps of
         ``N`` proposals. Without ``checkpoint`` all k run as one lane set
         (``L = n_k * B`` lanes per step); with it, one k at a time.
@@ -445,7 +481,9 @@ def sample_batch(model, batch: TrajectoryBatch,
                       ("lockstep", lockstep)):
         if val is not None:
             raise NotImplementedError(f"sample_batch({name}=...) {_NOT_PORTED}")
-    device, dtype = batch.data.device, batch.data.dtype
+    device = getattr(model, "device", batch.data.device)
+    dtype = getattr(model, "dtype", batch.data.dtype)
+    batch = batch.to(device, dtype)
     if generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(int(np.random.randint(2**31)))
@@ -464,18 +502,12 @@ def sample_batch(model, batch: TrajectoryBatch,
                          f"{ensemble}")
 
     B_real = batch.B
-    # trim the all-invalid tail of a padded bucket: frames past every
-    # trajectory's true length cost full likelihood propagation and
-    # contribute nothing; results are edge-padded back to T below
+    # trim the all-invalid tail of a padded bucket; results are edge-padded
+    # back to T below
     T_in = batch.T
-    cache_token = (batch.data, T_in)
-    if batch.lengths is not None and batch.B > 0:
-        T_eff = max(int(np.max(batch.lengths)), 1)
-        if T_eff < T_in:
-            batch = TrajectoryBatch(data=batch.data[:, :T_eff],
-                                    valid=batch.valid[:, :T_eff],
-                                    lengths=batch.lengths)
-            cache_token = (cache_token[0], T_eff)
+    data_in = batch.data
+    batch, T_eff = _trim_tail(batch)
+    cache_token = (data_in, T_eff)
 
     per_traj, logL_fn = model.lockstep_fns(batch)
     B, T = batch.B, batch.T

@@ -2,7 +2,8 @@
 Dataset-scale inference (counterpart of `bild_tpu.parallel.dataset`):
 
     ragged trajectories -> length buckets -> fixed-size chunks
-      -> lockstep `sample_batch` per chunk
+      -> lockstep `sample_batch` (or adaptive `sample_batch_adaptive`)
+         per chunk
       -> per-chunk checkpoint files -> original-order DatasetResults
 
 Chunking bounds device memory (a chunk of B trajectories runs ``(k_max+1)
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ..amis.sampler import draw_seed
+from ..infer.adaptive import sample_batch_adaptive
 from ..lanes import mix_int
 from .batch import TrajectoryBatch, bucket_trajectories, sample_batch
 
@@ -44,6 +46,8 @@ class DatasetResults:
     # (B, K+1): CFC method-of-marginals converged for that (trajectory, k)
     # lockstep run (see BatchResults.mom_ok); True for skipped k
     mom_ok: Optional[np.ndarray] = None
+    # (B,): likelihood evaluations spent per trajectory (schedule="adaptive")
+    evals: Optional[np.ndarray] = None
 
     def best_k(self, dE=None) -> np.ndarray:
         dE = self.dE if dE is None else dE
@@ -101,8 +105,9 @@ def sample_dataset(model, trajs: Sequence,
                    schedule="lockstep",
                    **sample_kw) -> DatasetResults:
     """
-    Full-dataset lockstep inference over ragged trajectories (a sequence
-    of `Trajectory` on the model's device, in its dtype).
+    Full-dataset inference over ragged trajectories (a sequence of
+    `Trajectory`; each chunk is stacked on the model's device, in its
+    dtype, wherever the trajectories lie).
 
     Parameters mirror `sample_batch` plus:
 
@@ -119,8 +124,15 @@ def sample_dataset(model, trajs: Sequence,
     optimize_boundaries : run `postproc.optimize_boundary_batch` on each
         chunk's best profiles at ``dE``; results land in
         ``DatasetResults.optimized`` with per-trajectory ``eliminated``.
-    schedule : "lockstep" only; "adaptive" (`infer/adaptive.py`) is not
-        ported yet.
+    schedule : "lockstep" (default) runs the fixed ``steps_per_k``
+        schedule through `sample_batch`; "adaptive" runs
+        `infer.adaptive.sample_batch_adaptive` per chunk (evidence-driven
+        budget allocation and certainty-based stopping). Its knobs
+        (``init_steps``, ``steps_per_round``, ``max_steps_per_k``,
+        ``certainty_in_k``, ...) pass through ``**sample_kw``;
+        ``steps_per_k``, ``scout_steps`` and ``refine_top`` are ignored
+        under it. ``DatasetResults.evals`` then holds each trajectory's
+        likelihood evaluations.
     mesh : not ported (multi-process sharding).
 
     Returns `DatasetResults` in the original trajectory order.
@@ -132,11 +144,6 @@ def sample_dataset(model, trajs: Sequence,
     if schedule not in ("lockstep", "adaptive"):
         raise ValueError(f"schedule must be 'lockstep' or 'adaptive', "
                          f"got {schedule!r}")
-    if schedule == "adaptive":
-        raise NotImplementedError(
-            "schedule='adaptive' needs infer/adaptive.py "
-            "(sample_batch_adaptive), which bild_tpu_torch does not port "
-            "yet: ROADMAP.md queue 1 item 11")
     if mesh is not None:
         raise NotImplementedError(
             "sample_dataset(mesh=...) needs the multi-process sharded runner "
@@ -154,6 +161,8 @@ def sample_dataset(model, trajs: Sequence,
     config = ("v1", k_max, steps_per_k, N, scout_steps, refine_top,
               informed_init, marginals, chunk_size,
               bool(optimize_boundaries), float(dE), seed)
+    if schedule != "lockstep":
+        config += (schedule,)
     if sample_kw:
         config += (sorted(sample_kw.items()),)
     fingerprint = getattr(model, "likelihood_fingerprint", lambda: None)()
@@ -170,10 +179,15 @@ def sample_dataset(model, trajs: Sequence,
     opt_by_traj: List[Optional[np.ndarray]] = [None] * B_total
     elim_all = np.zeros(B_total, dtype=bool)
     mom_all = np.ones((B_total, K1), dtype=bool)
+    evals_all = np.zeros(B_total, dtype=np.int64)
 
-    # stable chunk schedule: bucket, then split each bucket
+    # stable chunk schedule: bucket, then split each bucket, stacked on the
+    # model's device and in its dtype (the chunk tags hash those bytes)
     work = []
-    for idx, batch in bucket_trajectories(trajs, bucket_edges=bucket_edges):
+    for idx, batch in bucket_trajectories(
+            trajs, bucket_edges=bucket_edges,
+            device=getattr(model, "device", None),
+            dtype=getattr(model, "dtype", None)):
         for lo in range(0, len(idx), chunk_size):
             sl = slice(lo, lo + chunk_size)
             sub = TrajectoryBatch(
@@ -205,17 +219,25 @@ def sample_dataset(model, trajs: Sequence,
             opt = loaded["optimized"] if optimize_boundaries else None
             elim = loaded["eliminated"] if optimize_boundaries else None
             mom = loaded["mom_ok"]
+            evl = loaded["evals"] if loaded["evals"].size else None
         else:
             chunk_gen = torch.Generator(device=sub.data.device)
             chunk_gen.manual_seed(mix_int(seed + c) & (2**63 - 1))
-            res = sample_batch(
-                model, sub, k_max=k_max, steps_per_k=steps_per_k, N=N,
-                dE=dE, scout_steps=scout_steps, refine_top=refine_top,
-                informed_init=informed_init, marginals=marginals,
-                generator=chunk_gen, **sample_kw)
+            if schedule == "adaptive":
+                res = sample_batch_adaptive(
+                    model, sub, k_max=k_max, N=N, dE=dE,
+                    informed_init=informed_init, marginals=marginals,
+                    generator=chunk_gen, **sample_kw)
+            else:
+                res = sample_batch(
+                    model, sub, k_max=k_max, steps_per_k=steps_per_k, N=N,
+                    dE=dE, scout_steps=scout_steps, refine_top=refine_top,
+                    informed_init=informed_init, marginals=marginals,
+                    generator=chunk_gen, **sample_kw)
             ev, se, maps = res.evidence, res.evidence_se, res.map_profiles
             marg = res.marginals
             mom = res.mom_ok
+            evl = res.evals
             opt = elim = None
             if optimize_boundaries:
                 from ..postproc import optimize_boundary_batch
@@ -229,7 +251,8 @@ def sample_dataset(model, trajs: Sequence,
                          optimized=(opt if opt is not None else np.zeros(0)),
                          eliminated=(elim if elim is not None
                                      else np.zeros(0)),
-                         mom_ok=mom)
+                         mom_ok=mom,
+                         evals=(evl if evl is not None else np.zeros(0)))
                 os.replace(tmp, ck_path)
 
         lengths = (np.asarray(sub.lengths) if sub.lengths is not None
@@ -238,6 +261,8 @@ def sample_dataset(model, trajs: Sequence,
             evidence[i] = ev[row]
             evidence_se[i] = se[row]
             mom_all[i] = mom[row]
+            if evl is not None:
+                evals_all[i] = evl[row]
             Ti = int(lengths[row])
             profiles_by_k[i] = np.asarray(maps[:, row, :Ti], dtype=int)
             if marginals:
@@ -256,4 +281,5 @@ def sample_dataset(model, trajs: Sequence,
         optimized=opt_by_traj if optimize_boundaries else None,
         eliminated=elim_all if optimize_boundaries else None,
         mom_ok=mom_all,
+        evals=evals_all if schedule == "adaptive" else None,
     )

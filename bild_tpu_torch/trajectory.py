@@ -109,16 +109,59 @@ class Trajectory:
                 and torch.equal(self.valid.cpu(), other.valid.cpu()))
 
 
+def _from_dataframe(df) -> np.ndarray:
+    """
+    An ``(N, T, d)`` array from a data frame with the noctiluca column
+    convention (``x1, y1, z1, x2, ...`` and an optional ``frame`` column;
+    reference ``bild/core.py:48-52``); unsuffixed ``x, y, z`` are one locus.
+    Frames missing from the ``frame`` column become NaN rows. Any object
+    with ``.columns`` and column access by name will do.
+    """
+    import re
+
+    cols = {}
+    for col in df.columns:
+        mm = re.fullmatch(r"([xyz])(\d*)", str(col))
+        if mm:
+            dim = "xyz".index(mm.group(1))
+            locus = int(mm.group(2)) if mm.group(2) else 1
+            cols[(locus, dim)] = col
+    if not cols:
+        raise ValueError("DataFrame needs coordinate columns x[1], y[1], z[1], x2, ...")
+
+    loci = sorted({k[0] for k in cols})
+    dims = sorted({k[1] for k in cols})
+    n_rows = len(np.asarray(df[next(iter(cols.values()))]))
+    if "frame" in df.columns:
+        frames = np.asarray(df["frame"], dtype=int)
+    else:
+        frames = np.arange(n_rows)
+    f0 = frames.min()
+    T = int(frames.max() - f0) + 1
+
+    arr = np.full((len(loci), T, len(dims)), np.nan)
+    for i, locus in enumerate(loci):
+        for j, dim in enumerate(dims):
+            key = (locus, dim)
+            if key in cols:
+                arr[i, frames - f0, j] = np.asarray(df[cols[key]], dtype=float)
+    return arr
+
+
 def make_trajectory(obj, localization_error=None, *, device="cpu",
                     dtype=torch.float32, **meta) -> Trajectory:
     """
     Coerce user input to a `Trajectory`: an existing `Trajectory` (moved to
-    ``device``/``dtype``), or an array of shape ``(N, T, d)``, ``(T, d)`` or
+    ``device``/``dtype``), a data frame with noctiluca's coordinate columns
+    (`_from_dataframe`), or an array of shape ``(N, T, d)``, ``(T, d)`` or
     ``(T,)``. ``N = 2`` loci become the relative (difference) trajectory.
     """
     if isinstance(obj, Trajectory):
         return obj.to(device=device, dtype=dtype)
-    arr = np.asarray(_to_numpy(obj), dtype=float)
+    if hasattr(obj, "columns"):
+        arr = _from_dataframe(obj)
+    else:
+        arr = np.asarray(_to_numpy(obj), dtype=float)
     if arr.ndim == 3:
         if arr.shape[0] == 1:
             arr = arr[0]

@@ -42,7 +42,27 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    launch counters, a rerun that loads both chunks, the device-busy share
    under torch.profiler, and the per-k checkpointed `sample_batch` equal to
    the all-k one on a 16-trajectory chunk.
-8. Range phase: the dense kernel at the largest chains one warp takes
+8. Adaptive phase: config 3 through `sample_dataset(schedule='adaptive',
+   chunk_size=128)` (k_max=4, N=128, informed init, init_steps=4,
+   steps_per_round=2, max_steps_per_k=24, samplesize=4096) under both
+   selectors: accuracy against the same bars, fewer likelihood
+   evaluations per trajectory than the lockstep schedule's 5,632, the
+   launch counters, a rerun from the chunk checkpoint and a second run
+   from the same seed (identical arrays), the device-busy share, and
+   `sample_batch_adaptive` on the chunk with ``evals == N * steps``. The
+   lockstep phase above holds both kernels at its launches (bootstrap
+   L=384, round L=128 with trajectories in two slots, P=128) and times the
+   round.
+9. CLI phase: config 3 written as a two-locus CSV and run through ``python
+   -m bild_tpu_torch`` in subprocesses with no ``--device`` (so on the
+   card): lockstep with marginals, boundary climb, dwell times and chunk
+   checkpoints; a rerun (identical npz); ``--adaptive``; ``--fit-params 1
+   --fit-subset 32``. Each process reports its counters: the native CSV
+   parser ran, every inference likelihood went through the kernel, and
+   plain calls happened only in the calibration's M-step (counted apart).
+10. Checkpoint phase: the README `sample()` saved and loaded on the card;
+   a loaded sampler's next steps equal the uninterrupted ones bit for bit.
+11. Range phase: the dense kernel at the largest chains one warp takes
    (float32 N=168 at q=1 and N=120 at q=3, float64 N=116), its operators
    then in global memory, against its plain version or the f64 oracle.
 
@@ -56,6 +76,7 @@ from __future__ import annotations
 import json
 import os
 import subprocess
+import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -70,6 +91,9 @@ RTOL_F64 = 1e-9
 PEAK_FLOPS_F32 = 67e12
 PEAK_BYTES = 3.35e12
 SLICE_ACCURACY = 0.9
+# likelihood evaluations per trajectory of config 3's lockstep schedule
+# (ADAPTIVE_34_r05.json): the adaptive schedule must spend fewer
+LOCKSTEP_EVALS = 5632
 # the dataset phase's bars; bild_tpu's own run of this configuration
 # recorded 0.993 and 0.852 (PERF_r04.json)
 DATASET_FRAME_ACCURACY = 0.97
@@ -325,13 +349,20 @@ def lane_kernel_phase(bt, rng, max_abs):
 # launches of the dataset phase. Per 64-trajectory chunk the scout steps
 # run 5 k x 64 lanes and the refine steps 3 x 64, 128 proposals each; the
 # boundary climb scores 2 Kb + 1 = 9 candidates (Kb = k_max = 4) of each
-# of up to 64 trajectories. The last shape is config 3 in one chunk.
+# of up to 64 trajectories; config 3 in one chunk runs 640 lanes. The
+# adaptive phase's chunk of 128 bootstraps 3 k x 128 lanes, and each round
+# advances 128 gathered slots, here 96 trajectories and 32 of them twice
+# (budget reallocation gives a trajectory several slots).
 LOCKSTEP_SHAPES = (
     ("chunk scout", 320, 128, 64),
     ("chunk refine", 192, 128, 64),
     ("boundary climb", 64, 9, 64),
     ("one chunk of 128", 640, 128, 128),
+    ("adaptive bootstrap", 384, 128, 128),
+    ("adaptive round", 128, 128, 96),
 )
+# the shapes timed in the lockstep phase
+TIMED_SHAPES = ("one chunk of 128", "adaptive round")
 
 
 def lockstep_phase(bt, rng, max_abs):
@@ -344,8 +375,8 @@ def lockstep_phase(bt, rng, max_abs):
     and 7 chosen profiles launched alone and three lanes launched alone
     (one profile per block) give the same bits as in the full launch, so a
     tile or a block shares nothing between profiles; and both
-    kernels are timed, in the order plain, kernel, kernel, plain.
-    Returns ``{name: (ms, plain_ms, bound_ms)}`` at the largest shape."""
+    kernels are timed at `TIMED_SHAPES`, in the order plain, kernel,
+    kernel, plain. Returns ``{(name, label): (ms, plain_ms, bound_ms)}``."""
     from bild_tpu_torch.ops.kalman_dense import (msrouse_logL_dense,
                                                  msrouse_logL_dense_torch)
     from bild_tpu_torch.ops.kalman_sym import (msrouse_logL_sym,
@@ -435,7 +466,7 @@ def lockstep_phase(bt, rng, max_abs):
                 check(same_single, f"{line}: a lane launched alone (narrower tiles) "
                       "gives the same bits")
             print(line, flush=True)
-            if L == L_max and P == P_max:
+            if label in TIMED_SHAPES:
                 p1 = time_ms(lambda: plain(prof, ydata, valid), 1)
                 k1, k2 = (time_ms(lambda: kern(prof, ydata, valid), 2)
                           for _ in range(2))
@@ -445,8 +476,8 @@ def lockstep_phase(bt, rng, max_abs):
                 flops, nbytes = kernel_work(L, P, T, 2, N, DIM, 1, observed)
                 bnd, by = bound_ms(flops, nbytes)
                 own = algorithm_flops(name, L, P, T, N, DIM, 1, observed)
-                times[name] = (ms, plain_ms, bnd)
-                print(f"time {name:12s} lockstep L={L} P={P}  kernel "
+                times[(name, label)] = (ms, plain_ms, bnd)
+                print(f"time {name:12s} {label} L={L} P={P}  kernel "
                       f"{ms:9.3f} ms ({L * P / ms * 1e3:12.1f} profiles/s)  "
                       f"plain {plain_ms:9.3f} ms "
                       f"({L * P / plain_ms * 1e3:12.1f} profiles/s)  bound "
@@ -548,13 +579,7 @@ def dataset_phase(bt, B=128, chunk_size=64, sub_B=16):
     model = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
                                       localization_error=0.1,
                                       device=DEVICE, dtype=torch.float32)
-    truths = truth_profiles(np.random.default_rng(3), B, T, 2)
-    true_k = np.sum(truths[:, 1:] != truths[:, :-1], axis=1)
-    batch = model.trajectories_from_loopingprofiles(
-        truths, generator=torch.Generator(device=DEVICE).manual_seed(3))
-    trajs = [bt.Trajectory(data=batch.data[i], valid=batch.valid[i],
-                           localization_error=np.full(DIM, 0.1))
-             for i in range(B)]
+    truths, true_k, batch, trajs = config3(bt, model, B)
     kw = dict(k_max=4, steps_per_k=12, N=128, informed_init=True,
               scout_steps=4, refine_top=3, marginals=True,
               optimize_boundaries=True, chunk_size=chunk_size)
@@ -612,24 +637,11 @@ def dataset_phase(bt, B=128, chunk_size=64, sub_B=16):
               "rerun from the chunk checkpoints returns identical arrays")
 
         # device-busy share of one more run, traced
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            sample_dataset(model, trajs, **kw,
-                           generator=torch.Generator().manual_seed(7))
-            torch.cuda.synchronize()
-            wall_p = time.perf_counter() - t0
-        by_name = device_time_by_name(prof)
-        busy = sum(ms for ms, _ in by_name.values())
-        share = (f"{busy / 1e3 / wall_p:.4f} ({busy:.1f} ms of {wall_p:.3f} s "
-                 f"profiled wall, {sum(c for _, c in by_name.values())} device "
-                 "events)" if busy > 0 else "not measured (no device events "
-                 "in the trace)")
+        share, top, _ = busy_share(lambda: sample_dataset(
+            model, trajs, **kw, generator=torch.Generator().manual_seed(7)))
         print(f"dataset selector={selector}: device busy share {share}",
               flush=True)
-        for name, (ms, cnt) in sorted(by_name.items(),
-                                      key=lambda kv: -kv[1][0])[:5]:
+        for name, (ms, cnt) in top:
             print(f"    {ms:10.1f} ms {cnt:7d}x  {name[:90]}", flush=True)
 
         # the per-k checkpointed schedule equals the all-k one
@@ -653,6 +665,272 @@ def dataset_phase(bt, B=128, chunk_size=64, sub_B=16):
         out[selector] = ran
     bt.config.set_rouse_kernel("sym")
     return out
+
+
+def config3(bt, model, B=128):
+    """bench_e2e.py config 3: ``(truths (B, T), true switch counts, batch,
+    trajectories)`` made by the port's batched generator on the card."""
+    truths = truth_profiles(np.random.default_rng(3), B, T, 2)
+    true_k = np.sum(truths[:, 1:] != truths[:, :-1], axis=1)
+    batch = model.trajectories_from_loopingprofiles(
+        truths, generator=torch.Generator(device=DEVICE).manual_seed(3))
+    trajs = [bt.Trajectory(data=batch.data[i], valid=batch.valid[i],
+                           localization_error=np.full(DIM, 0.1))
+             for i in range(B)]
+    return truths, true_k, batch, trajs
+
+
+def busy_share(run):
+    """``(device busy share text, top device events)`` of one traced call
+    of ``run``."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = device_time_by_name(prof)
+    busy = sum(ms for ms, _ in by_name.values())
+    text = (f"{busy / 1e3 / wall:.4f} ({busy:.1f} ms of {wall:.3f} s profiled "
+            f"wall, {sum(c for _, c in by_name.values())} device events)"
+            if busy > 0 else "not measured (no device events in the trace)")
+    return text, sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5], out
+
+
+def adaptive_phase(bt, B=128):
+    """Config 3 through `sample_dataset(schedule='adaptive', chunk_size=128)`
+    (bild_tpu's recorded adaptive settings, ADAPTIVE_34_r05.json), once per
+    kernel selector: wall, rounds, evaluations, accuracy against the bars
+    and below the lockstep schedule's 5,632 evaluations per trajectory,
+    the launch counters, a rerun that loads the chunk, the same bits from
+    the same seed (the traced run), and `sample_batch_adaptive` on the same
+    chunk for ``evals == N * steps``."""
+    from bild_tpu_torch.amis.sampler import draw_seed
+    from bild_tpu_torch.infer.adaptive import sample_batch_adaptive
+    from bild_tpu_torch.lanes import mix_int
+    from bild_tpu_torch.parallel import sample_dataset
+
+    model = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
+                                      localization_error=0.1,
+                                      device=DEVICE, dtype=torch.float32)
+    truths, true_k, batch, trajs = config3(bt, model, B)
+    kw = dict(k_max=4, N=128, informed_init=True, init_steps=4,
+              steps_per_round=2, max_steps_per_k=24, samplesize=4096)
+    out = {}
+    for selector in ("sym", "dense"):
+        bt.config.set_rouse_kernel(selector)
+        with tempfile.TemporaryDirectory() as ck:
+            def run(ck=ck):
+                return sample_dataset(model, trajs, **kw, schedule="adaptive",
+                                      chunk_size=B, checkpoint_dir=ck,
+                                      generator=torch.Generator().manual_seed(7))
+
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ran = read_counts()
+            check(len(os.listdir(ck)) == 1, "one chunk file written")
+            reset_counts()
+            again = run()
+            reloaded = read_counts()
+        acc = float(np.mean(np.concatenate(res.best_profile()) == truths.ravel()))
+        sw = float(np.mean(res.best_k() == true_k))
+        ev = res.evals
+        q = np.quantile(ev, [0.1, 0.5, 0.9])
+        share, top, traced = busy_share(lambda: run(ck=None))
+        # the chunk's own generator, as sample_dataset seeds chunk 0
+        seed = draw_seed(torch.Generator().manual_seed(7))
+        direct = sample_batch_adaptive(
+            model, batch, **kw, generator=torch.Generator(device=DEVICE)
+            .manual_seed(mix_int(seed) & (2**63 - 1)))
+        print(f"adaptive selector={selector}: wall {wall:.3f} s, "
+              f"{B / wall:.2f} trajectories/s, likelihood evaluations per "
+              f"trajectory mean {ev.mean():.1f} (q10/50/90 {q[0]:.0f}/"
+              f"{q[1]:.0f}/{q[2]:.0f}; lockstep 5632), frame accuracy "
+              f"{acc:.4f}, switch-count accuracy {sw:.4f}, launches {ran}; "
+              f"sample_batch_adaptive alone: {direct.rounds} rounds, "
+              f"{int(direct.steps.sum())} lane-steps; device busy share {share}",
+              flush=True)
+        for name, (ms, cnt) in top:
+            print(f"    {ms:10.1f} ms {cnt:7d}x  {name[:90]}", flush=True)
+        check(ran[f"kalman_{selector}"] > 0, f"{selector} kernel launched")
+        check(all(ran[k] == 0 for k in ran if k.startswith("plain")),
+              "no plain version ran on the CUDA path")
+        check(acc >= DATASET_FRAME_ACCURACY,
+              f"frame accuracy {acc:.4f} >= {DATASET_FRAME_ACCURACY}")
+        check(sw >= DATASET_SWITCH_ACCURACY,
+              f"switch-count accuracy {sw:.4f} >= {DATASET_SWITCH_ACCURACY}")
+        check(ev.mean() < LOCKSTEP_EVALS,
+              f"mean evaluations {ev.mean():.1f} < lockstep {LOCKSTEP_EVALS}")
+        check(np.all(np.isfinite(res.evidence[:, 0])), "k=0 evidence finite")
+        check(res.mom_ok.all(), "CFC fixed point converged in every lane")
+        check(all(v == 0 for v in reloaded.values()),
+              f"rerun loaded the chunk, launched nothing: {reloaded}")
+        for other, what in ((again, "rerun from the chunk checkpoint"),
+                            (traced, "a second run from the same seed")):
+            check(np.array_equal(other.evidence, res.evidence)
+                  and np.array_equal(other.evals, res.evals)
+                  and all(np.array_equal(a, b) for a, b in zip(
+                      other.profiles_by_k, res.profiles_by_k)),
+                  f"{what} returns identical arrays")
+        check(np.array_equal(direct.evals, kw["N"] * direct.steps.sum(axis=1)),
+              "evals == N x the lane steps")
+        check(np.array_equal(direct.evidence, res.evidence),
+              "sample_batch_adaptive on the chunk equals the dataset run")
+        out[selector] = ran
+    bt.config.set_rouse_kernel("sym")
+    return out
+
+
+# runs `python -m bild_tpu_torch` (runpy is what -m uses) and writes the
+# launch and parse counters of that process to the path given first
+CLI_RUNNER = """
+import atexit, json, runpy, sys
+from bild_tpu_torch import fit, io
+from bild_tpu_torch.ops import kalman, kalman_dense, kalman_sym
+out = sys.argv.pop(1)
+atexit.register(lambda: json.dump({
+    "kalman_sym": kalman_sym.msrouse_logL_sym.launches,
+    "kalman_dense": kalman_dense.msrouse_logL_dense.launches,
+    "plain_sym": kalman_sym.msrouse_logL_sym_torch.calls,
+    "plain_dense": kalman_dense.msrouse_logL_dense_torch.calls,
+    "plain_torch": kalman.msrouse_logL_batch.calls,
+    "calibration_plain": fit.calibration_logL.calls,
+    "native_parses": io.load_trajectories_csv.native_parses}, open(out, "w")))
+runpy.run_module("bild_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+def cli_phase(bt, work):
+    """Config 3 as a two-locus CSV through ``python -m bild_tpu_torch`` in
+    a subprocess with no ``--device`` (so on the card): the lockstep run
+    with marginals, the boundary climb, dwell times and chunk checkpoints,
+    a rerun (identical npz), ``--adaptive``, and ``--fit-params 1
+    --fit-subset 32``. Checks accuracy from the npz against the truths,
+    the native parser, and the counters: every likelihood of inference
+    through the kernel, plain calls only in the calibration's M-step.
+    Returns the summed counters."""
+    model = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
+                                      localization_error=0.1,
+                                      device=DEVICE, dtype=torch.float32)
+    truths, true_k, batch, _ = config3(bt, model)
+    rel = batch.data.cpu().numpy().astype(np.float64)
+    base = np.random.default_rng(5).normal(size=(len(rel), 1, DIM)) * 3.0
+    csv = os.path.join(work, "config3.csv")
+    with open(csv, "w") as f:
+        f.write("traj_id,frame,x1,y1,z1,x2,y2,z2\n")
+        for i in range(len(rel)):
+            for t in range(T):
+                a, b = base[i, 0], base[i, 0] + rel[i, t]
+                f.write(f"{i},{t}," + ",".join(repr(float(v)) for v in (*a, *b))
+                        + "\n")
+    common = [csv, "--two-locus", "--k-max", "4", "--steps-per-k", "12",
+              "--proposals", "128", "--scout-steps", "4", "--refine-top", "3",
+              "--chunk-size", "64", "--seed", "7", "--quiet"]
+    runs = (("lockstep", ["--marginals", "--optimize-boundaries",
+                          "--dwell-times", "--checkpoint-dir",
+                          os.path.join(work, "ck")]),
+            ("rerun", ["--marginals", "--optimize-boundaries",
+                       "--dwell-times", "--checkpoint-dir",
+                       os.path.join(work, "ck")]),
+            ("adaptive", ["--adaptive"]),
+            ("fit", ["--fit-params", "1", "--fit-subset", "32"]))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.getcwd()] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    results, totals = {}, {}
+    for label, extra in runs:
+        out = os.path.join(work, f"{label}.npz")
+        counts = os.path.join(work, f"{label}.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", CLI_RUNNER, counts, *common,
+                               "--out", out, *extra], capture_output=True,
+                              text=True, env=env, timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"CLI {label} exited {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        with open(counts) as f:
+            ran = json.load(f)
+        res = dict(np.load(out, allow_pickle=True))
+        results[label] = res
+        acc = float(np.mean(np.concatenate(list(res["best_profiles"]))
+                            == truths.ravel()))
+        sw = float(np.mean(res["best_k"] == true_k))
+        extra_text = ""
+        if "likelihood_evals" in res:
+            extra_text = (f", evaluations per trajectory "
+                          f"{res['likelihood_evals'].mean():.1f}")
+        if "fitted_D" in res:
+            extra_text = (f", fitted D {float(res['fitted_D']):.4f} k "
+                          f"{float(res['fitted_k']):.4f}")
+        print(f"cli {label}: wall {wall:.3f} s (process start to exit), frame "
+              f"accuracy {acc:.4f}, switch-count accuracy {sw:.4f}"
+              f"{extra_text}, counters {ran}", flush=True)
+        check(ran["native_parses"] == 1, "the native CSV parser was used")
+        check(ran["plain_sym"] == ran["plain_dense"] == 0
+              and ran["plain_torch"] == ran["calibration_plain"],
+              "plain likelihoods only in the calibration's M-step")
+        if label != "rerun":
+            check(ran["kalman_sym"] > 0, "the sym kernel launched")
+        if label != "fit":
+            check(acc >= DATASET_FRAME_ACCURACY and sw >= DATASET_SWITCH_ACCURACY,
+                  f"CLI {label} accuracy {acc:.4f} / {sw:.4f}")
+        else:
+            check(ran["calibration_plain"] > 0 and float(res["fitted_D"]) > 0
+                  and acc >= SLICE_ACCURACY,
+                  f"CLI fit ran its M-step, frame accuracy {acc:.4f}")
+        for k, v in ran.items():
+            totals[k] = totals.get(k, 0) + v
+    first, rerun = results["lockstep"], results["rerun"]
+    check(rerun["best_k"].shape == (len(truths),) and set(first) == set(rerun)
+          and all(all(np.array_equal(x, y) for x, y in zip(first[k], rerun[k]))
+                  if first[k].dtype == object else np.array_equal(first[k], rerun[k])
+                  for k in first),
+          "the CLI rerun from its checkpoints writes an identical npz")
+    check(any(k.startswith("dwell_KM_state") for k in first), "dwell times")
+    return totals
+
+
+def checkpoint_phase(bt):
+    """The README `sample()` on the card, saved and loaded: the same
+    evidence and best profile, and a loaded non-exhausted sampler steps
+    exactly as the uninterrupted one."""
+    from bild_tpu_torch.utils import load_results, save_results
+
+    model = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
+                                      localization_error=0.1,
+                                      device=DEVICE, dtype=torch.float32)
+    true = np.zeros(T, dtype=int)
+    true[30:60] = 1
+    traj = model.trajectory_from_loopingprofile(
+        true, generator=torch.Generator(device=DEVICE).manual_seed(42))
+    reset_counts()
+    res = bt.sample(traj, model, generator=torch.Generator(device=DEVICE).manual_seed(7))
+    with tempfile.TemporaryDirectory() as d:
+        save_results(os.path.join(d, "ck.npz"), res)
+        loaded = load_results(os.path.join(d, "ck.npz"), model)
+    check(np.array_equal(res.evidence, loaded.evidence)
+          and np.array_equal(np.asarray(res.best_profile()[:]),
+                             np.asarray(loaded.best_profile()[:])),
+          "loaded results equal the saved ones")
+    i = next(i for i, s in enumerate(res.samplers) if not s.exhausted)
+    for s in (res.samplers[i], loaded.samplers[i]):
+        s.steps(2)
+    a, b = res.samplers[i].state.to_numpy(), loaded.samplers[i].state.to_numpy()
+    same = all(np.array_equal(a[f], b[f]) for f in a)
+    ran = read_counts()
+    print(f"checkpoint: {len(res.samplers)} samplers saved and loaded, sampler "
+          f"k={res.samplers[i].k} resumed 2 steps: "
+          f"{'same bits' if same else 'DIFFER'}, launches {ran}", flush=True)
+    check(same and res.samplers[i].evidences == loaded.samplers[i].evidences,
+          "a resumed step equals the uninterrupted one bit for bit")
+    check(all(ran[k] == 0 for k in ran if k.startswith("plain")),
+          "no plain version ran on the CUDA path")
+    return ran
 
 
 def time_ms(fn, reps):
@@ -792,30 +1070,46 @@ def main():
     lane_kernel_phase(bt, rng, max_abs)
     lock_times = lockstep_phase(bt, rng, max_abs)
     ds_launches = dataset_phase(bt)
+    ad_launches = adaptive_phase(bt)
+    with tempfile.TemporaryDirectory() as work:
+        cli_counts = cli_phase(bt, work)
+    ck_launches = checkpoint_phase(bt)
     range_phase(bt, rng)
 
     replaces = {"kalman_sym": "bild_tpu/ops/kalman_sym.py:189",
                 "kalman_dense": "bild_tpu/ops/kalman_pallas.py:50"}
     # "ms", "plain_ms" and "bound_ms" at the AMIS step of sample() (one
     # trajectory, P=100); "lockstep_*" at config 3's lockstep launch (L=640,
-    # P=128). No single PyTorch call computes the recursion: library_ms is
-    # null.
+    # P=128); "adaptive_*" at the adaptive round's (L=128, P=128). No single
+    # PyTorch call computes the recursion: library_ms is null. "launches"
+    # sums the main-path runs: sample(), the lockstep and adaptive dataset
+    # runs, the CLI runs and the checkpoint phase. The calibration's M-step
+    # runs the plain recursion under autograd by design: its calls stand
+    # apart, under "calibration_plain_calls".
+    chunk, rnd = "one chunk of 128", "adaptive round"
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"bild_tpu_torch/csrc/{name}.cu",
         "replaces": replaces[name],
-        "launches": launches[name] + sum(r[name] for r in ds_launches.values()),
+        "launches": (launches[name] + cli_counts[name] + ck_launches[name]
+                     + sum(r[name] for r in ds_launches.values())
+                     + sum(r[name] for r in ad_launches.values())),
         "max_abs_err": max_abs[name],
         "ms": times[(name, 100)][0],
         "plain_ms": times[(name, 100)][1],
         "bound_ms": times[(name, 100)][2],
         "bound_by": times[(name, 100)][3],
         "library_ms": None,
-        "lockstep_ms": lock_times[name][0],
-        "lockstep_plain_ms": lock_times[name][1],
-        "lockstep_bound_ms": lock_times[name][2],
+        "lockstep_ms": lock_times[(name, chunk)][0],
+        "lockstep_plain_ms": lock_times[(name, chunk)][1],
+        "lockstep_bound_ms": lock_times[(name, chunk)][2],
+        "adaptive_ms": lock_times[(name, rnd)][0],
+        "adaptive_plain_ms": lock_times[(name, rnd)][1],
+        "adaptive_bound_ms": lock_times[(name, rnd)][2],
     } for name in names]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels,
+                      "calibration_plain_calls": cli_counts["calibration_plain"]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

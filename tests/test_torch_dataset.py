@@ -112,11 +112,33 @@ def test_buckets_and_original_order(shared, result, tmp_path):
 
 def test_unported_options_raise(shared):
     _, tm, _, _, ttrajs = shared
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        sample_dataset(tm, ttrajs, schedule="adaptive")
     with pytest.raises(NotImplementedError, match="queue 1 item 16"):
         sample_dataset(tm, ttrajs, mesh=object())
     with pytest.raises(ValueError, match="ensemble"):
         sample_dataset(tm, ttrajs, ensemble=4)
     with pytest.raises(ValueError, match="schedule"):
         sample_dataset(tm, ttrajs, schedule="other")
+
+
+def test_trajectories_move_to_the_model(shared):
+    """float32 trajectories on the CPU (`Trajectory.create`'s default, what
+    the CSV loader makes) into a float64 model give the bits of float64
+    trajectories holding the same values, through sample_batch and
+    sample_dataset."""
+    _, tm, _, _, ttrajs = shared
+    f32 = [bt.Trajectory.create(t[:]) for t in ttrajs]
+    f64 = [bt.Trajectory.create(t[:].astype(np.float32).astype(np.float64),
+                                dtype=F64) for t in ttrajs]
+    assert f32[0].data.dtype == torch.float32
+    kw = dict(k_max=2, steps_per_k=3, N=16, informed_init=True)
+    a, b = (bt.parallel.sample_batch(tm, bt.parallel.stack_trajectories(t),
+                                     **kw, generator=torch.Generator().manual_seed(4))
+            for t in (f32, f64))
+    np.testing.assert_array_equal(a.evidence, b.evidence)
+    np.testing.assert_array_equal(a.map_profiles, b.map_profiles)
+    a, b = (sample_dataset(tm, t, **kw, chunk_size=2, bucket_edges=(40,),
+                           generator=torch.Generator().manual_seed(4))
+            for t in (f32, f64))
+    np.testing.assert_array_equal(a.evidence, b.evidence)
+    for x, y in zip(a.profiles_by_k, b.profiles_by_k):
+        np.testing.assert_array_equal(x, y)
