@@ -499,7 +499,9 @@ class FixedkSampler:
         self._lane_active = self.active[None]
 
         if hasattr(model, "lockstep_fns_single"):
-            per_traj, logL_fn = model.lockstep_fns_single(traj)
+            # every profile this sampler scores has k + 1 intervals
+            per_traj, logL_fn = model.lockstep_fns_single(
+                traj, max_intervals=self.k + 1)
             self._logL = lambda profiles: logL_fn(profiles, per_traj)
         else:
             self._logL = lambda profiles: model.logL_batch(profiles, traj)

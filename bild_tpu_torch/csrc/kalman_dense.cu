@@ -5,7 +5,7 @@
 // Replaces the Pallas kernel bild_tpu/ops/kalman_pallas.py::_kernel. That
 // kernel propagated a tile of 128 profiles through EVERY state and picked
 // each profile's state with one-hot masks, and got its trajectory axis
-// from jax.vmap around the call; here a warp reads its own profile[t] and
+// from a vmap (JAX) around the call; here a warp reads its own profile[t] and
 // applies that state's operators only, and the grid holds every (lane,
 // profile) pair of a lockstep step: warp g = block W + warp evaluates
 // profile g % P of lane g / P.

@@ -45,7 +45,9 @@ from .physics.rouse import _FREE_MODE_TOL, _build_laplacian
 from .trajectory import Trajectory
 
 __all__ = ["fit_rouse", "FitResult", "make_rouse_nll", "calibrate_rouse",
-           "CalibrationResult", "calibration_logL"]
+           "CalibrationResult", "calibration_logL",
+           "fit_ggm", "make_ggm_nll", "GGMFitResult", "MSDFamily", "POWERLAW",
+           "TWO_LOCUS_ROUSE", "calibrate_ggm", "GGMCalibrationResult"]
 
 
 def calibration_logL(*args):
@@ -267,7 +269,9 @@ def _build_nll(model, data, profiles, fit_localization, weights=None):
 def _run_adam(nll, params0, steps, learning_rate):
     """The Adam loop. Returns host ``(params, nll_trace, grad_norm)``;
     ``nll_trace[i]`` is the objective before step i, with the value after
-    the last step appended."""
+    the last step appended. On the GPU the objective's forward and
+    backward run as one CUDA graph; ``_run_adam.graphed`` counts the
+    objectives captured."""
     names = list(params0)
     leaves = [params0[k].detach().clone().requires_grad_(True) for k in names]
 
@@ -275,6 +279,7 @@ def _run_adam(nll, params0, steps, learning_rate):
         return nll(dict(zip(names, xs)))
 
     if leaves[0].is_cuda:
+        _run_adam.graphed += 1
         objective = torch.cuda.make_graphed_callables(objective, tuple(leaves))
     opt = torch.optim.Adam(leaves, lr=learning_rate)
     trace = []
@@ -290,6 +295,9 @@ def _run_adam(nll, params0, steps, learning_rate):
     trace.append(val.detach().clone())
     return ({k: v.detach().cpu().numpy() for k, v in zip(names, leaves)},
             torch.stack(trace).cpu().numpy().astype(float), float(gnorm))
+
+
+_run_adam.graphed = 0
 
 
 def _rebuild_model(model, D, k, err):
@@ -469,3 +477,10 @@ def calibrate_rouse(model, data, *, rounds: int = 2,
 
     return CalibrationResult(model=model, results=res, fits=fits,
                              profiles=profiles, pre_fit=pre_fit)
+
+
+# GGM MSD-parameter calibration lives in its own module; re-exported here so
+# that `fit` is the single calibration namespace
+from .fit_ggm import (fit_ggm, make_ggm_nll, GGMFitResult,  # noqa: E402,F401
+                      MSDFamily, POWERLAW, TWO_LOCUS_ROUSE,
+                      calibrate_ggm, GGMCalibrationResult)

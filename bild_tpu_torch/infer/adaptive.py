@@ -45,7 +45,7 @@ from ..amis.sampler import (AmisState, _marginal_posterior, amis_propose,
                             amis_update, draw_seed)
 from ..lanes import LaneRNG, normal
 from ..parallel.batch import (BatchResults, TrajectoryBatch, _informed_proposals_all_k,
-                              _Lanes, _per_k_params, _trim_tail, run_lanes)
+                              _Lanes, _per_k_params, _prepare_batch, run_lanes)
 from ..profiles import st2profile
 
 __all__ = ["sample_batch_adaptive", "decide_batch", "run_slots"]
@@ -293,31 +293,29 @@ def sample_batch_adaptive(model, batch: TrajectoryBatch,
         raise ValueError(f"steps_per_round must be >= 1, got {steps_per_round}")
     device = getattr(model, "device", batch.data.device)
     dtype = getattr(model, "dtype", batch.data.dtype)
-    batch = batch.to(device, dtype)
     if generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(int(np.random.randint(2**31)))
 
     B_real, T_in = batch.B, batch.T
-    data_in = batch.data
-    batch, T_eff = _trim_tail(batch)
+    batch, T_eff = _prepare_batch(model, batch, device, dtype)
     B, T = batch.B, batch.T
     S, m = max_steps_per_k, steps_per_round
-    per_traj, logL_fn = model.lockstep_fns(batch)
+    L = min(k_max, max(T - 1, 0)) + 1          # device lanes (k < T)
+    K1 = L                                     # padded parameter slots
+    per_traj, logL_fn = model.lockstep_fns(batch, max_intervals=K1)
     cfc = CFC(model.transitions)
     transitions = torch.as_tensor(model.transitions, device=device)
     n = cfc.n
     cb = N * concentration_brake
     pb = N * polarization_brake
 
-    L = min(k_max, max(T - 1, 0)) + 1          # device lanes (k < T)
-    K1 = L                                     # padded parameter slots
     K_host = k_max + 2                         # host arrays incl. virtual opens
     lengths = (np.asarray(batch.lengths) if batch.lengths is not None
                else np.full(B, T))
 
     informed = (_informed_proposals_all_k(model, batch, K1, n, T,
-                                          (data_in, T_eff, B))
+                                          (batch.data, T_eff, B))
                 if informed_init else None)
     # one key per (k, trajectory) lane, drawn k-major (as sample_batch)
     lane_keys = torch.randint(0, 2**62, (k_max + 1, B), generator=generator,

@@ -40,7 +40,10 @@ def sample(traj, model,
     choice distribution concentrates beyond ``certainty_in_k`` and the
     lookahead region (the last ``k_lookahead`` values of k) carries less
     expected information than one more sample. ``decision_interval``
-    commits each decision to that many AMIS steps.
+    commits each decision to that many AMIS steps. No k at or beyond the
+    trajectory's frame count is opened (such a k is unidentifiable), and a
+    trajectory so short that every k is enumerated exhaustively ends
+    once they all are.
 
     ``generator`` (a `torch.Generator` on the model's device) seeds every
     draw: each sampler gets a generator spawned from it, and the choice
@@ -61,6 +64,12 @@ def sample(traj, model,
     choice_kw = dict(choice_kw)
     choice_kw.setdefault("rng", np.random.default_rng(draw_seed(generator)))
 
+    # pad every sampler's parameter arrays to k_max slots (as bild_tpu does)
+    sampler_kw = dict(sampler_kw)
+    sampler_kw.setdefault("k_pad", k_max)
+    # the last k that may be opened: T frames hold at most T - 1 switches
+    k_max = min(k_max, len(traj) - 1)
+
     samplers = []
     log = {"k": [], "pk": [], "KLD": [], "I_la": []}
     memory = {"fresh sample": False}
@@ -79,7 +88,9 @@ def sample(traj, model,
 
         if not memory["fresh sample"]:
             if len(log["k"]) == 0:
-                return k_new
+                # every sampler so far was enumerated exhaustively: open
+                # the next k, or end when there is none left to open
+                return k_new if k_new <= k_max else None
             return log["k"][-1]  # pragma: no cover
 
         logE = np.array([s.evidences[-1][0] for s in samplers])
@@ -113,10 +124,6 @@ def sample(traj, model,
         memory["fresh sample"] = False
         return k_next
 
-    # pad every sampler's parameter arrays to k_max slots (as bild_tpu does)
-    sampler_kw = dict(sampler_kw)
-    sampler_kw.setdefault("k_pad", k_max)
-
     def add_sampler(k):
         if k != len(samplers):
             raise RuntimeError("samplers must be added in order of k")
@@ -137,6 +144,8 @@ def sample(traj, model,
                 raise RuntimeError("Trying to sample outside of existing range; this is a bug")
 
             k_next = determine_next_step()
+            if k_next is None:
+                break
 
             # stopping: certainty reached, unless a new k is demanded
             if k_next == len(samplers):

@@ -16,7 +16,19 @@ import torch
 from ..infer.segment import dp_segment, profile_to_st
 from ..profiles import Loopingprofile
 
-__all__ = ["MultiStateModel"]
+__all__ = ["MultiStateModel", "tensor_token"]
+
+
+def tensor_token(*tensors):
+    """A key that says "these very tensors, unchanged": per tensor its
+    storage address, shape, strides, dtype, device and in-place version
+    counter. Equal tokens mean equal contents as long as the cache that
+    stores the token also holds the tensors (a live tensor's storage cannot
+    be handed to another). Views and slices that a runner takes anew on every
+    call (``traj.data[None]``, a trimmed batch) get the same token each
+    time, which identity (``is``) would not give them."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype,
+                  t.device, t._version) for t in tensors)
 
 
 class MultiStateModel(metaclass=abc.ABCMeta):
@@ -105,6 +117,30 @@ class MultiStateModel(metaclass=abc.ABCMeta):
         """``(B, n, T)`` frame-factorized score tables for a batch, or
         ``None`` (lockstep informed init then stays uniform)."""
         return None
+
+    def lockstep_fns_single(self, traj, max_intervals=None):
+        """
+        ``(per_traj, logL_fn)`` for ONE trajectory: ``logL_fn(profiles (P,
+        T), per_traj)`` gives the ``(P,)`` likelihoods the single-trajectory
+        sampler asks for. Default: `lockstep_fns` on a singleton batch, its
+        lane axis added and removed around each call; a model without
+        `lockstep_fns` falls back to `logL_batch`. ``max_intervals`` is the
+        caller's bound on the intervals of any profile it will pass (see
+        `GenericGaussianModel.lockstep_fns`).
+        """
+        if not hasattr(self, "lockstep_fns"):
+            return traj, lambda profiles, t: self.logL_batch(profiles, t)
+        from ..parallel.batch import TrajectoryBatch
+
+        batch = TrajectoryBatch(data=traj.data[None], valid=traj.valid[None])
+        per_lane, logL_fn = self.lockstep_fns(batch,
+                                              max_intervals=max_intervals)
+
+        def single(profiles, per_lane):
+            profiles = torch.as_tensor(profiles, device=traj.data.device)
+            return logL_fn(profiles[None], per_lane)[0]
+
+        return per_lane, single
 
     # -- generative-path preprocessing ---------------------------------------
     def _preproc_localization_error(self, localization_error):

@@ -122,13 +122,14 @@ class FactorizedModel(MultiStateModel):
         self._seg_cache = (batch.data, tables)
         return tables
 
-    def lockstep_fns(self, batch):
+    def lockstep_fns(self, batch, max_intervals=None):
         """
         Lockstep-mode hooks (see `MultiStateRouse.lockstep_fns`): the
         per-trajectory data is the ``(n, T)`` score table, and
         ``logL_fn(profiles (L, P, T), (tables (L, n, T),))`` is the masked
         gather-sum, ``(L, P)``, lane-exact (a lane's value does not
-        depend on the other lanes of the call).
+        depend on the other lanes of the call). The sum runs over frames:
+        ``max_intervals`` changes nothing.
         """
         tables = torch.as_tensor(self.lockstep_segment_tables(batch),
                                  dtype=self.dtype, device=self.device)

@@ -201,10 +201,11 @@ class MultiStateRouse(MultiStateModel):
         _, fn = self.lockstep_fns_single(traj)
         return fn(profiles, (traj.data, traj.valid))
 
-    def lockstep_fns_single(self, traj):
+    def lockstep_fns_single(self, traj, max_intervals=None):
         """``(per_traj, logL_fn)`` for the AMIS loop: ``logL_fn(profiles,
         per_traj)`` with ``per_traj = (data, valid)``. The noise tensors are
-        made once per noise configuration and kernel selection."""
+        made once per noise configuration and kernel selection. The
+        recursion visits every frame: ``max_intervals`` changes nothing."""
         key = (tuple(self._get_noise(traj).tolist()), rouse_kernel())
         if key not in self._single_fns:
             # bounded: per-trajectory noise would otherwise add one entry
@@ -225,7 +226,7 @@ class MultiStateRouse(MultiStateModel):
             self._single_fns[key] = logL_fn
         return (traj.data, traj.valid), self._single_fns[key]
 
-    def lockstep_fns(self, batch):
+    def lockstep_fns(self, batch, max_intervals=None):
         """
         Lockstep-mode hooks: ``(per_traj, logL_fn)`` with ``per_traj =
         (batch.data (B, T, d), batch.valid (B, T))`` and ``logL_fn(profiles
@@ -233,7 +234,8 @@ class MultiStateRouse(MultiStateModel):
         likelihood of each lane's profiles against its own trajectory: one
         kernel launch for every lane. Needs a model-level
         ``localization_error`` (one noise model for the dataset). The
-        closure is made once per kernel selection.
+        closure is made once per kernel selection. ``max_intervals`` (the
+        caller's bound on a profile's intervals) changes nothing here.
         """
         if self.localization_error is None:
             raise ValueError("lockstep batch mode needs model.localization_error")

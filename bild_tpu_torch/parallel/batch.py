@@ -35,6 +35,7 @@ from ..amis.sampler import (AmisState, _marginal_posterior, amis_propose,
                             amis_update, informed_proposal_batch)
 from ..infer.segment import dp_segment_all_batch, profiles_to_st_batch
 from ..lanes import LaneRNG
+from ..models.base import tensor_token
 from ..profiles import st2profile
 from ..trajectory import Trajectory
 
@@ -273,6 +274,25 @@ def _trim_tail(batch: TrajectoryBatch):
                            lengths=batch.lengths), T_eff
 
 
+def _prepare_batch(model, batch: TrajectoryBatch, device, dtype):
+    """``(batch, T_eff)``: ``batch`` on ``device`` in ``dtype`` with its
+    all-invalid tail trimmed (`_trim_tail`). Memoized on the model for the
+    last input batch (`tensor_token` of its tensors, plus its lengths), so
+    that repeated calls on one batch hand the model's own caches (interval
+    tables, segment tables, informed init) the same tensors and not a
+    fresh copy each time."""
+    token = (tensor_token(batch.data, batch.valid), device, dtype,
+             None if batch.lengths is None
+             else np.asarray(batch.lengths).tobytes())
+    memo = getattr(model, "_prepared_batch", None)
+    if memo is not None and memo[0] == token:
+        return memo[2]
+    out = _trim_tail(batch.to(device, dtype))
+    # holding the input keeps its storage alive: the token stays its own
+    model._prepared_batch = (token, batch, out)
+    return out
+
+
 def _summaries(state: AmisState, active, n_done, T, n, marginals, top_m):
     """Per-lane results over the first ``n_done`` ensemble rows, as numpy:
     ``(ev (L, 3), map (L, T), marginals (L, n, T) or None, mom_ok (L,),
@@ -315,7 +335,7 @@ def _informed_proposals_all_k(model, batch, K1, n, T, cache_token):
     Informed init for every trajectory and every k from one batched DP
     sweep: ``(a_inf (K1, B, K1), logp_inf (K1, B, n, K1), use (K1, B))``
     numpy, or ``None`` if the model has no frame-factorized score tables.
-    Cached on the model for the last ``cache_token`` (the input batch's
+    Cached on the model for the last ``cache_token`` (the prepared batch's
     data tensor, compared by identity, plus the effective shape): the
     segmentation is deterministic, and repeated calls on one batch would
     redo the host DP.
@@ -450,8 +470,8 @@ def sample_batch(model, batch: TrajectoryBatch,
     of the JAX key:
 
     model : a model with ``lockstep_fns`` (`MultiStateRouse`,
-        `FactorizedModel`); the batch is moved to its ``device`` and cast to
-        its ``dtype`` first
+        `FactorizedModel`, `GenericGaussianModel`); the batch is moved to
+        its ``device`` and cast to its ``dtype`` first
     k_max, steps_per_k, N : every k gets ``steps_per_k`` AMIS steps of
         ``N`` proposals. Without ``checkpoint`` all k run as one lane set
         (``L = n_k * B`` lanes per step); with it, one k at a time.
@@ -483,7 +503,6 @@ def sample_batch(model, batch: TrajectoryBatch,
             raise NotImplementedError(f"sample_batch({name}=...) {_NOT_PORTED}")
     device = getattr(model, "device", batch.data.device)
     dtype = getattr(model, "dtype", batch.data.dtype)
-    batch = batch.to(device, dtype)
     if generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(int(np.random.randint(2**31)))
@@ -505,16 +524,16 @@ def sample_batch(model, batch: TrajectoryBatch,
     # trim the all-invalid tail of a padded bucket; results are edge-padded
     # back to T below
     T_in = batch.T
-    data_in = batch.data
-    batch, T_eff = _trim_tail(batch)
-    cache_token = (data_in, T_eff)
+    batch, T_eff = _prepare_batch(model, batch, device, dtype)
+    cache_token = (batch.data, T_eff)
 
-    per_traj, logL_fn = model.lockstep_fns(batch)
     B, T = batch.B, batch.T
+    K1 = min(k_max, max(T - 1, 0)) + 1     # padded slot count
+    # K1 parameter slots propose profiles of at most K1 intervals
+    per_traj, logL_fn = model.lockstep_fns(batch, max_intervals=K1)
     cfc = CFC(model.transitions)
     transitions = torch.as_tensor(model.transitions, device=device)
     n = cfc.n
-    K1 = min(k_max, max(T - 1, 0)) + 1     # padded slot count
     cb = N * concentration_brake
     pb = N * polarization_brake
     informed = (_informed_proposals_all_k(model, batch, K1, n, T,

@@ -65,6 +65,22 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
 11. Range phase: the dense kernel at the largest chains one warp takes
    (float32 N=168 at q=1 and N=120 at q=3, float64 N=116), its operators
    then in global memory, against its plain version or the f64 oracle.
+12. GGM phase: the Generic Gaussian model, which runs no Rouse recursion
+   and so no kernel of ``csrc/`` (its launch and plain-call counters must
+   stay at zero through the phase). Interval tables and gather-sums on the
+   card against the float64 host oracle (`ggm_parity`); bench_e2e.py's
+   config 6 (two-state two-locus Rouse, B=64, T=100) and config 7 (the
+   same with T_band=128, B=16, T=1000, informed init) through
+   `sample_batch(k_max=4, steps_per_k=12, N=128, scout_steps=4,
+   refine_top=3)` at full size, against accuracy bars, with the table build
+   timed apart from the sampling, the table bytes, the device-busy share
+   and the device time by operation; on config 6 also the per-k
+   checkpointed schedule against the all-k one (bit for bit),
+   `sample_dataset(schedule='adaptive')` and `calibrate_ggm(rounds=1)` from
+   a spec 20 % off the truth (time per Adam step, the objective one CUDA
+   graph); and
+   `sample()` on one trajectory with its `save_results`/`load_results`
+   round trip.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -933,6 +949,349 @@ def checkpoint_phase(bt):
     return ran
 
 
+# bench_e2e.py configs 6 and 7: (B, T, T_band, informed_init, frame bar,
+# switch-count bar); bild_tpu's own runs recorded 0.929 / 0.531 and 0.990 /
+# 0.875 (PERF_GGM_r05.json)
+GGM_CONFIGS = {6: (64, 100, None, False, 0.88, 0.40),
+               7: (16, 1000, 128, True, 0.97, 0.75)}
+GGM_KW = dict(k_max=4, steps_per_k=12, N=128, scout_steps=4, refine_top=3)
+RTOL_GGM_F32 = 1e-5
+
+
+def ggm_two_state(GGM, **kw):
+    """The two-state two-locus-Rouse model of configs 6 and 7."""
+    return GGM([[(GGM.MSD_function_twoLocusRouse(G=1.0, J=5.0), 0.1, 0)],
+                [(GGM.MSD_function_twoLocusRouse(G=0.2, J=1.0), 0.1, 0)]],
+               device=DEVICE, **kw)
+
+
+def ggm_parity(bt, rng):
+    """The interval tables and gather-sums on the card against the float64
+    host oracle: a mixed model (ss_order 0 and 1, two dims, missing frames,
+    the first among them) at T=23, `logL_batch` and the lane form of
+    `lockstep_fns`, in float64 (rtol 1e-9) and with float32 tables (rtol
+    1e-5); the Toeplitz tables against the bucketed ones on gap-free data;
+    the banded tables exact in band (T=120, band 48) and within
+    `band_tail_error` beyond; a state out of range gives NaN and the
+    device raises nothing."""
+    import warnings
+
+    from bild_tpu_torch.parallel import stack_trajectories
+
+    GGM = bt.models.GenericGaussianModel
+
+    def mixed(**kw):
+        return GGM([
+            [(GGM.MSD_function_twoLocusRouse(G=1.0, J=5.0), 0.3, 0),
+             (GGM.MSD_function_powerlaw(G=1.0, a=0.7), 0.0, 1)],
+            [(GGM.MSD_function_twoLocusRouse(G=2.0, J=1.0), -0.1, 0),
+             (GGM.MSD_function_powerlaw(G=0.5, a=1.0), 0.1, 1)],
+        ], device=DEVICE, **kw)
+
+    Tm = 23
+    datas = rng.normal(size=(3, Tm, 2))
+    datas[1, [0, 3, 4, 11]] = np.nan
+    datas[2, [7, 8]] = np.nan
+    profiles = rng.integers(0, 2, size=(30, Tm))
+    errs = {}
+    for dtype, rtol in ((torch.float64, RTOL_F64), (torch.float32, RTOL_GGM_F32)):
+        model = mixed(dtype=dtype)
+        trajs = [bt.Trajectory.create(d, device=DEVICE, dtype=dtype) for d in datas]
+        host = np.array([[model.logL_host(p, t) for p in profiles] for t in trajs])
+        single = torch.stack([model.logL_batch(profiles, t) for t in trajs])
+        per_traj, fn = model.lockstep_fns(stack_trajectories(trajs), max_intervals=Tm)
+        lanes = fn(torch.as_tensor(np.broadcast_to(profiles, (3, 30, Tm)).copy(),
+                                   device=DEVICE), per_traj)
+        check(single.is_cuda and lanes.is_cuda and per_traj[0].is_cuda
+              and per_traj[0].dtype == dtype, "GGM tables and results on the card")
+        for what, got in (("logL_batch", single), ("lockstep_fns", lanes)):
+            err = float(np.max(rel_err(got.cpu().numpy().astype(float), host)))
+            errs[(what, dtype)] = err
+            check(err <= rtol, f"GGM {what} {dtype} within {rtol} of logL_host: {err:.2e}")
+        bad = profiles[:3].copy()
+        bad[1, 5], bad[2, -1] = 2, -1
+        out = model.logL_batch(bad, trajs[1])
+        torch.cuda.synchronize()
+        out = out.cpu().numpy()
+        check(np.isfinite(out[0]) and np.isnan(out[1:]).all(),
+              "GGM: a state out of range gives NaN, the device raises nothing")
+
+    model = mixed(dtype=torch.float64)
+    full = rng.normal(size=(3, Tm, 2))
+    fast = model._stationary_tables_batch(full)
+    slow = model._bucketed_tables_batch(full, np.ones((3, Tm), bool))
+    err_tab = float((fast - slow).abs().max())
+    check(fast.is_cuda and err_tab <= 1e-9,
+          f"GGM Toeplitz tables equal the bucketed ones on gap-free data: {err_tab:.2e}")
+
+    def band_model(**kw):
+        return GGM([
+            [(GGM.MSD_function_twoLocusRouse(G=1.0, J=5.0), 0.1, 0),
+             (GGM.MSD_function_powerlaw(G=0.5, a=0.5), 0.0, 1)],
+            [(GGM.MSD_function_twoLocusRouse(G=0.2, J=1.0), 0.0, 0),
+             (GGM.MSD_function_powerlaw(G=1.5, a=0.8), 0.1, 1)],
+        ], device=DEVICE, dtype=torch.float64, **kw)
+
+    Tb, band = 120, 48
+    exact, banded = band_model(), band_model(T_band=band)
+    truth = np.zeros(Tb, dtype=int)
+    truth[40:80] = 1
+    traj = exact.trajectory_from_loopingprofile(truth, rng=rng)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")          # the band-error warning
+        inband = abs(banded.logL(truth, traj) - exact.logL(truth, traj))
+        bound = banded.band_tail_error(Tb)
+        beyond = max(abs(banded.logL(p, traj) - exact.logL_host(p, traj))
+                     for p in (np.zeros(Tb, int), np.ones(Tb, int)))
+    check(inband <= 1e-8 * abs(exact.logL(truth, traj)),
+          f"GGM banded tables exact in band: {inband:.2e}")
+    check(beyond <= bound, f"GGM banded tail error {beyond:.4f} within the "
+                           f"predicted {bound:.4f} nats")
+    print(f"ggm parity: T={Tm} mixed model against logL_host: float64 "
+          f"{errs[('logL_batch', torch.float64)]:.2e} / "
+          f"{errs[('lockstep_fns', torch.float64)]:.2e}, float32 tables "
+          f"{errs[('logL_batch', torch.float32)]:.2e} / "
+          f"{errs[('lockstep_fns', torch.float32)]:.2e} (logL_batch / lane "
+          f"lockstep_fns, max relative); Toeplitz against bucketed tables "
+          f"{err_tab:.2e}; banded T={Tb} band {band}: in band {inband:.2e}, "
+          f"beyond {beyond:.4f} of {bound:.4f} nats predicted", flush=True)
+
+
+def ggm_config(bt, number):
+    """Config 6 or 7 of bench_e2e.py at its size: ``(model, truths, true
+    switch counts, trajectories, batch)``; the truths and the trajectories
+    come from one numpy Generator seeded with the config's number, as
+    there."""
+    from bild_tpu_torch.parallel import stack_trajectories
+
+    B, Tc, T_band, _, _, _ = GGM_CONFIGS[number]
+    rng = np.random.default_rng(number)
+    model = ggm_two_state(bt.models.GenericGaussianModel, T_band=T_band,
+                          dtype=torch.float32)
+    truths = truth_profiles(rng, B, Tc, 2)
+    trajs = [model.trajectory_from_loopingprofile(t, rng=rng) for t in truths]
+    true_k = np.sum(truths[:, 1:] != truths[:, :-1], axis=1)
+    return model, truths, true_k, trajs, stack_trajectories(trajs)
+
+
+def ggm_dataset(bt, number):
+    """One GGM configuration through `sample_batch`: the table build timed
+    apart from the sampling, accuracy against the bars, the same bits from
+    the same seed, the device-busy share and the device time by
+    operation."""
+    from bild_tpu_torch.parallel import sample_batch
+    from bild_tpu_torch.parallel.batch import run_lanes
+
+    B, Tc, T_band, informed, bar_frame, bar_switch = GGM_CONFIGS[number]
+    t0 = time.perf_counter()
+    model, truths, true_k, trajs, batch = ggm_config(bt, number)
+    made = time.perf_counter() - t0
+    kw = dict(GGM_KW, informed_init=informed)
+
+    def run():
+        return sample_batch(model, batch, **kw,
+                            generator=torch.Generator().manual_seed(number))
+
+    model.clear_memo()
+    first = run()                       # warm-up (and the first table build)
+    walls = []
+    for _ in range(2):
+        model.clear_memo()              # the wall holds the table build
+        run_lanes.steps = run_lanes.lane_steps = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        per_traj, _ = model.lockstep_fns(batch)
+        torch.cuda.synchronize()
+        build = time.perf_counter() - t0
+        res = run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0, build))
+    wall, build = walls[-1]
+    builds = model.table_builds
+    check(builds == 3, f"one table build per clear_memo ({builds} of 3)")
+    check(all(x.is_cuda and x.dtype == torch.float32 for x in per_traj),
+          "GGM tables on the card, float32")
+    table_bytes = sum(x.numel() * x.element_size() for x in per_traj)
+    scout_lanes = (kw["k_max"] + 1) * B
+    acc = float(np.mean(res.best_profile() == truths))
+    sw = float(np.mean(res.best_k() == true_k))
+    # float32 tables against float64: the host oracle, or with a band the
+    # float64 tables of the same band (the band's own error stands apart,
+    # against logL_host and within `band_tail_error`)
+    nprobe = min(B, 4)
+    host = np.array([model.logL_host(truths[b], trajs[b]) for b in range(nprobe)])
+    dev = np.array([model.logL(truths[b], trajs[b]) for b in range(nprobe)])
+    band_text = ""
+    if T_band is None:
+        f32_err = rel_err(dev, host)
+    else:
+        twin = ggm_two_state(bt.models.GenericGaussianModel, T_band=T_band,
+                             dtype=torch.float64)
+        dev64 = np.array([twin.logL(truths[b], trajs[b].to(dtype=torch.float64))
+                          for b in range(nprobe)])
+        f32_err = rel_err(dev, dev64)
+        band_err, bound = float(np.max(np.abs(dev64 - host))), model.band_tail_error(Tc)
+        band_text = (f"; band {T_band} against logL_host: {band_err:.4f} nats "
+                     f"(predicted worst case {bound:.4f})")
+        check(band_err <= bound, f"band error {band_err:.4f} within {bound:.4f} nats")
+    share, top, traced = busy_share(run)
+    print(f"ggm config {number}: B={B} T={Tc} T_band={T_band}: wall {wall:.3f} s "
+          f"[first timed {walls[0][0]:.3f}] with the table build {build:.3f} s "
+          f"[{walls[0][1]:.3f}], sampling {wall - build:.3f} s, "
+          f"{B / wall:.2f} trajectories/s, {run_lanes.steps} lockstep steps "
+          f"({run_lanes.lane_steps} lane-steps), frame accuracy {acc:.4f}, "
+          f"switch-count accuracy {sw:.4f}; tables {table_bytes} bytes "
+          f"({table_bytes // B} per trajectory), per-lane copies at the scout "
+          f"launch L={scout_lanes}: {table_bytes // B * scout_lanes} bytes; "
+          f"float32 tables against float64 at {nprobe} truths: "
+          f"{f32_err:.2e} relative{band_text}; trajectories made on the host in "
+          f"{made:.2f} s; device busy share {share}", flush=True)
+    for name, (ms, cnt) in top:
+        print(f"    {ms:10.1f} ms {cnt:7d}x  {name[:90]}", flush=True)
+    check(acc >= bar_frame, f"config {number} frame accuracy {acc:.4f} >= {bar_frame}")
+    check(sw >= bar_switch,
+          f"config {number} switch-count accuracy {sw:.4f} >= {bar_switch}")
+    check(f32_err <= RTOL_GGM_F32,
+          f"float32 tables within {RTOL_GGM_F32} of float64: {f32_err:.2e}")
+    check(np.all(np.isfinite(res.evidence)) and res.mom_ok.all(),
+          "every evidence finite, CFC converged in every lane")
+    for other, what in ((first, "the warm-up run"), (traced, "the traced run")):
+        check(np.array_equal(other.evidence, res.evidence)
+              and np.array_equal(other.map_profiles, res.map_profiles),
+              f"{what} from the same seed gives the same bits")
+    return model, truths, true_k, trajs, batch
+
+
+def ggm_phase(bt, rng):
+    """The Generic Gaussian model on the card (see the module docstring):
+    table parity, configs 6 and 7 of bench_e2e.py at full size, `sample()`
+    with its checkpoint, the adaptive schedule and `calibrate_ggm`. No
+    Rouse kernel may launch and no Rouse plain version may run."""
+    from bild_tpu_torch import fit
+    from bild_tpu_torch.infer.adaptive import sample_batch_adaptive
+    from bild_tpu_torch.parallel import sample_batch, sample_dataset
+    from bild_tpu_torch.utils import load_results, save_results
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    ggm_parity(bt, rng)
+    model, truths, true_k, trajs, batch = ggm_dataset(bt, 6)
+    B = len(trajs)
+
+    # per-k checkpointed schedule == all-k, bit for bit (no scout/refine)
+    bk = dict(k_max=4, steps_per_k=12, N=128, informed_init=True, marginals=True)
+    fused = sample_batch(model, batch, **bk,
+                         generator=torch.Generator().manual_seed(9))
+    with tempfile.TemporaryDirectory() as d:
+        per_k = sample_batch(model, batch, **bk,
+                             checkpoint=os.path.join(d, "ck.npz"),
+                             generator=torch.Generator().manual_seed(9))
+    check(all(np.array_equal(getattr(fused, f), getattr(per_k, f))
+              for f in ("evidence", "evidence_se", "map_profiles", "marginals",
+                        "mom_ok")),
+          "GGM: per-k checkpoint path equals the fused path bit for bit")
+
+    # the adaptive schedule on the same trajectories
+    akw = dict(k_max=4, N=128, informed_init=True, init_steps=4,
+               steps_per_round=2, max_steps_per_k=24, samplesize=4096)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ad = sample_dataset(model, trajs, **akw, schedule="adaptive", chunk_size=B,
+                        generator=torch.Generator().manual_seed(7))
+    torch.cuda.synchronize()
+    ad_wall = time.perf_counter() - t0
+    direct = sample_batch_adaptive(model, batch, **akw,
+                                   generator=torch.Generator().manual_seed(7))
+    lock_evals = GGM_KW["N"] * (GGM_KW["scout_steps"] * (GGM_KW["k_max"] + 1)
+                                + (GGM_KW["steps_per_k"] - GGM_KW["scout_steps"])
+                                * GGM_KW["refine_top"])
+    acc = float(np.mean(np.concatenate(ad.best_profile()) == truths.ravel()))
+    sw = float(np.mean(ad.best_k() == true_k))
+    print(f"ggm config 6 adaptive: wall {ad_wall:.3f} s, {B / ad_wall:.2f} "
+          f"trajectories/s, evaluations per trajectory mean {ad.evals.mean():.1f} "
+          f"(lockstep schedule {lock_evals}), {direct.rounds} rounds, frame "
+          f"accuracy {acc:.4f}, switch-count accuracy {sw:.4f}", flush=True)
+    check(ad.evals.mean() < lock_evals,
+          f"adaptive mean evaluations {ad.evals.mean():.1f} < lockstep {lock_evals}")
+    check(np.array_equal(direct.evals, akw["N"] * direct.steps.sum(axis=1)),
+          "GGM adaptive: evals == N x the lane steps")
+
+    # calibrate_ggm from a spec 20 % off the truth
+    truth_p = [dict(G=1.0, J=5.0), dict(G=0.2, J=1.0)]
+    off = [dict(G=1.2, J=4.0), dict(G=0.16, J=1.2)]
+    spec = [[("twoLocusRouse", dict(p), 0.1, 0)] for p in off]
+    fit._run_adam.graphed = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cal = fit.calibrate_ggm(spec, batch, rounds=1, engine="batch",
+                            sample_kwargs=GGM_KW, device=DEVICE,
+                            generator=torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    cal_wall = time.perf_counter() - t0
+    graphed = fit._run_adam.graphed
+    steps = 100
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit.fit_ggm(spec, batch, cal.profiles, steps=steps, device=DEVICE)
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / steps
+
+    def dist(ps):
+        return sum(abs(np.log(p[k] / t[k])) for p, t in zip(ps, truth_p) for k in t)
+
+    trace = cal.fits[0].nll_trace
+    print(f"ggm calibrate_ggm(rounds=1, engine='batch') on config 6: wall "
+          f"{cal_wall:.3f} s, fitted {cal.parameters}, distance to the truth "
+          f"(sum |log ratio|) {dist(off):.4f} -> {dist(cal.parameters):.4f}, nll "
+          f"{trace[0]:.5f} -> {trace[-1]:.5f}; a {steps}-step fit alone: "
+          f"{per_step * 1e3:.3f} ms per Adam step (build and capture "
+          f"included), objective as a CUDA graph: {bool(graphed)}", flush=True)
+    check(dist(cal.parameters) < dist(off), "fitted G, J moved towards the truth")
+    check(trace[-1] < trace[0] and np.isfinite(trace).all(), "nll trace falls")
+    check(graphed == 1, "the calibration objective ran as one CUDA graph")
+    check(cal.model.device.type == DEVICE, "the calibrated model is on the card")
+
+    ggm_dataset(bt, 7)
+
+    # sample() on one trajectory, saved, loaded and resumed
+    small = ggm_two_state(bt.models.GenericGaussianModel, dtype=torch.float32)
+    true = np.zeros(20, dtype=int)
+    true[8:15] = 1
+    traj = small.trajectory_from_loopingprofile(true, rng=np.random.default_rng(5))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = bt.sample(traj, small, init_runs=5, sampler_kw={"N": 20, "max_fev": 2000},
+                    k_max=4, generator=torch.Generator(device=DEVICE).manual_seed(2))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    builds = small.table_builds
+    with tempfile.TemporaryDirectory() as d:
+        save_results(os.path.join(d, "ck.npz"), res)
+        loaded = load_results(os.path.join(d, "ck.npz"), small)
+    i = next(i for i, s in enumerate(res.samplers) if not s.exhausted)
+    for s in (res.samplers[i], loaded.samplers[i]):
+        s.steps(2)
+    a, b = res.samplers[i].state.to_numpy(), loaded.samplers[i].state.to_numpy()
+    print(f"ggm sample(): wall {wall:.3f} s, {len(res.samplers)} samplers, "
+          f"best_k {res.best_k()}, evidence {np.round(res.evidence, 3).tolist()}, "
+          f"table builds {builds}", flush=True)
+    check(len(res.k) >= 2 and np.all(np.isfinite(res.evidence)),
+          "GGM sample(): finite evidences")
+    check(builds == 1, "one table build for every sampler")
+    check(np.array_equal(res.evidence, loaded.evidence)
+          and all(np.array_equal(a[f], b[f]) for f in a)
+          and res.samplers[i].evidences == loaded.samplers[i].evidences,
+          "GGM: a loaded sampler's steps equal the uninterrupted ones bit for bit")
+
+    ran = read_counts()
+    print(f"ggm phase: {time.perf_counter() - t_phase:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, Rouse launches "
+          f"and plain calls {ran}", flush=True)
+    check(all(v == 0 for v in ran.values()),
+          f"no Rouse kernel or plain version ran in the GGM phase: {ran}")
+
+
 def time_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -1075,6 +1434,7 @@ def main():
         cli_counts = cli_phase(bt, work)
     ck_launches = checkpoint_phase(bt)
     range_phase(bt, rng)
+    ggm_phase(bt, rng)
 
     replaces = {"kalman_sym": "bild_tpu/ops/kalman_sym.py:189",
                 "kalman_dense": "bild_tpu/ops/kalman_pallas.py:50"}

@@ -136,3 +136,33 @@ def test_nvcc_lookup_fails_cleanly(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
+
+
+def test_tiny_trajectory_ends(case):
+    """Three frames, k_max=4: every k below the frame count is enumerated
+    exhaustively, so no AMIS step is ever logged; the loop must end there
+    and open no k at or beyond the frame count. (`bild_tpu.sample` loops
+    forever on this input, so there is nothing to compare with; the test
+    carries its own 60 s limit.)"""
+    import signal
+
+    _, _, tm, data = case
+
+    def too_long(*_):
+        raise TimeoutError("sample() on a 3-frame trajectory did not end")
+
+    old = signal.signal(signal.SIGALRM, too_long)
+    signal.alarm(60)
+    try:
+        res = bt.sample(data[:3], tm, k_max=4,
+                        generator=torch.Generator().manual_seed(1))
+        two = bt.sample(data[:2], tm, k_max=1,
+                        generator=torch.Generator().manual_seed(1))
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+    np.testing.assert_array_equal(res.k, [0, 1, 2])
+    assert all(s.exhausted for s in res.samplers)
+    assert np.isfinite(res.evidence).all() and len(res.log["k"]) == 0
+    assert res.best_profile()[:].shape == (3,)
+    np.testing.assert_array_equal(two.k, [0, 1])
