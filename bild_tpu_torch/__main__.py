@@ -15,16 +15,22 @@ intervals (``--dwell-times``). ``--fit-params ROUNDS`` first calibrates
 The model runs on ``--device`` (default ``cuda``; without a GPU that
 raises: pass ``--device cpu``) in ``--dtype`` (default ``float32``), the
 counterparts of what `bild_tpu`'s CLI takes from its JAX environment.
+
+Several processes, one per GPU, split a dataset with ``--mesh``: each
+joins the process group that ``torchrun`` (or ``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT``) describes and computes on the GPU of its
+local rank. With ``--process-local`` each reads only its own CSV shard
+(`parallel.sample_dataset_sharded`); without it every process reads the
+whole file (`parallel.sample_dataset(mesh=)`). Every process writes its
+own ``--out``, all with the same results.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
-
-_ITEM_16 = ("needs the multi-GPU sharded runner, which bild_tpu_torch does "
-            "not port yet (ROADMAP.md queue 1 item 16)")
 
 
 def _object_array(seq):
@@ -126,9 +132,16 @@ def build_parser():
                         "based early stopping) instead of the fixed "
                         "lockstep steps-per-k schedule")
     p.add_argument("--mesh", action="store_true",
-                   help="shard chunks over all visible devices (not ported)")
+                   help="split chunks over the ranks of the process group "
+                        "(torchrun's environment; one rank without it), "
+                        "one GPU per rank")
     p.add_argument("--process-local", action="store_true",
-                   help="multi-host sharded ingestion (not ported)")
+                   help="sharded ingestion: the data argument is THIS "
+                        "process's CSV shard (disjoint traj_ids across "
+                        "processes); with --mesh the processes agree on the "
+                        "schedule and produce results bit-identical to a "
+                        "single-process full-data run "
+                        "(parallel.sample_dataset_sharded)")
     p.add_argument("--device", default="cuda",
                    help="where the model runs (default cuda; cpu to run "
                         "without a GPU)")
@@ -141,17 +154,18 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for flag, on in (("--mesh", args.mesh), ("--process-local", args.process_local)):
-        if on:
-            print(f"{flag} {_ITEM_16}", file=sys.stderr)
-            return 2
+    if args.process_local and (args.adaptive or args.optimize_boundaries):
+        print("--process-local does not combine with --adaptive/"
+              "--optimize-boundaries yet", file=sys.stderr)
+        return 1
 
     import torch
+    import torch.distributed as dist
 
     from . import io as bio
     from .config import resolve_device
     from .models import MultiStateRouse
-    from .parallel import sample_dataset
+    from .parallel import make_mesh, sample_dataset, sample_dataset_sharded
 
     try:
         device = resolve_device(args.device)
@@ -159,10 +173,23 @@ def main(argv=None):
         print(f"error: {exc}", file=sys.stderr)
         return 1
     dtype = getattr(torch, args.dtype)
+    mesh = None
+    if args.mesh:
+        mesh = make_mesh(axis_names=("data",), devices=args.device,
+                         distributed=(dist.is_initialized()
+                                      or "WORLD_SIZE" in os.environ))
+        device = mesh.device
 
-    trajs = bio.load_trajectories_csv(
-        args.data, two_locus=args.two_locus,
-        localization_error=args.localization_error, dtype=dtype)
+    traj_ids = None
+    if args.process_local:
+        trajs, traj_ids = bio.load_trajectories_csv(
+            args.data, two_locus=args.two_locus,
+            localization_error=args.localization_error, return_ids=True,
+            dtype=dtype)
+    else:
+        trajs = bio.load_trajectories_csv(
+            args.data, two_locus=args.two_locus,
+            localization_error=args.localization_error, dtype=dtype)
     if not trajs:
         print("no trajectories found", file=sys.stderr)
         return 1
@@ -196,18 +223,31 @@ def main(argv=None):
                   f"trajectories: D={cal.D:.4g} (from {args.D:.4g}), "
                   f"k={cal.k:.4g} (from {args.k:.4g})")
 
-    res = sample_dataset(
-        model, trajs,
-        k_max=args.k_max, steps_per_k=args.steps_per_k, N=args.proposals,
-        dE=args.dE,
-        scout_steps=args.scout_steps or None, refine_top=args.refine_top,
-        marginals=args.marginals,
-        chunk_size=args.chunk_size,
-        generator=torch.Generator().manual_seed(args.seed),
-        checkpoint_dir=args.checkpoint_dir,
-        show_progress=not args.quiet,
-        optimize_boundaries=args.optimize_boundaries,
-        schedule="adaptive" if args.adaptive else "lockstep")
+    if args.process_local:
+        res = sample_dataset_sharded(
+            model, trajs, traj_ids, mesh=mesh,
+            k_max=args.k_max, steps_per_k=args.steps_per_k,
+            N=args.proposals, dE=args.dE,
+            scout_steps=args.scout_steps or None,
+            refine_top=args.refine_top, marginals=args.marginals,
+            chunk_size=args.chunk_size,
+            generator=torch.Generator().manual_seed(args.seed),
+            checkpoint_dir=args.checkpoint_dir,
+            show_progress=not args.quiet)
+    else:
+        res = sample_dataset(
+            model, trajs,
+            k_max=args.k_max, steps_per_k=args.steps_per_k, N=args.proposals,
+            dE=args.dE,
+            scout_steps=args.scout_steps or None, refine_top=args.refine_top,
+            marginals=args.marginals,
+            chunk_size=args.chunk_size,
+            mesh=mesh,
+            generator=torch.Generator().manual_seed(args.seed),
+            checkpoint_dir=args.checkpoint_dir,
+            show_progress=not args.quiet,
+            optimize_boundaries=args.optimize_boundaries,
+            schedule="adaptive" if args.adaptive else "lockstep")
 
     best_k = res.best_k()
     profiles = res.best_profile()

@@ -17,7 +17,13 @@ counter-based stream (`lanes.LaneRNG`); every reduction over a lane's own
 axes is lane-exact (``exact=True`` at each call). So a lane's result does not depend
 on which lanes share its steps: the all-k schedule, the per-k
 ``checkpoint=`` schedule and the scout/refine schedule give the same
-numbers for the same generator.
+numbers for the same generator. With ``row_keys`` a trajectory's lanes are
+keyed by the trajectory itself, not by its position in the batch.
+
+Under a ``mesh`` (`parallel.mesh`) each rank runs the lanes of its own
+block of rows and the per-row results are all-gathered, so every rank
+returns the full `BatchResults`; lane independence makes them equal to the
+mesh-free run's bit for bit.
 """
 from __future__ import annotations
 
@@ -38,14 +44,12 @@ from ..lanes import LaneRNG
 from ..models.base import tensor_token
 from ..profiles import st2profile
 from ..trajectory import Trajectory
+from .mesh import (broadcast_from_process0, checkpoint_hit, fetch_to_host,
+                   is_multiprocess)
 
 __all__ = ["TrajectoryBatch", "BatchResults", "stack_trajectories",
            "bucket_trajectories", "pad_batch_rows", "sample_batch",
            "run_lanes"]
-
-_NOT_PORTED = ("serves the multi-process sharded dataset runner "
-               "(parallel/mesh.py, parallel/sharded.py), which bild_tpu_torch "
-               "does not port yet: ROADMAP.md queue 1 item 16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,20 +278,21 @@ def _trim_tail(batch: TrajectoryBatch):
                            lengths=batch.lengths), T_eff
 
 
-def _prepare_batch(model, batch: TrajectoryBatch, device, dtype):
+def _prepare_batch(model, batch: TrajectoryBatch, device, dtype, trim=True):
     """``(batch, T_eff)``: ``batch`` on ``device`` in ``dtype`` with its
-    all-invalid tail trimmed (`_trim_tail`). Memoized on the model for the
-    last input batch (`tensor_token` of its tensors, plus its lengths), so
-    that repeated calls on one batch hand the model's own caches (interval
-    tables, segment tables, informed init) the same tensors and not a
-    fresh copy each time."""
-    token = (tensor_token(batch.data, batch.valid), device, dtype,
+    all-invalid tail trimmed (`_trim_tail`; not with ``trim=False``).
+    Memoized on the model for the last input batch (`tensor_token` of its
+    tensors, plus its lengths), so that repeated calls on one batch hand
+    the model's own caches (interval tables, segment tables, informed
+    init) the same tensors and not a fresh copy each time."""
+    token = (tensor_token(batch.data, batch.valid), device, dtype, trim,
              None if batch.lengths is None
              else np.asarray(batch.lengths).tobytes())
     memo = getattr(model, "_prepared_batch", None)
     if memo is not None and memo[0] == token:
         return memo[2]
-    out = _trim_tail(batch.to(device, dtype))
+    moved = batch.to(device, dtype)
+    out = _trim_tail(moved) if trim else (moved, moved.T)
     # holding the input keeps its storage alive: the token stays its own
     model._prepared_batch = (token, batch, out)
     return out
@@ -332,18 +337,29 @@ def _summaries(state: AmisState, active, n_done, T, n, marginals, top_m):
 
 def _informed_proposals_all_k(model, batch, K1, n, T, cache_token):
     """
-    Informed init for every trajectory and every k from one batched DP
-    sweep: ``(a_inf (K1, B, K1), logp_inf (K1, B, n, K1), use (K1, B))``
-    numpy, or ``None`` if the model has no frame-factorized score tables.
-    Cached on the model for the last ``cache_token`` (the prepared batch's
-    data tensor, compared by identity, plus the effective shape): the
-    segmentation is deterministic, and repeated calls on one batch would
-    redo the host DP.
+    `_informed_proposals_all_k_impl`, cached on the model for the last
+    ``cache_token`` (the prepared batch's data tensor, compared by
+    identity, plus the effective shape): the segmentation is
+    deterministic, and repeated calls on one batch would redo the host DP.
     """
     cache = getattr(model, "_informed_init_cache", None)
     if (cache is not None and cache[0] is cache_token[0]
             and cache[1] == cache_token[1:] and cache[2] == K1):
         return cache[3]
+    out = _informed_proposals_all_k_impl(model, batch, K1, n, T)
+    # holding the token tensor keeps it alive, so `is` cannot alias
+    model._informed_init_cache = (cache_token[0], cache_token[1:], K1, out)
+    return out
+
+
+def _informed_proposals_all_k_impl(model, batch, K1, n, T):
+    """
+    Informed init for every trajectory and every k from one batched DP
+    sweep: ``(a_inf (K1, B, K1), logp_inf (K1, B, n, K1), use (K1, B))``
+    numpy, or ``None`` if the model has no frame-factorized score tables.
+    A row's arrays depend on that row alone (the sharded runner computes
+    them on each rank's own rows).
+    """
     out = None
     seg_tables = model.lockstep_segment_tables(batch)
     if seg_tables is not None:
@@ -361,8 +377,6 @@ def _informed_proposals_all_k(model, batch, K1, n, T, cache_token):
             a_inf[k][ok, : k + 1] = a_k
             logp_inf[k][ok, :, : k + 1] = logp_k
         out = (a_inf, logp_inf, feas)
-    # holding the token tensor keeps it alive, so `is` cannot alias
-    model._informed_init_cache = (cache_token[0], cache_token[1:], K1, out)
     return out
 
 
@@ -379,8 +393,9 @@ def _checkpoint_config(batch, k_max, steps_per_k, N, marginals, informed_init,
 
 def _checkpoint_tag(model, batch, lane_keys):
     """Content hash of (data, lane keys, model fingerprint): resuming a
-    checkpoint against different data, another generator, or a
-    re-parametrized model would silently mix results of two runs."""
+    checkpoint against different data, another generator or other
+    ``row_keys`` (both make the lane keys), or a re-parametrized model
+    would silently mix results of two runs."""
     h = hashlib.sha256()
     h.update(np.ascontiguousarray(batch.data.cpu().numpy()).tobytes())
     h.update(np.ascontiguousarray(lane_keys).tobytes())
@@ -443,6 +458,14 @@ class _Lanes:
         return len(self.row_index)
 
 
+def _row_lane_keys(row_keys, K1) -> np.ndarray:
+    """``(K1, B)`` lane keys from per-trajectory base keys: lane (k, b)
+    takes ``row_keys[b]`` folded by k (`LaneRNG.fold`, the counterpart of
+    ``fold_in(row_keys[b], k)``)."""
+    base = LaneRNG(torch.as_tensor(row_keys, dtype=torch.int64))
+    return torch.stack([base.fold(k).keys for k in range(K1)]).numpy()
+
+
 def sample_batch(model, batch: TrajectoryBatch,
                  k_max=10,
                  steps_per_k=20,
@@ -475,12 +498,17 @@ def sample_batch(model, batch: TrajectoryBatch,
     k_max, steps_per_k, N : every k gets ``steps_per_k`` AMIS steps of
         ``N`` proposals. Without ``checkpoint`` all k run as one lane set
         (``L = n_k * B`` lanes per step); with it, one k at a time.
+    mesh : optional `parallel.mesh.Mesh`: the batch (the same on every
+        rank) is padded to a multiple of the ``data`` axis with filler
+        rows, each rank runs the lanes of its own block of rows, and the
+        per-row results are all-gathered, so that every rank returns the
+        full results. The default generator's seed is rank 0's.
     informed_init : seed each trajectory's proposal at its DP segmentation
         (the second mixture component, after the first step).
     checkpoint : optional ``.npz`` path for per-k checkpoint/resume; a rerun
         with the same configuration resumes at the first incomplete k. A
         checkpoint of another configuration, other data, another generator
-        seed or another model raises.
+        seed or another model raises. Under a mesh the first rank writes it.
     scout_steps, refine_top : two-phase schedule: every k gets
         ``scout_steps`` steps, then each trajectory's ``refine_top``
         highest-evidence k continue from their scout state to
@@ -490,25 +518,40 @@ def sample_batch(model, batch: TrajectoryBatch,
         reported per (trajectory, k) in ``BatchResults.mom_ok``.
     ensemble : when > 0, also return the ``ensemble`` highest-weight samples
         per (trajectory, k) (``top_profiles``, ``top_logw``).
-    mesh, row_keys, informed_arrays, lockstep : serve the multi-process
-        sharded runner, not ported: they raise `NotImplementedError`.
+    row_keys : optional int64 ``(B,)`` per-trajectory base keys; lane (k, b)
+        then draws from ``row_keys[b]`` folded by k instead of the
+        generator's position-drawn table, so a trajectory's result does
+        not depend on where in the batch it sits (what the sharded runner
+        needs).
+    lockstep : optional ``(per_traj, logL_fn)`` in place of
+        ``model.lockstep_fns(batch)``; under a mesh ``per_traj`` holds this
+        rank's rows. ``batch`` then supplies shapes and true lengths.
+    informed_arrays : optional ``(a_inf (K1, B, K1), logp_inf (K1, B, n,
+        K1), use (K1, B))`` in place of the host DP of ``informed_init``;
+        under a mesh the B axis holds this rank's rows. Not combinable with
+        ``checkpoint``.
 
-    Per-trajectory true lengths (``batch.lengths``) gate the evidence: k at
-    or beyond a trajectory's own frame count gets -inf.
+    With ``lockstep`` or ``informed_arrays`` the batch is not trimmed: the
+    injected arrays were built at its width. Per-trajectory true lengths
+    (``batch.lengths``) gate the evidence: k at or beyond a trajectory's
+    own frame count gets -inf.
     """
-    for name, val in (("mesh", mesh), ("row_keys", row_keys),
-                      ("informed_arrays", informed_arrays),
-                      ("lockstep", lockstep)):
-        if val is not None:
-            raise NotImplementedError(f"sample_batch({name}=...) {_NOT_PORTED}")
+    multiproc = mesh is not None and is_multiprocess(mesh)
     device = getattr(model, "device", batch.data.device)
     dtype = getattr(model, "dtype", batch.data.dtype)
-    if generator is None:
+    if generator is None and row_keys is None:
+        # the default seed must be the same on every rank
+        seed = np.int64(np.random.randint(2**31))
+        if multiproc:
+            seed = broadcast_from_process0(seed, mesh)
         generator = torch.Generator(device=device)
-        generator.manual_seed(int(np.random.randint(2**31)))
+        generator.manual_seed(int(seed))
     if checkpoint is not None and scout_steps is not None:
         raise ValueError("scout_steps (two-phase schedule) cannot be "
                          "combined with checkpoint (per-k resume)")
+    if checkpoint is not None and informed_arrays is not None:
+        raise ValueError("informed_arrays (precomputed informed init) "
+                         "cannot be combined with checkpoint")
     if scout_steps is not None and not (1 <= scout_steps <= steps_per_k):
         raise ValueError(f"scout_steps must be in [1, steps_per_k="
                          f"{steps_per_k}], got {scout_steps}")
@@ -521,28 +564,69 @@ def sample_batch(model, batch: TrajectoryBatch,
                          f"{ensemble}")
 
     B_real = batch.B
-    # trim the all-invalid tail of a padded bucket; results are edge-padded
-    # back to T below
+    # trim the all-invalid tail of a padded bucket (results are edge-padded
+    # back to T below), unless injected arrays were built at this width
     T_in = batch.T
-    batch, T_eff = _prepare_batch(model, batch, device, dtype)
-    cache_token = (batch.data, T_eff)
+    batch, T_eff = _prepare_batch(
+        model, batch, device, dtype,
+        trim=lockstep is None and informed_arrays is None)
+    D = 1 if mesh is None else mesh.shape["data"]
+    batch = pad_batch_rows(batch, -B_real % D)
 
     B, T = batch.B, batch.T
     K1 = min(k_max, max(T - 1, 0)) + 1     # padded slot count
+    # this rank's block of rows: everything below runs on it alone
+    if D > 1:
+        Bl = B // D
+        lo = mesh.index * Bl
+        local = TrajectoryBatch(
+            data=batch.data[lo:lo + Bl], valid=batch.valid[lo:lo + Bl],
+            lengths=(None if batch.lengths is None
+                     else np.asarray(batch.lengths)[lo:lo + Bl]))
+    else:
+        Bl, lo, local = B, 0, batch
     # K1 parameter slots propose profiles of at most K1 intervals
-    per_traj, logL_fn = model.lockstep_fns(batch, max_intervals=K1)
+    per_traj, logL_fn = (lockstep if lockstep is not None
+                         else model.lockstep_fns(local, max_intervals=K1))
+    if any(x.dim() and x.shape[0] != Bl for x in per_traj):
+        raise ValueError(f"per-trajectory lockstep data must hold {Bl} rows "
+                         "(this rank's rows of the batch)")
     cfc = CFC(model.transitions)
     transitions = torch.as_tensor(model.transitions, device=device)
     n = cfc.n
     cb = N * concentration_brake
     pb = N * polarization_brake
-    informed = (_informed_proposals_all_k(model, batch, K1, n, T,
-                                          cache_token + (B,))
-                if informed_init else None)
-    # one key per (k, trajectory) lane, drawn k-major from the generator
-    lane_keys = torch.randint(0, 2**62, (k_max + 1, B), generator=generator,
-                              device=generator.device).cpu().numpy()
-    params = {k: _per_k_params(cfc, k, K1, B, n, informed)
+    if informed_arrays is not None:
+        informed = tuple(x.cpu().numpy() if isinstance(x, torch.Tensor)
+                         else np.asarray(x) for x in informed_arrays)
+        if informed[2].shape != (K1, Bl):
+            raise ValueError(f"informed_arrays' use has shape "
+                             f"{informed[2].shape}, want {(K1, Bl)}")
+    elif informed_init:
+        informed = _informed_proposals_all_k(model, local, K1, n, T,
+                                             (local.data, T_eff, Bl))
+    else:
+        informed = None
+    # one key per (k, trajectory) lane: drawn k-major from the generator,
+    # or folded from the trajectory's own key
+    if row_keys is not None:
+        row_keys = np.asarray(row_keys, dtype=np.int64)
+        if row_keys.shape != (B_real,):
+            raise ValueError(f"row_keys must have shape ({B_real},), got "
+                             f"{row_keys.shape}")
+        lane_keys = _row_lane_keys(row_keys, k_max + 1)
+    else:
+        lane_keys = torch.randint(0, 2**62, (k_max + 1, B_real),
+                                  generator=generator,
+                                  device=generator.device).cpu().numpy()
+    if B > B_real:
+        # filler rows of the mesh padding: keys the draws never give (the
+        # real rows' keys, and so their results, do not depend on D)
+        lane_keys = np.concatenate(
+            [lane_keys, 2**62 + np.arange((k_max + 1) * (B - B_real))
+             .reshape(k_max + 1, -1)], axis=1)
+    local_keys = lane_keys[:, lo:lo + Bl]
+    params = {k: _per_k_params(cfc, k, K1, Bl, n, informed)
               for k in range(min(k_max, T - 1) + 1)}
 
     def run(lanes: _Lanes, stop, state=None, start=0):
@@ -560,6 +644,16 @@ def sample_batch(model, batch: TrajectoryBatch,
         return state, _summaries(state, lanes.active, stop, T, n, marginals,
                                  ensemble)
 
+    def gather(outs):
+        """Under a mesh, replace this rank's rows of each per-row output
+        in ``outs`` by all ranks' rows (one all-gather), in place."""
+        if multiproc:
+            full = fetch_to_host([[x for x in out if x is not None]
+                                  for out in outs], mesh)
+            for out, got in zip(outs, full):
+                it = iter(got)
+                out[:] = [None if x is None else next(it) for x in out]
+
     def skipped_k():
         return (np.full((B, 3), [-np.inf, 1e-10, np.inf]),
                 np.zeros((B, T), dtype=int),
@@ -571,14 +665,14 @@ def sample_batch(model, batch: TrajectoryBatch,
     # per k: (ev, map, marginals, mom_ok, top profiles, top log-weights)
     by_k = {}
     if checkpoint is None:
-        # all k in one lane set, lane = (k index) * B + trajectory row
+        # all k in one lane set, lane = (k index) * Bl + trajectory row
         ks = [k for k in range(k_max + 1) if k < T]
-        lanes = _Lanes(np.repeat(ks, B), np.tile(np.arange(B), len(ks)),
-                       params, lane_keys, device, dtype)
+        lanes = _Lanes(np.repeat(ks, Bl), np.tile(np.arange(Bl), len(ks)),
+                       params, local_keys, device, dtype)
         s1 = steps_per_k if scout_steps is None else scout_steps
         state, out = run(lanes, s1)
         for i, k in enumerate(ks):
-            by_k[k] = [None if x is None else x[i * B:(i + 1) * B].copy()
+            by_k[k] = [None if x is None else x[i * Bl:(i + 1) * Bl].copy()
                        for x in out]
 
         R = 0 if scout_steps is None else max(0, min(refine_top, len(ks)))
@@ -586,21 +680,21 @@ def sample_batch(model, batch: TrajectoryBatch,
             # refine: each trajectory's top-R scouted k continue from their
             # scout state to steps_per_k, per-lane k in one lane set; a
             # refined lane ends exactly as a straight steps_per_k run would
-            lengths = (np.asarray(batch.lengths) if batch.lengths is not None
-                       else np.full(B, T))
+            lengths = (np.asarray(local.lengths) if local.lengths is not None
+                       else np.full(Bl, T))
             ks_arr = np.array(ks)
-            ev_scout = np.stack([by_k[k][0][:, 0] for k in ks])     # (nk, B)
+            ev_scout = np.stack([by_k[k][0][:, 0] for k in ks])     # (nk, Bl)
             ev_rank = np.where(ks_arr[:, None] >= lengths[None, :], -np.inf,
                                ev_scout)
             order = np.argsort(-ev_rank, axis=0)                    # ks-indices
-            kb = order[:R]                                          # (R, B)
+            kb = order[:R]                                          # (R, Bl)
             with np.errstate(invalid="ignore"):
-                bad = ~np.isfinite(ev_rank[kb, np.arange(B)[None]])
+                bad = ~np.isfinite(ev_rank[kb, np.arange(Bl)[None]])
             kb = np.where(bad, kb[0][None], kb)                     # pad w/ best
             flat_kb = kb.reshape(-1)
-            rows = np.tile(np.arange(B), R)
-            sel = flat_kb * B + rows                                # scout lanes
-            refine = _Lanes(ks_arr[flat_kb], rows, params, lane_keys,
+            rows = np.tile(np.arange(Bl), R)
+            sel = flat_kb * Bl + rows                               # scout lanes
+            refine = _Lanes(ks_arr[flat_kb], rows, params, local_keys,
                             device, dtype)
             _, out_r = run(refine, steps_per_k,
                            state=state.select(torch.as_tensor(sel, device=device)),
@@ -609,12 +703,13 @@ def sample_batch(model, batch: TrajectoryBatch,
                 for f, x in enumerate(out_r):
                     if x is not None:
                         by_k[ks[ki]][f][b] = x[j]
+        gather([by_k[k] for k in ks])
     else:
         config = _checkpoint_config(batch, k_max, steps_per_k, N, marginals,
                                     informed_init, ensemble, mom_maxiter)
         tag = _checkpoint_tag(model, batch, lane_keys)
         start_k = 0
-        if os.path.exists(checkpoint):
+        if checkpoint_hit(checkpoint, mesh):
             ck = np.load(checkpoint)
             if not np.array_equal(ck["config"], config):
                 raise ValueError(
@@ -634,6 +729,8 @@ def sample_batch(model, batch: TrajectoryBatch,
                            ck["toplws"][k] if ensemble else np.zeros((B, 0))]
 
         def save_checkpoint(next_k):
+            if mesh is not None and mesh.index != 0:
+                return          # every rank holds the results; one writes
             got = [by_k[k] for k in range(next_k)]
             tmp = f"{checkpoint}.tmp.npz"
             np.savez(tmp, config=config, tag=tag, next_k=next_k,
@@ -651,10 +748,11 @@ def sample_batch(model, batch: TrajectoryBatch,
             if k >= T:
                 by_k[k] = list(skipped_k())
                 continue
-            lanes = _Lanes(np.full(B, k), np.arange(B), params, lane_keys,
+            lanes = _Lanes(np.full(Bl, k), np.arange(Bl), params, local_keys,
                            device, dtype)
             _, out = run(lanes, steps_per_k)
             by_k[k] = list(out)
+            gather([by_k[k]])
             save_checkpoint(k + 1)
 
     for k in range(k_max + 1):

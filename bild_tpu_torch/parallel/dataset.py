@@ -10,6 +10,11 @@ Chunking bounds device memory (a chunk of B trajectories runs ``(k_max+1)
 B`` lanes per AMIS step); the per-chunk checkpoint makes long runs
 resumable at chunk granularity: rerun the same call and completed chunks
 load from disk.
+
+Under a ``mesh`` every rank holds the whole dataset and makes the same
+call; each chunk's rows are split over the ranks (`sample_batch(mesh=)`),
+every rank returns the same full results, and the mesh's first rank alone
+writes the chunk files.
 """
 from __future__ import annotations
 
@@ -24,7 +29,10 @@ import torch
 from ..amis.sampler import draw_seed
 from ..infer.adaptive import sample_batch_adaptive
 from ..lanes import mix_int
-from .batch import TrajectoryBatch, bucket_trajectories, sample_batch
+from .batch import (TrajectoryBatch, _prepare_batch, bucket_trajectories,
+                    sample_batch)
+from .mesh import (broadcast_from_process0, checkpoint_hit, fetch_to_host,
+                   is_multiprocess)
 
 __all__ = ["DatasetResults", "sample_dataset"]
 
@@ -48,6 +56,8 @@ class DatasetResults:
     mom_ok: Optional[np.ndarray] = None
     # (B,): likelihood evaluations spent per trajectory (schedule="adaptive")
     evals: Optional[np.ndarray] = None
+    # (B,): each row's global trajectory id (`sample_dataset_sharded`)
+    ids: Optional[np.ndarray] = None
 
     def best_k(self, dE=None) -> np.ndarray:
         dE = self.dE if dE is None else dE
@@ -133,7 +143,14 @@ def sample_dataset(model, trajs: Sequence,
         ``steps_per_k``, ``scout_steps`` and ``refine_top`` are ignored
         under it. ``DatasetResults.evals`` then holds each trajectory's
         likelihood evaluations.
-    mesh : not ported (multi-process sharding).
+    mesh : optional `parallel.mesh.Mesh` spanning several ranks: every
+        rank makes this same call with the same dataset, configuration and
+        generator (``None`` is made safe by broadcasting rank 0's seed);
+        each chunk's rows are split over the ranks and every rank returns
+        the same full results. Inputs that differ between ranks raise on
+        every rank. The mesh's first rank alone writes the chunk files;
+        resuming needs ``checkpoint_dir`` on a filesystem every rank
+        reads. Not with ``schedule='adaptive'``.
 
     Returns `DatasetResults` in the original trajectory order.
     """
@@ -144,14 +161,17 @@ def sample_dataset(model, trajs: Sequence,
     if schedule not in ("lockstep", "adaptive"):
         raise ValueError(f"schedule must be 'lockstep' or 'adaptive', "
                          f"got {schedule!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "sample_dataset(mesh=...) needs the multi-process sharded runner "
-            "(parallel/mesh.py), which bild_tpu_torch does not port yet: "
-            "ROADMAP.md queue 1 item 16")
+    if schedule == "adaptive" and mesh is not None:
+        raise ValueError("schedule='adaptive' does not support a mesh yet "
+                         "(per-trajectory decisions are single-process)")
+    multiproc = mesh is not None and is_multiprocess(mesh)
     if generator is None:
+        # the default seed must be the same on every rank
+        seed0 = np.int64(np.random.randint(2**31))
+        if multiproc:
+            seed0 = broadcast_from_process0(seed0, mesh)
         generator = torch.Generator()
-        generator.manual_seed(int(np.random.randint(2**31)))
+        generator.manual_seed(int(seed0))
     seed = draw_seed(generator)
     if checkpoint_dir is not None:
         os.makedirs(checkpoint_dir, exist_ok=True)
@@ -169,6 +189,22 @@ def sample_dataset(model, trajs: Sequence,
     if fingerprint is not None:
         config += (fingerprint,)
     config_str = repr(config)
+
+    if multiproc:
+        # every rank must walk the same dataset and configuration, or the
+        # chunks' collectives would pair different work; every rank sees
+        # every digest, so all raise together
+        h = hashlib.sha256(config_str.encode())
+        for t in trajs:
+            h.update(np.ascontiguousarray(t.data.cpu().numpy()).tobytes())
+            h.update(np.ascontiguousarray(t.valid.cpu().numpy()).tobytes())
+        digests = fetch_to_host(np.frombuffer(h.digest()[:8], np.int64), mesh)
+        if np.any(digests != digests[0]):
+            raise ValueError(
+                "sample_dataset multi-process launch diverged: ranks "
+                f"{[r for r, x in zip(mesh.ranks, digests) if x != digests[0]]}"
+                f" passed a (dataset, configuration, seed) that differs from "
+                f"rank {mesh.ranks[0]}'s; every rank must pass identical inputs")
 
     B_total = len(trajs)
     K1 = k_max + 1
@@ -209,7 +245,7 @@ def sample_dataset(model, trajs: Sequence,
         if checkpoint_dir is not None:
             ck_path = os.path.join(checkpoint_dir,
                                    f"chunk_{_chunk_tag(indices, sub, config_str)}.npz")
-            if os.path.exists(ck_path):
+            if checkpoint_hit(ck_path, mesh):
                 loaded = np.load(ck_path)
 
         if loaded is not None:
@@ -233,17 +269,24 @@ def sample_dataset(model, trajs: Sequence,
                     model, sub, k_max=k_max, steps_per_k=steps_per_k, N=N,
                     dE=dE, scout_steps=scout_steps, refine_top=refine_top,
                     informed_init=informed_init, marginals=marginals,
-                    generator=chunk_gen, **sample_kw)
+                    generator=chunk_gen, mesh=mesh, **sample_kw)
             ev, se, maps = res.evidence, res.evidence_se, res.map_profiles
             marg = res.marginals
             mom = res.mom_ok
             evl = res.evals
             opt = elim = None
             if optimize_boundaries:
+                # every rank climbs all rows from the gathered profiles, on
+                # the batch sample_batch ran (its padding trimmed: banded
+                # GGM tables refuse it as missing frames), padded back
                 from ..postproc import optimize_boundary_batch
-                opt, elim = optimize_boundary_batch(res.best_profile(dE),
-                                                    sub, model)
-            if ck_path is not None:
+                ran, T_eff = _prepare_batch(
+                    model, sub, getattr(model, "device", sub.data.device),
+                    getattr(model, "dtype", sub.data.dtype))
+                opt, elim = optimize_boundary_batch(
+                    res.best_profile(dE)[:, :T_eff], ran, model)
+                opt = np.pad(opt, [(0, 0), (0, sub.T - T_eff)], mode="edge")
+            if ck_path is not None and (mesh is None or mesh.index == 0):
                 tmp = ck_path + ".tmp.npz"
                 np.savez(tmp, evidence=ev, evidence_se=se,
                          map_profiles=maps,

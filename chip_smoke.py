@@ -81,6 +81,17 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    graph); and
    `sample()` on one trajectory with its `save_results`/`load_results`
    round trip.
+13. Mesh phase: config 3 (``chunk_size=64``, informed init, scout/refine,
+   marginals) split over ranks of a `torch.distributed` world. (a) A
+   one-rank NCCL world: `sample_dataset(mesh=)` and
+   `sample_dataset_sharded(mesh=)` equal their mesh-free runs bit for bit,
+   through the kernel. (b) Two processes sharing the card over gloo, each
+   ``python -m bild_tpu_torch shard{r}.csv --process-local --mesh`` on its
+   own CSV shard of 64 trajectories (interleaved ids): both ``--out``
+   files are identical, equal the one-process ``--process-local`` run on
+   the concatenated CSV bit for bit and meet the dataset bars; rank 0
+   alone wrote checkpoint files; every process launched the kernel. No
+   run on two GPUs: one card serves both processes.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -89,8 +100,10 @@ printed. Without a CUDA device it exits non-zero at once.
 """
 from __future__ import annotations
 
+import datetime
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -803,13 +816,25 @@ def adaptive_phase(bt, B=128):
 
 
 # runs `python -m bild_tpu_torch` (runpy is what -m uses) and writes the
-# launch and parse counters of that process to the path given first
+# launch, parse and checkpoint-commit counters and the peak device memory
+# of that process to the path given first
 CLI_RUNNER = """
-import atexit, json, runpy, sys
+import atexit, json, os, runpy, sys
+import torch
 from bild_tpu_torch import fit, io
 from bild_tpu_torch.ops import kalman, kalman_dense, kalman_sym
 out = sys.argv.pop(1)
+writes = []
+_replace = os.replace
+def counting_replace(src, dst):
+    if os.path.basename(dst).startswith(("chunk_", "shard_chunk_")):
+        writes.append(dst)
+    return _replace(src, dst)
+os.replace = counting_replace
 atexit.register(lambda: json.dump({
+    "checkpoint_writes": len(writes),
+    "peak_device_gib": (torch.cuda.max_memory_allocated() / 2**30
+                        if torch.cuda.is_available() else 0.0),
     "kalman_sym": kalman_sym.msrouse_logL_sym.launches,
     "kalman_dense": kalman_dense.msrouse_logL_dense.launches,
     "plain_sym": kalman_sym.msrouse_logL_sym_torch.calls,
@@ -819,6 +844,21 @@ atexit.register(lambda: json.dump({
     "native_parses": io.load_trajectories_csv.native_parses}, open(out, "w")))
 runpy.run_module("bild_tpu_torch", run_name="__main__", alter_sys=True)
 """
+
+
+def write_two_locus_csv(path, batch, rows):
+    """Trajectories ``rows`` of ``batch`` as a two-locus CSV (``traj_id``
+    the row): the first locus at a random point, the second at it plus the
+    trajectory."""
+    rel = batch.data.cpu().numpy().astype(np.float64)
+    base = np.random.default_rng(5).normal(size=(len(rel), 1, DIM)) * 3.0
+    with open(path, "w") as f:
+        f.write("traj_id,frame,x1,y1,z1,x2,y2,z2\n")
+        for i in rows:
+            for t in range(T):
+                a, b = base[i, 0], base[i, 0] + rel[i, t]
+                f.write(f"{i},{t}," + ",".join(repr(float(v)) for v in (*a, *b))
+                        + "\n")
 
 
 def cli_phase(bt, work):
@@ -834,16 +874,8 @@ def cli_phase(bt, work):
                                       localization_error=0.1,
                                       device=DEVICE, dtype=torch.float32)
     truths, true_k, batch, _ = config3(bt, model)
-    rel = batch.data.cpu().numpy().astype(np.float64)
-    base = np.random.default_rng(5).normal(size=(len(rel), 1, DIM)) * 3.0
     csv = os.path.join(work, "config3.csv")
-    with open(csv, "w") as f:
-        f.write("traj_id,frame,x1,y1,z1,x2,y2,z2\n")
-        for i in range(len(rel)):
-            for t in range(T):
-                a, b = base[i, 0], base[i, 0] + rel[i, t]
-                f.write(f"{i},{t}," + ",".join(repr(float(v)) for v in (*a, *b))
-                        + "\n")
+    write_two_locus_csv(csv, batch, range(batch.B))
     common = [csv, "--two-locus", "--k-max", "4", "--steps-per-k", "12",
               "--proposals", "128", "--scout-steps", "4", "--refine-top", "3",
               "--chunk-size", "64", "--seed", "7", "--quiet"]
@@ -1292,6 +1324,159 @@ def ggm_phase(bt, rng):
           f"no Rouse kernel or plain version ran in the GGM phase: {ran}")
 
 
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_phase(bt, work):
+    """Config 3 split over the ranks of a torch.distributed world (see the
+    module docstring): (a) one rank on NCCL in this process, (b) two CLI
+    processes sharing the card over gloo. Returns the launch counters of
+    both, summed."""
+    import torch.distributed as dist
+    from bild_tpu_torch.parallel import (make_mesh, sample_dataset,
+                                         sample_dataset_sharded)
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
+                                      localization_error=0.1,
+                                      device=DEVICE, dtype=torch.float32)
+    truths, true_k, batch, trajs = config3(bt, model)
+    ids = np.arange(len(trajs))
+    kw = dict(k_max=4, steps_per_k=12, N=128, informed_init=True,
+              scout_steps=4, refine_top=3, marginals=True, chunk_size=64)
+
+    def gen():
+        return torch.Generator().manual_seed(7)
+
+    def runs(mesh):
+        return (sample_dataset(model, trajs, **kw, mesh=mesh, generator=gen()),
+                sample_dataset_sharded(model, trajs, ids, **kw, mesh=mesh,
+                                       generator=gen()))
+
+    def same(a, b):
+        return (all(np.array_equal(getattr(a, f), getattr(b, f))
+                    for f in ("evidence", "evidence_se", "mom_ok"))
+                and all(np.array_equal(x, y) for x, y in zip(
+                    a.profiles_by_k + a.marginals, b.profiles_by_k + b.marginals)))
+
+    # (a) a one-rank NCCL world against the mesh-free runs
+    ref = runs(None)
+    mesh = make_mesh(axis_names=("data",), distributed=True,
+                     coordinator_address=f"127.0.0.1:{free_port()}",
+                     num_processes=1, process_id=0,
+                     timeout=datetime.timedelta(seconds=120))
+    try:
+        one = torch.ones(1, device=mesh.device)
+        dist.all_reduce(one)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = runs(mesh)
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+        ran = read_counts()
+        backend = mesh.backend
+    finally:
+        dist.destroy_process_group()
+    bits_a = [same(x, y) for x, y in zip(got, ref)]
+    print(f"mesh one-rank {backend} world: sample_dataset and "
+          f"sample_dataset_sharded {wall_a:.3f} s together, equal to the "
+          f"mesh-free runs bit for bit: {bits_a}, launches {ran}", flush=True)
+    check(backend == "nccl" and float(one) == 1.0, "a one-rank NCCL world")
+    check(all(bits_a), "one-rank mesh runs equal the mesh-free runs")
+    check(ran["kalman_sym"] > 0, "sym kernel launched")
+    check(all(ran[k] == 0 for k in ran if k.startswith("plain")),
+          "no plain version ran on the CUDA path")
+    check(np.all(np.isfinite(got[1].evidence)) and np.array_equal(got[1].ids, ids),
+          "sharded evidence finite, ids in order")
+
+    # (b) two processes on disjoint shards (ids interleaved), and one
+    # process on both
+    shards = [os.path.join(work, f"shard{r}.csv") for r in range(2)]
+    for r, path in enumerate(shards):
+        write_two_locus_csv(path, batch, range(r, batch.B, 2))
+    both = os.path.join(work, "both.csv")
+    write_two_locus_csv(both, batch, range(batch.B))
+    common = ["--two-locus", "--k-max", "4", "--steps-per-k", "12",
+              "--proposals", "128", "--scout-steps", "4", "--refine-top", "3",
+              "--chunk-size", "64", "--marginals", "--seed", "7", "--quiet",
+              "--process-local"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.getcwd()] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    port = free_port()
+    ranks_env = [dict(env, RANK=str(r), WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port)) for r in range(2)]
+    outs = [os.path.join(work, f"mesh{i}") for i in range(3)]
+    procs = []
+
+    def launch(i, args, job_env):
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", CLI_RUNNER, outs[i] + ".json", *args,
+             *common, "--out", outs[i] + ".npz"], env=job_env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        return time.perf_counter(), procs[-1]
+
+    def finish(job, what):
+        t0, p = job
+        _, err = p.communicate(timeout=300)
+        check(p.returncode == 0, f"{what} exited {p.returncode}: {err[-2000:]}")
+        return time.perf_counter() - t0
+
+    try:
+        jobs = [launch(r, [shards[r], "--mesh", "--checkpoint-dir",
+                           os.path.join(work, "mesh_ck")], ranks_env[r])
+                for r in range(2)]
+        walls = [finish(j, f"mesh CLI rank {r}") for r, j in enumerate(jobs)]
+        walls.append(finish(launch(2, [both], env), "one-process CLI"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    counts, results = [], []
+    for out in outs:
+        with open(out + ".json") as f:
+            counts.append(json.load(f))
+        results.append(dict(np.load(out + ".npz", allow_pickle=True)))
+
+    def equal(a, b):
+        return set(a) == set(b) and all(
+            all(np.array_equal(x, y) for x, y in zip(a[k], b[k]))
+            if a[k].dtype == object else np.array_equal(a[k], b[k]) for k in a)
+
+    bits_b = equal(results[0], results[1]) and equal(results[0], results[2])
+    acc = float(np.mean(np.concatenate(list(results[0]["best_profiles"]))
+                        == truths.ravel()))
+    sw = float(np.mean(results[0]["best_k"] == true_k))
+    files = len(os.listdir(os.path.join(work, "mesh_ck")))
+    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s, two gloo ranks "
+          f"on one card: walls {walls[0]:.3f} s and {walls[1]:.3f} s (process "
+          f"start to exit), one process {walls[2]:.3f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB here, "
+          f"{counts[0]['peak_device_gib']:.2f} and {counts[1]['peak_device_gib']:.2f} "
+          f"GiB in the ranks; bits_equal {bits_b}; frame accuracy {acc:.4f}, "
+          f"switch-count accuracy {sw:.4f}; checkpoint files {files}, written "
+          f"by rank 0: {counts[0]['checkpoint_writes']}, rank 1: "
+          f"{counts[1]['checkpoint_writes']}; counters {counts}", flush=True)
+    check(bits_b, "both ranks' --out files are identical and equal the "
+          "one-process run")
+    check(acc >= DATASET_FRAME_ACCURACY and sw >= DATASET_SWITCH_ACCURACY,
+          f"two-rank accuracy {acc:.4f} / {sw:.4f}")
+    check(counts[0]["checkpoint_writes"] == files > 0
+          and counts[1]["checkpoint_writes"] == 0,
+          "only rank 0 wrote checkpoint files")
+    for c in counts:
+        check(c["kalman_sym"] > 0 and c["plain_sym"] == c["plain_dense"]
+              == c["plain_torch"] == 0, "every process launched the kernel")
+    return {k: ran[k] + sum(c[k] for c in counts)
+            for k in ("kalman_sym", "kalman_dense")}
+
+
 def time_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -1435,6 +1620,8 @@ def main():
     ck_launches = checkpoint_phase(bt)
     range_phase(bt, rng)
     ggm_phase(bt, rng)
+    with tempfile.TemporaryDirectory() as work:
+        mesh_launches = mesh_phase(bt, work)
 
     replaces = {"kalman_sym": "bild_tpu/ops/kalman_sym.py:189",
                 "kalman_dense": "bild_tpu/ops/kalman_pallas.py:50"}
@@ -1443,7 +1630,8 @@ def main():
     # P=128); "adaptive_*" at the adaptive round's (L=128, P=128). No single
     # PyTorch call computes the recursion: library_ms is null. "launches"
     # sums the main-path runs: sample(), the lockstep and adaptive dataset
-    # runs, the CLI runs and the checkpoint phase. The calibration's M-step
+    # runs, the CLI runs, the checkpoint phase and the mesh phase (its own
+    # process and its three CLI processes). The calibration's M-step
     # runs the plain recursion under autograd by design: its calls stand
     # apart, under "calibration_plain_calls".
     chunk, rnd = "one chunk of 128", "adaptive round"
@@ -1452,6 +1640,7 @@ def main():
         "source": f"bild_tpu_torch/csrc/{name}.cu",
         "replaces": replaces[name],
         "launches": (launches[name] + cli_counts[name] + ck_launches[name]
+                     + mesh_launches[name]
                      + sum(r[name] for r in ds_launches.values())
                      + sum(r[name] for r in ad_launches.values())),
         "max_abs_err": max_abs[name],

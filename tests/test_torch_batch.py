@@ -145,9 +145,15 @@ def test_ensemble_and_argument_checks(shared, tmp_path):
     profs, w = res.profile_ensemble()
     assert profs.shape == (6, 5, 40)
     np.testing.assert_allclose(w.sum(1), 1.0, rtol=1e-12)
-    for bad in (dict(mesh=object()), dict(row_keys=[1]),
-                dict(lockstep=(None, None)), dict(informed_arrays=(1, 2, 3))):
-        with pytest.raises(NotImplementedError, match="queue 1 item 16"):
+    per_traj, logL_fn = tm.lockstep_fns(tb)
+    for bad, match in (
+            (dict(row_keys=[1]), "row_keys"),
+            (dict(lockstep=(tuple(x[:3] for x in per_traj), logL_fn)), "rows"),
+            (dict(informed_arrays=(np.ones((2, 6, 2)), np.zeros((2, 6, 2, 2)),
+                                   np.zeros((2, 5), bool))), "informed_arrays"),
+            (dict(informed_arrays=(1, 2, 3), checkpoint=str(tmp_path / "i.npz")),
+             "informed_arrays")):
+        with pytest.raises(ValueError, match=match):
             sample_batch(tm, tb, k_max=1, steps_per_k=2, N=8, **bad)
     with pytest.raises(ValueError, match="checkpoint"):
         sample_batch(tm, tb, k_max=1, steps_per_k=4, N=8, scout_steps=2,

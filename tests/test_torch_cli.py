@@ -116,9 +116,25 @@ def test_adaptive_fit_params_and_dwell_times(tiny_csv, tmp_path, capsys):  # noq
 
 
 @pytest.mark.parametrize("flag", ["--mesh", "--process-local"])
-def test_sharded_options_name_item_16(flag, capsys):
-    assert main(["data.csv", flag]) != 0
-    assert "queue 1 item 16" in capsys.readouterr().err
+def test_sharded_options_name_item_16(flag, tiny_csv, tmp_path, capsys):  # noqa: F811
+    """Without a process group in the environment ``--mesh`` is a one-rank
+    mesh: the mesh-free run's npz. ``--process-local`` runs the sharded
+    driver on this process's file and refuses ``--adaptive`` as bild_tpu
+    does. The two-process runs are in tests/test_torch_distributed.py."""
+    one, ref = str(tmp_path / "one.npz"), str(tmp_path / "ref.npz")
+    assert main([tiny_csv, "--out", one, *CLI_FAST, *CPU, flag]) == 0
+    got = np.load(one, allow_pickle=True)
+    assert got["evidence"].shape == (4, 3) and np.isfinite(got["evidence"]).all()
+    assert [len(p) for p in got["best_profiles"]] == [16, 16, 16, 24]
+    if flag == "--mesh":
+        assert main([tiny_csv, "--out", ref, *CLI_FAST, *CPU]) == 0
+        want = np.load(ref, allow_pickle=True)
+        np.testing.assert_array_equal(got["evidence"], want["evidence"])
+        for x, y in zip(got["best_profiles"], want["best_profiles"]):
+            np.testing.assert_array_equal(x, y)
+    else:
+        assert main([tiny_csv, flag, "--adaptive", *CPU]) == 1
+        assert "does not combine with --adaptive" in capsys.readouterr().err
 
 
 def test_no_gpu_does_not_fall_back(tmp_path, capsys, monkeypatch):

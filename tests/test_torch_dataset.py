@@ -111,9 +111,13 @@ def test_buckets_and_original_order(shared, result, tmp_path):
 
 
 def test_unported_options_raise(shared):
+    """What `bild_tpu` refuses too: the adaptive schedule on a mesh, an
+    ensemble through a dataset run, an unknown schedule."""
+    from bild_tpu_torch.parallel import make_mesh
     _, tm, _, _, ttrajs = shared
-    with pytest.raises(NotImplementedError, match="queue 1 item 16"):
-        sample_dataset(tm, ttrajs, mesh=object())
+    with pytest.raises(ValueError, match="mesh"):
+        sample_dataset(tm, ttrajs, schedule="adaptive",
+                       mesh=make_mesh(devices="cpu"))
     with pytest.raises(ValueError, match="ensemble"):
         sample_dataset(tm, ttrajs, ensemble=4)
     with pytest.raises(ValueError, match="schedule"):

@@ -542,6 +542,29 @@ def test_sample_dataset_and_boundary_climb(ggm_batch, tmp_path):
         np.testing.assert_array_equal(opt[b_], np.asarray(single[:]))
 
 
+def test_boundary_climb_on_banded_tables_in_a_padded_bucket(rng):
+    """Banded tables refuse missing frames; the chunk's bucket padding is
+    not one: the climb runs on the trimmed batch that sampling ran on, and
+    its profiles come back at the trajectories' lengths."""
+    tm = TG(two_state_spec(TG), T_band=8, band_tol=1e9, **CPU)
+    true = np.zeros(12, dtype=int)
+    true[4:9] = 1
+    trajs = [tm.trajectory_from_loopingprofile(true, rng=rng) for _ in range(3)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        res = bt.parallel.sample_dataset(
+            tm, trajs, k_max=2, steps_per_k=4, N=16, optimize_boundaries=True,
+            bucket_edges=(16,), chunk_size=4, generator=gen(3))
+    assert [len(p) for p in res.optimized] == [12, 12, 12]
+    assert np.isfinite(res.evidence).all() and res.eliminated.shape == (3,)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        want, elim = optimize_boundary_batch(np.stack(res.best_profile()),
+                                             stack_trajectories(trajs), tm)
+    np.testing.assert_array_equal(np.stack(res.optimized), want)
+    np.testing.assert_array_equal(res.eliminated, elim)
+
+
 def test_sample_end_to_end_and_checkpoint(tmp_path):
     """`sample()` with a GGM, saved, loaded and resumed bit for bit."""
     tm = TG(two_state_spec(TG), **CPU)
