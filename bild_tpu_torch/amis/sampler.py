@@ -413,6 +413,17 @@ class FixedkSampler:
     Parameters as `bild_tpu.amis.FixedkSampler`; ``generator`` is the
     `torch.Generator` (on the trajectory's device) all draws come from,
     seeded from numpy's global RNG if omitted.
+
+    The sampler runs on the trajectory's device and in its dtype. A model
+    with ``lockstep_fns_single`` (every built-in) is scored through it;
+    any other model needs only ``nStates``, ``transitions`` and
+    ``logL_batch(profiles, traj)``, which receives an int tensor ``(P, T)``
+    on the trajectory's device and may return anything `torch.as_tensor`
+    takes (a tensor on any device, a numpy array, a list) of ``P``
+    log-likelihoods; the AMIS steps convert it to the trajectory's device
+    and dtype, exhaustive enumeration to float64 on the host.
+    ``device`` and ``dtype`` attributes on the model are optional: `sample`
+    reads them to place the trajectory (default: the GPU, float32).
     """
 
     class ExhaustionImpractical(ValueError):
@@ -516,6 +527,21 @@ class FixedkSampler:
         """The sampler's `AmisState`, without the lane axis (views)."""
         return self._lane._map(lambda x: x[0])
 
+    def _as_logLs(self, x):
+        """A model's likelihoods as a ``(P,)`` tensor on the sampler's
+        device and in its dtype, whatever array-like the model returned."""
+        return torch.as_tensor(x, dtype=self.dtype,
+                               device=self.device).reshape(-1)
+
+    @staticmethod
+    def _host_logLs(x):
+        """A model's likelihoods as a float64 numpy ``(P,)`` array, in the
+        precision the model computed them (as `bild_tpu`'s exhaustive
+        enumeration converts with ``np.asarray(..., dtype=float)``)."""
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().numpy()
+        return np.asarray(x, dtype=float).reshape(-1)
+
     def _tensor(self, x, dtype=None):
         return torch.as_tensor(np.asarray(x), dtype=dtype or self.dtype,
                                device=self.device)
@@ -547,7 +573,7 @@ class FixedkSampler:
         """Batched likelihood of (s, theta) parameter arrays; ``(N,)``."""
         profiles = st2profile(self._tensor(ss), self._tensor(thetas, torch.int32),
                               self.T)
-        return self.model.logL_batch(profiles, self.traj)
+        return self._as_logLs(self.model.logL_batch(profiles, self.traj))
 
     # -- exhaustive enumeration ------------------------------------------------
     def fix_exhaustive(self):
@@ -577,7 +603,7 @@ class FixedkSampler:
 
         profiles = st2profile(self._tensor(ss), self._tensor(thetas, torch.int32),
                               self.T)
-        logLs = self._logL(profiles).cpu().numpy().astype(float)
+        logLs = self._host_logLs(self._logL(profiles))
 
         # exact evidence: mean over the uniform prior ensemble
         max_logL = np.max(logLs)
@@ -622,7 +648,7 @@ class FixedkSampler:
             ss, thetas, profiles = _propose_lanes(
                 self._lane, self.generator, self._transitions, self.N, self.T,
                 self._lane_active, None, False)
-            logLs = self._logL(profiles[0]).to(self.dtype)
+            logLs = self._as_logLs(self._logL(profiles[0]))
             self._lane, out = _update_lanes(
                 self._lane, ss, thetas, logLs[None], self._transitions,
                 self.logprior, cb, pb, 1000, self._lane_active, False)

@@ -4,6 +4,17 @@ Model interface (counterpart of `bild_tpu.models.base`).
 Inference evaluates likelihoods for a *batch* of profiles in one call
 (`logL_batch`); models should override it with a vectorized version, the
 base one is a host loop over `logL`.
+
+A model written by the user need not derive from `MultiStateModel`:
+`sample()` and `amis.FixedkSampler` take any object with ``nStates``,
+``transitions`` (bool ``(n, n)``, the allowed switches) and
+``logL_batch(profiles, traj)``. That call receives an int tensor ``(P,
+T)`` on the trajectory's device and may return anything `torch.as_tensor`
+takes (a tensor on either device, a numpy array, a list) holding ``P``
+log-likelihoods; the sampler's AMIS steps convert it to the trajectory's
+device and dtype, its exhaustive enumeration to float64 on the host.
+``device`` and ``dtype`` attributes are optional: `sample()` places
+the trajectory by them and defaults to the GPU and float32.
 """
 from __future__ import annotations
 
