@@ -10,6 +10,7 @@ split over the ranks of a `torch.distributed` process group with
 ``mesh=``, and `parallel.sample_dataset_sharded` for shards held by each
 rank), ``postproc``, ``stats``, ``io`` (CSV loading), ``fit`` (Rouse and
 GGM calibration) and ``util`` (the reference's name for ``profiles``);
+``experimental`` (the temporal-parallel likelihood);
 ``utils`` (result checkpoints) and the CLI ``python -m bild_tpu_torch``
 are imported on use. Every constructor takes an explicit ``device=`` and
 ``dtype=``; every random draw comes from an explicit `torch.Generator`.
@@ -31,6 +32,7 @@ from . import parallel  # noqa: F401
 from . import postproc  # noqa: F401
 from . import stats  # noqa: F401
 from . import fit  # noqa: F401
+from . import experimental  # noqa: F401
 from .infer import sample, SamplingResults  # noqa: F401
 from .infer.choice import ChoiceSampler  # noqa: F401
 

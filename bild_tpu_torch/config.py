@@ -12,10 +12,12 @@ the CPU always takes the plain path (`ops.kalman.msrouse_logL_batch`).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 __all__ = ["KERNELS", "DEFAULT_DEVICE", "resolve_device", "rouse_kernel",
-           "set_rouse_kernel", "exact_fp32"]
+           "set_rouse_kernel", "exact_fp32", "full_fp32"]
 
 # where models live unless the caller says otherwise
 DEFAULT_DEVICE = "cuda"
@@ -59,3 +61,17 @@ def exact_fp32() -> None:
     Call it before timing or comparing the plain versions on a GPU."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """Matrix products in full float32 inside the block, whatever the
+    global TF32 setting (`bild_tpu`'s ``default_matmul_precision("highest")``
+    around its square-root and temporal-parallel filters); the setting is
+    restored on exit."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -18,6 +18,7 @@ import torch
 from ..config import DEFAULT_DEVICE, resolve_device, rouse_kernel
 from ..ops.kalman import msrouse_logL_batch
 from ..ops.kalman_dense import msrouse_logL_dense
+from ..ops.kalman_sqrt import psd_factor
 from ..ops.kalman_sym import SymOperators, msrouse_logL_sym
 from ..physics.rouse import RouseModel
 from ..profiles import Loopingprofile
@@ -27,13 +28,6 @@ from .base import MultiStateModel
 __all__ = ["MultiStateRouse"]
 
 _ARRAYS = ("Bs", "Gs", "Sigs", "M0s", "C0s", "L_sigs", "L_sss", "w")
-
-
-def _psd_factor(C):
-    """``L`` with ``L @ L.T = C`` for a PSD ``C`` with null modes (the
-    steady state pins free modes to zero variance, so no Cholesky)."""
-    lam, V = np.linalg.eigh(C)
-    return V * np.sqrt(np.clip(lam, 0.0, None))[None, :]
 
 
 class MultiStateRouse(MultiStateModel):
@@ -104,7 +98,7 @@ class MultiStateRouse(MultiStateModel):
         host = {k: np.array(v, dtype=np.float64) for k, v in dict(
             Bs=Bs, Gs=Gs, Sigs=Sigs, M0s=M0s, C0s=C0s, L_sigs=L_sigs,
             w=w).items()}
-        host["L_sss"] = np.stack([_psd_factor(C) for C in host["C0s"]])
+        host["L_sss"] = psd_factor(host["C0s"])
         self._setup(host, host["Gs"].shape[2], localization_error,
                     np.asarray(transitions, dtype=bool), device, dtype)
         self.models = None
@@ -200,6 +194,32 @@ class MultiStateRouse(MultiStateModel):
         """
         _, fn = self.lockstep_fns_single(traj)
         return fn(profiles, (traj.data, traj.valid))
+
+    def logL_batch_assoc(self, profiles, traj, mesh=None, time_axis="time"):
+        """
+        ``(P,)`` log-likelihoods through the temporal-parallel
+        associative-scan filter (`experimental.assoc_kalman`), on the
+        model's device: an explicit opt-in that no default path takes.
+        With a ``mesh`` (`parallel.make_mesh((W,), axis_names=("time",),
+        ...)`) every rank passes the whole trajectory and scans its own
+        block of T/W frames (W must divide T), and every rank returns the
+        whole result.
+
+        On one H100 the sequential kernels win wherever a profile batch
+        exists; this filter wins only for a single profile of a long
+        trajectory (T of ten thousand frames and more), where the kernels'
+        frame loop is latency-bound (the crossover grid of chip_smoke.py's
+        assoc phase, in PERF.md).
+        """
+        from ..experimental.assoc_kalman import msrouse_logL_assoc_batch
+
+        s2, Cind = self._noise_arrays(traj)
+        profiles = torch.as_tensor(profiles, dtype=torch.int32,
+                                   device=self.device)
+        return msrouse_logL_assoc_batch(
+            self.Bs, self.Gs, self.Sigs, self.M0s, self.C0s, self.w, s2, Cind,
+            profiles, traj.data.to(self.device, self.dtype),
+            traj.valid.to(self.device), mesh=mesh, time_axis=time_axis)
 
     def lockstep_fns_single(self, traj, max_intervals=None):
         """``(per_traj, logL_fn)`` for the AMIS loop: ``logL_fn(profiles,

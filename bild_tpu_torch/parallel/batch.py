@@ -45,7 +45,7 @@ from ..models.base import tensor_token
 from ..profiles import st2profile
 from ..trajectory import Trajectory
 from .mesh import (broadcast_from_process0, checkpoint_hit, fetch_to_host,
-                   is_multiprocess)
+                   is_multiprocess, require_data_axis)
 
 __all__ = ["TrajectoryBatch", "BatchResults", "stack_trajectories",
            "bucket_trajectories", "pad_batch_rows", "sample_batch",
@@ -536,6 +536,7 @@ def sample_batch(model, batch: TrajectoryBatch,
     (``batch.lengths``) gate the evidence: k at or beyond a trajectory's
     own frame count gets -inf.
     """
+    require_data_axis(mesh)
     multiproc = mesh is not None and is_multiprocess(mesh)
     device = getattr(model, "device", batch.data.device)
     dtype = getattr(model, "dtype", batch.data.dtype)

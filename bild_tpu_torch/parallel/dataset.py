@@ -32,7 +32,7 @@ from ..lanes import mix_int
 from .batch import (TrajectoryBatch, _prepare_batch, bucket_trajectories,
                     sample_batch)
 from .mesh import (broadcast_from_process0, checkpoint_hit, fetch_to_host,
-                   is_multiprocess)
+                   is_multiprocess, require_data_axis)
 
 __all__ = ["DatasetResults", "sample_dataset"]
 
@@ -161,6 +161,7 @@ def sample_dataset(model, trajs: Sequence,
     if schedule not in ("lockstep", "adaptive"):
         raise ValueError(f"schedule must be 'lockstep' or 'adaptive', "
                          f"got {schedule!r}")
+    require_data_axis(mesh)
     if schedule == "adaptive" and mesh is not None:
         raise ValueError("schedule='adaptive' does not support a mesh yet "
                          "(per-trajectory decisions are single-process)")

@@ -10,8 +10,10 @@ drives one GPU: `bild_tpu`'s one-process mesh over several chips has no
 counterpart. Each rank computes only the rows it owns (`shard_batch`,
 `feed_process_local`), and the small per-row results are all-gathered
 (`fetch_to_host`), so that every rank holds the full result, as in
-`bild_tpu`. Only the ``data`` axis is sharded: nothing in `bild_tpu`
-shards over its second axis ``prof``, and here it must have size 1.
+`bild_tpu`. One axis is sharded: ``data`` (the rows of a batch, for the
+dataset runners) or, on a mesh without ``data``, ``time`` (the frames of
+a trajectory, for `MultiStateRouse.logL_batch_assoc`). Nothing in
+`bild_tpu` shards over its axis ``prof``, and here it must have size 1.
 
 Collectives move raw bytes of fixed-shape arrays, never pickled objects:
 float64 bits, ``-inf`` and ``NaN`` arrive unchanged.
@@ -32,16 +34,18 @@ from ..config import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["Mesh", "make_mesh", "shard_batch", "initialize_distributed",
            "is_multiprocess", "fetch_to_host", "broadcast_from_process0",
-           "feed_process_local"]
+           "feed_process_local", "require_data_axis", "all_gather_tensor",
+           "all_reduce_sum"]
 
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
 
 
 @dataclasses.dataclass
 class Mesh:
-    """A process group over which a batch's rows are split: rank
-    ``ranks[i]`` owns the i-th contiguous block of rows. ``shape`` is
-    ``{"data": D}`` or ``{"data": D, "prof": 1}``; ``rank`` is this
+    """A process group over which a batch's rows (or a trajectory's
+    frames) are split: rank ``ranks[i]`` owns the i-th contiguous block.
+    ``shape`` is ``{"data": D}``, ``{"data": D, "prof": 1}`` or ``{"time":
+    W}``; ``rank`` is this
     process's global rank and ``device`` the device it computes on;
     ``group`` is the process group (None: the default group, or none at
     all for one rank) and ``backend`` its backend."""
@@ -120,8 +124,11 @@ def make_mesh(shape=None, axis_names=("data", "prof"), devices=None,
     the GPU of its local rank (``LOCAL_RANK``, else its rank, modulo the
     GPUs of the host; raises without a GPU), ``"cpu"`` for the CPU (as
     the tests run), or an explicit device. ``backend=None`` picks ``nccl``
-    when every rank has a GPU of its own and ``gloo`` otherwise. Every
-    axis but ``data`` must have size 1 (``ValueError`` otherwise).
+    when every rank has a GPU of its own and ``gloo`` otherwise. The
+    sharded axis is ``data``, or ``time`` on a mesh without ``data``
+    (``make_mesh((W,), axis_names=("time",))``, for
+    `MultiStateRouse.logL_batch_assoc`); every other axis must have size 1
+    (``ValueError`` otherwise).
     """
     device = resolve_device(DEFAULT_DEVICE if devices is None else devices)
     if distributed:
@@ -148,16 +155,18 @@ def make_mesh(shape=None, axis_names=("data", "prof"), devices=None,
         raise ValueError(f"mesh shape {shape} does not match axis names "
                          f"{axis_names}")
     sizes = dict(zip(axis_names, shape))
-    if "data" not in sizes:
-        raise ValueError(f"a mesh needs a 'data' axis, got {axis_names}")
-    wide = {a: s for a, s in sizes.items() if a != "data" and s != 1}
+    axis = next((a for a in ("data", "time") if a in sizes), None)
+    if axis is None:
+        raise ValueError(f"a mesh needs a 'data' axis (or a 'time' axis), "
+                         f"got {axis_names}")
+    wide = {a: s for a, s in sizes.items() if a != axis and s != 1}
     if wide:
-        raise ValueError(f"only the 'data' axis is sharded; axes {wide} "
+        raise ValueError(f"only the '{axis}' axis is sharded; axes {wide} "
                          "must have size 1")
-    if sizes["data"] > world:
-        raise ValueError(f"mesh shape {shape} needs {sizes['data']} devices; "
+    if sizes[axis] > world:
+        raise ValueError(f"mesh shape {shape} needs {sizes[axis]} devices; "
                          f"only {world} available (one rank per GPU)")
-    ranks = tuple(range(sizes["data"]))
+    ranks = tuple(range(sizes[axis]))
     group = None
     if distributed and len(ranks) < world:
         group = dist.new_group(list(ranks))      # every rank must call it
@@ -167,6 +176,15 @@ def make_mesh(shape=None, axis_names=("data", "prof"), devices=None,
 def is_multiprocess(mesh: Mesh) -> bool:
     """True iff the mesh spans more than one rank."""
     return len(mesh.ranks) > 1
+
+
+def require_data_axis(mesh: Mesh | None) -> None:
+    """Raise ``ValueError`` unless ``mesh`` is None or has a ``data`` axis:
+    the dataset runners split rows, not frames."""
+    if mesh is not None and "data" not in mesh.shape:
+        raise ValueError(f"the dataset runners need a mesh with a 'data' "
+                         f"axis, got axes {tuple(mesh.shape)} (a 'time' mesh "
+                         "serves MultiStateRouse.logL_batch_assoc)")
 
 
 def _tree_map(fn, tree):
@@ -247,6 +265,28 @@ def _comm_device(backend, device):
         return device if device.type == "cuda" else torch.device(
             "cuda", torch.cuda.current_device())
     return torch.device("cpu")
+
+
+def all_gather_tensor(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``(ranks, *x.shape)``: every rank's ``x`` (the same shape on every
+    rank) in mesh order, on ``x``'s device. One collective over the mesh's
+    group; with one rank, ``x[None]``."""
+    if not is_multiprocess(mesh):
+        return x[None]
+    t = x.contiguous().to(_comm_device(mesh.backend, mesh.device))
+    parts = [torch.empty_like(t) for _ in mesh.ranks]
+    dist.all_gather(parts, t, group=mesh.group)
+    return torch.stack(parts).to(x.device)
+
+
+def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum of every rank's ``x`` on every rank, on ``x``'s device;
+    ``x`` itself is left as it was. With one rank, ``x``."""
+    if not is_multiprocess(mesh):
+        return x
+    t = x.to(_comm_device(mesh.backend, mesh.device), copy=True)
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group)
+    return t.to(x.device)
 
 
 def fetch_to_host(x, mesh: Mesh | None = None):

@@ -37,7 +37,8 @@ from .batch import (TrajectoryBatch, _informed_proposals_all_k_impl,
                     sample_batch)
 from .dataset import DatasetResults
 from .mesh import (broadcast_from_process0, checkpoint_hit, feed_process_local,
-                   fetch_to_host, is_multiprocess, world_mesh)
+                   fetch_to_host, is_multiprocess, require_data_axis,
+                   world_mesh)
 
 __all__ = ["sample_dataset_sharded"]
 
@@ -181,6 +182,7 @@ def sample_dataset_sharded(model, local_trajs: Sequence, local_ids,
     configuration, every rank's data digest and the chunk's rows.
     """
     local_ids = np.asarray(local_ids, dtype=np.int64)
+    require_data_axis(mesh)
     multiproc = mesh is not None and is_multiprocess(mesh)
     if mesh is not None:
         D = mesh.shape["data"]

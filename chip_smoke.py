@@ -51,6 +51,18 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    centered nats printed beside bild_tpu's TPU numbers (BASELINE.md), four
    profiles per shape against the numpy float64 oracle; rtol 2e-5 at T=100
    and 300, `F32_CENTERED_NATS_T1000` where T=1000 misses it.
+6c. Tiers phase: tools/parity_tiers.py's configuration (N=20, d=3, T=100,
+   two states, 64 random profiles): sym, dense and the plain recursion in
+   float32, the square-root filter (`ops.kalman_sqrt`) and the
+   temporal-parallel filter (`experimental.assoc_kalman`) in float32 and
+   float64, each against the numpy float64 oracle with its profiles per
+   second (CUDA events), beside bild_tpu's TPU readings
+   (PARITY_TIERS_r04.json); batched QR times at the filter's shapes; then
+   the square-root filter at the ladder's T=1000 rung, float32 against its
+   float64 run, beside both kernels' drift there. Bars: float64 within
+   1e-9 of the oracle (of the dense float64 build at T=1000), sqrt float32
+   within 1e-6 of the oracle at T=100 and within 0.11 centered nats per
+   family at T=1000.
 7. Dataset phase (bench_e2e.py config 3): 128 trajectories of T=100 made by
    the port's batched generator, `parallel.sample_dataset` with informed
    init, the scout/refine schedule, marginals, the boundary climb and chunk
@@ -127,6 +139,15 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    the concatenated CSV bit for bit and meet the dataset bars; rank 0
    alone wrote checkpoint files; every process launched the kernel. No
    run on two GPUs: one card serves both processes.
+14. Assoc phase: `MultiStateRouse.logL_batch_assoc` and its filter on the
+   card. tools/assoc_crossover.py's grid (T = 1024, 4096, 16384 x P = 1, 8,
+   and T=1024 x P=64; N=20, d=3): the filter, sym, dense and the plain
+   recursion in float32 on the same profiles, ms per call and the filter's
+   peak device memory; float64 within 1e-8 of the dense kernel's float64
+   build at T=1024 and 8192 with missing frames; a one-rank NCCL ``time``
+   mesh within 1e-12 of ``mesh=None``; two processes sharing the card over
+   gloo, frames split in two, within 1e-10 of one process (T=8192,
+   float64).
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results, and as the last line ``{"ok": true, "device": {...}}``. Any
@@ -673,12 +694,36 @@ LADDER_PROFILES = 64
 LADDER_ORACLE = 4
 
 
+def ladder_case(bt, Tl, n):
+    """One rung of `LADDER`: the float32 and float64 models (N=20, d=3; n
+    states), one trajectory drawn on the card with a loop over the middle
+    third (as tools/parity_ladder.py draws it) and three profile families
+    (64 every-frame random, 64 segment profiles with 0-6 switches, the n
+    constant ones). Returns ``(models, traj, families, prof, fam_of)``:
+    ``prof`` the families stacked (int32), ``fam_of`` each row's family."""
+    loops = THREE_STATES if n == 3 else (None, (0, -1))
+    rng = np.random.default_rng(2)
+    models = {dtype: bt.models.MultiStateRouse(
+        N, D, KSPRING, d=DIM, looppositions=loops, localization_error=0.1,
+        device=DEVICE, dtype=dtype) for dtype in (torch.float32, torch.float64)}
+    truth = np.zeros(Tl, dtype=int)
+    truth[3 * Tl // 10: 6 * Tl // 10] = 1
+    traj = models[torch.float32].trajectory_from_loopingprofile(
+        truth, generator=torch.Generator(device=DEVICE).manual_seed(42))
+    families = {
+        "random": rng.integers(0, n, size=(LADDER_PROFILES, Tl)),
+        "segment": truth_profiles(rng, LADDER_PROFILES, Tl, n, k_max=6),
+        "constant": np.repeat(np.arange(n)[:, None], Tl, axis=1),
+    }
+    prof = np.concatenate(list(families.values())).astype(np.int32)
+    fam_of = np.repeat(np.arange(3), [len(f) for f in families.values()])
+    return models, traj, families, prof, fam_of
+
+
 def ladder_phase(bt):
     """The parity ladder: both float32 kernels against their own float64
-    build on one trajectory per shape of `LADDER` (N=20, d=3; a loop over
-    the middle third, as tools/parity_ladder.py draws it), in three
-    profile families (64 every-frame random, 64 segment profiles with 0-6
-    switches, and the n constant ones), as one single-lane launch. Prints
+    build on one trajectory per shape of `LADDER` (`ladder_case`), in three
+    profile families, as one single-lane launch. Prints
     the max relative error, the max absolute nats and the max centered nats
     (each profile's error minus the mean error: over the whole shape, and
     over each family as bild_tpu's ladder centers) beside bild_tpu's TPU
@@ -686,29 +731,15 @@ def ladder_phase(bt):
     float64 oracle: the float64 build within 1e-9. Bar for float32: rtol
     2e-5, or at T=1000 where it misses that, `F32_CENTERED_NATS_T1000`
     centered per family (as `held`). Returns
-    ``{(name, T): (max rel, max nats, max centered nats)}``."""
+    ``{(name, T): (max rel, max nats, max centered nats, centered nats per
+    family)}``."""
     from bild_tpu_torch.ops.kalman_dense import msrouse_logL_dense
     from bild_tpu_torch.ops.kalman_sym import msrouse_logL_sym
     from bild_tpu_torch.ops.oracle import msrouse_logL_numpy
 
     out = {}
     for Tl, n, tpu in LADDER:
-        loops = THREE_STATES if n == 3 else (None, (0, -1))
-        rng = np.random.default_rng(2)
-        models = {dtype: bt.models.MultiStateRouse(
-            N, D, KSPRING, d=DIM, looppositions=loops, localization_error=0.1,
-            device=DEVICE, dtype=dtype) for dtype in (torch.float32, torch.float64)}
-        truth = np.zeros(Tl, dtype=int)
-        truth[3 * Tl // 10: 6 * Tl // 10] = 1
-        traj = models[torch.float32].trajectory_from_loopingprofile(
-            truth, generator=torch.Generator(device=DEVICE).manual_seed(42))
-        families = {
-            "random": rng.integers(0, n, size=(LADDER_PROFILES, Tl)),
-            "segment": truth_profiles(rng, LADDER_PROFILES, Tl, n, k_max=6),
-            "constant": np.repeat(np.arange(n)[:, None], Tl, axis=1),
-        }
-        prof = np.concatenate(list(families.values())).astype(np.int32)
-        fam_of = np.repeat(np.arange(3), [len(f) for f in families.values()])
+        models, traj, families, prof, fam_of = ladder_case(bt, Tl, n)
         prof_t = torch.as_tensor(prof, device=DEVICE)
         vals = {}
         for dtype, model in models.items():
@@ -760,8 +791,158 @@ def ladder_phase(bt):
                       f"{max(cen_fams):.4f}", flush=True)
             else:
                 check(rel <= RTOL_F32, f"{line}: float32 within rtol {RTOL_F32}")
-            out[(name, Tl)] = (rel, nats, cen)
+            out[(name, Tl)] = (rel, nats, cen, cen_fams)
     return out
+
+
+# tools/parity_tiers.py's configuration (N=20, d=3, T=100, two states, a
+# loop at frames 30-60 and 75-90, 64 every-frame random profiles), and
+# bild_tpu's TPU v5e readings there against the float64 oracle
+# (PARITY_TIERS_r04.json: sym exact, the XLA scan and sqrt, float32): max
+# relative error, profiles per second
+TIERS_T = 100
+TIERS_PROFILES = 64
+TIERS_TPU = {"kalman_sym float32": (2.63e-6, 554802),
+             "plain float32": (4.60e-6, 123469),
+             "sqrt float32": (4.88e-6, 20970)}
+# bars: float64 on the card against the oracle (the kernels' float64
+# builds are held to RTOL_F64 too); sqrt float32 against the oracle at
+# T=100, bild_tpu's test_sqrt_f32_meets_north_star
+RTOL_SQRT_F32 = 1e-6
+# sqrt float32 against its float64 run at the ladder's T=1000 rung, in
+# centered nats per profile family: bild_tpu's 0.11 (BASELINE.md:59-67),
+# set before any run on the card from a CPU rehearsal of the port (float32
+# against float64 at that rung) that read at most 0.010
+SQRT_CENTERED_T1000 = 0.11
+
+
+def tiers_phase(bt, ladder):
+    """The parity tiers on the card: at `TIERS_T` (tools/parity_tiers.py's
+    configuration) the sym and dense kernels, the plain recursion, the
+    square-root filter and the temporal-parallel filter, in float32 and
+    (the new filters) float64, each against the numpy float64 oracle and
+    timed with CUDA events (profiles per second), beside bild_tpu's TPU
+    readings. Then the square-root filter at the ladder's T=1000 rung
+    (`ladder_case`: the same trajectory and profile families), float32
+    against its float64 run, beside the kernels' drift from ``ladder``
+    (`ladder_phase`'s result). Bars: float64 within `RTOL_F64` of the
+    oracle (T=100) and of the dense kernel's float64 build (T=1000); sqrt
+    float32 within `RTOL_SQRT_F32` of the oracle at T=100 and within
+    `SQRT_CENTERED_T1000` centered nats per family at T=1000. Returns the
+    kernels' launches in the evaluations (not the timing loops)."""
+    from bild_tpu_torch.experimental.assoc_kalman import msrouse_logL_assoc_batch
+    from bild_tpu_torch.ops.kalman import msrouse_logL_batch
+    from bild_tpu_torch.ops.kalman_dense import msrouse_logL_dense
+    from bild_tpu_torch.ops.kalman_sqrt import msrouse_logL_sqrt
+    from bild_tpu_torch.ops.kalman_sym import msrouse_logL_sym
+    from bild_tpu_torch.ops.oracle import msrouse_logL_numpy
+
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    models = {dtype: bt.models.MultiStateRouse(
+        N, D, KSPRING, d=DIM, localization_error=0.1, device=DEVICE,
+        dtype=dtype) for dtype in (f32, f64)}
+    truth = np.zeros(TIERS_T, dtype=int)
+    truth[30:60] = 1
+    truth[75:90] = 1
+    traj = models[f32].trajectory_from_loopingprofile(
+        truth, generator=torch.Generator(device=DEVICE).manual_seed(42))
+    prof = np.random.default_rng(2).integers(
+        0, 2, size=(TIERS_PROFILES, TIERS_T)).astype(np.int32)
+    h = models[f64].host
+    noise = np.asarray(models[f64]._get_noise(traj))
+    oracle = np.array([msrouse_logL_numpy(
+        h["Bs"], h["Gs"], h["Sigs"], h["M0s"], h["C0s"], h["w"], noise, p,
+        traj[:]) for p in prof])
+
+    def args(models, traj, prof, dtype):
+        m = models[dtype]
+        s2, Cind = m._noise_arrays(traj)
+        return (m.Bs, m.Gs, m.Sigs, m.M0s, m.C0s, m.w, s2, Cind,
+                torch.as_tensor(prof, device=DEVICE), traj.data.to(dtype),
+                traj.valid)
+
+    a32, a64 = args(models, traj, prof, f32), args(models, traj, prof, f64)
+    ops32 = models[f32].sym_operators()
+    tiers = {                                  # label: (function, reps)
+        "kalman_sym float32": (lambda: msrouse_logL_sym(*a32, ops=ops32), 20),
+        "kalman_dense float32": (lambda: msrouse_logL_dense(*a32), 20),
+        "plain float32": (lambda: msrouse_logL_batch(*a32), 3),
+        "sqrt float32": (lambda: msrouse_logL_sqrt(*a32), 3),
+        "sqrt float64": (lambda: msrouse_logL_sqrt(*a64), 3),
+        "assoc float32": (lambda: msrouse_logL_assoc_batch(*a32), 3),
+        "assoc float64": (lambda: msrouse_logL_assoc_batch(*a64), 3),
+    }
+
+    # the T=1000 rung
+    models3, traj3, families, prof3, fam_of = ladder_case(bt, 1000, 3)
+    b32, b64 = (args(models3, traj3, prof3, dt) for dt in (f32, f64))
+
+    reset_counts()
+    vals = {label: fn() for label, (fn, _) in tiers.items()}
+    t0 = time.perf_counter()
+    sq32 = msrouse_logL_sqrt(*b32)
+    torch.cuda.synchronize()
+    wall32 = time.perf_counter() - t0
+    sq64 = msrouse_logL_sqrt(*b64)
+    dense64 = msrouse_logL_dense(*b64)
+    torch.cuda.synchronize()
+    launches = read_counts()
+
+    for label, (fn, reps) in tiers.items():
+        got = vals[label].cpu().numpy().astype(float)
+        check(got.shape == oracle.shape and np.all(np.isfinite(got)),
+              f"tier {label}: finite, {oracle.shape}")
+        err = rel_err(got, oracle)
+        ms = time_ms(fn, reps)
+        tpu = TIERS_TPU.get(label)
+        tpu = ("" if tpu is None else f"; bild_tpu on a TPU v5e: {tpu[0]:.2e}, "
+               f"{tpu[1]:.0f} profiles/s")
+        print(f"tier {label:20s} N={N} T={TIERS_T} P={TIERS_PROFILES}: max rel "
+              f"{err:.2e} against the float64 oracle, {ms:.3f} ms "
+              f"({TIERS_PROFILES / ms * 1e3:.1f} profiles/s){tpu}", flush=True)
+        if label.endswith("float64"):
+            check(err <= RTOL_F64, f"tier {label}: within {RTOL_F64} of the oracle")
+        if label == "sqrt float32":
+            check(err <= RTOL_SQRT_F32,
+                  f"tier {label}: within {RTOL_SQRT_F32} of the oracle")
+    for shape in ((2 * N, N), (N + 1, N + 1)):
+        qr = []
+        for B in (1, TIERS_PROFILES, len(prof3)):
+            A = torch.randn(B, *shape, device=DEVICE)
+            qr.append(time_ms(lambda: torch.linalg.qr(A, mode="r"), 20))
+        print(f"tier torch.linalg.qr float32 {shape}: batches 1 / "
+              f"{TIERS_PROFILES} / {len(prof3)} take {qr[0]:.4f} / {qr[1]:.4f} "
+              f"/ {qr[2]:.4f} ms", flush=True)
+
+    sq32, sq64 = (x.cpu().numpy().astype(float) for x in (sq32, sq64))
+    dense64 = dense64.cpu().numpy().astype(float)
+    check(np.all(np.isfinite(sq32)) and np.all(np.isfinite(sq64)),
+          "sqrt at T=1000: finite")
+    e64 = rel_err(sq64, dense64)
+    err = sq32 - sq64
+    rel = float(np.max(np.abs(err / sq64)))
+    cen_fams = [centered_nats(err[fam_of == i], fam_of[fam_of == i])
+                for i in range(3)]
+    kern = "; ".join(
+        f"{name} {ladder[(name, 1000)][0]:.2e}, {ladder[(name, 1000)][1]:.4f} "
+        f"nats, {' / '.join(f'{c:.4f}' for c in ladder[(name, 1000)][3])}"
+        for name in ("kalman_sym", "kalman_dense"))
+    line = (f"tier sqrt T=1000 n=3 ({len(prof3)} profiles, {wall32:.3f} s in "
+            f"float32): float32 against its float64 run: max rel {rel:.2e}, max "
+            f"{np.max(np.abs(err)):.4f} nats, mean {err.mean():.4f} nats, "
+            f"centered {' / '.join(f'{c:.4f}' for c in cen_fams)} nats within "
+            f"the {' / '.join(families)} family; float64 run against the dense "
+            f"kernel's float64 build {e64:.2e}; the kernels' float32 against "
+            f"their float64 build on the same profiles (ladder): {kern}; "
+            f"bild_tpu's sym on a TPU v5e: {BILD_TPU_CENTERED_T1000} centered")
+    print(line, flush=True)
+    check(e64 <= RTOL_F64, f"{line}: float64 run within {RTOL_F64} of dense's")
+    check(max(cen_fams) <= SQRT_CENTERED_T1000,
+          f"{line}: float32 within {SQRT_CENTERED_T1000} centered nats per family")
+    print(f"tiers phase: {time.perf_counter() - t_phase:.1f} s, launches "
+          f"{launches}", flush=True)
+    return launches
 
 
 # the largest chains the dense kernel takes, its operators then in global
@@ -2058,6 +2239,205 @@ def mesh_phase(bt, work):
             for k in ("kalman_sym", "kalman_dense")}
 
 
+# tools/assoc_crossover.py's grid, on one card: (T, P) cells, bild_tpu's
+# model (N=20, d=3, two states), data from numpy normal draws
+ASSOC_GRID = ((1024, 1), (1024, 8), (1024, 64), (4096, 1), (4096, 8),
+              (16384, 1), (16384, 8))
+# float64 against the dense kernel's float64 build: (T, missing frames)
+ASSOC_CHECKS = ((1024, 30), (8192, 200))
+RTOL_ASSOC_DENSE = 1e-8
+# the time meshes: T, profiles; a one-rank NCCL world against mesh=None,
+# two gloo processes on the card against one process
+ASSOC_MESH_T, ASSOC_MESH_P = 8192, 2
+RTOL_ASSOC_ONE_RANK = 1e-12
+RTOL_ASSOC_TWO_RANKS = 1e-10
+
+# one rank of `assoc_phase`'s two-process time mesh: joins a two-rank
+# world (gloo: both ranks share the card), evaluates `assoc_case`'s
+# profiles over the mesh and saves the result to argv[3]
+ASSOC_RUNNER = """
+import datetime, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+import bild_tpu_torch as bt
+import chip_smoke
+port, rank, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+mesh = bt.parallel.make_mesh((2,), axis_names=("time",), distributed=True,
+                             coordinator_address=f"127.0.0.1:{port}",
+                             num_processes=2, process_id=rank,
+                             timeout=datetime.timedelta(seconds=120))
+model, traj, prof = chip_smoke.assoc_case(
+    bt, chip_smoke.ASSOC_MESH_T, 200, chip_smoke.ASSOC_MESH_P, torch.float64)
+got = model.logL_batch_assoc(prof, traj, mesh=mesh)
+np.savez(out, got=got.cpu().numpy(), backend=mesh.backend,
+         device=got.device.type, shape=str(mesh.shape))
+dist.destroy_process_group()
+"""
+
+
+def assoc_case(bt, T, missing, P, dtype, seed=7):
+    """bild_tpu's crossover model on the card, a ``(T, 3)`` trajectory of
+    numpy normal draws with ``missing`` frames missing (frame 0 among them
+    when ``missing`` > 0), and ``(P, T)`` random two-state profiles."""
+    model = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
+                                      localization_error=0.1, device=DEVICE,
+                                      dtype=dtype)
+    rng = np.random.default_rng(seed)
+    data = rng.normal(size=(T, DIM))
+    if missing:
+        data[0] = np.nan
+        data[rng.choice(np.arange(1, T), size=missing - 1, replace=False)] = np.nan
+    traj = bt.Trajectory.create(data, device=DEVICE, dtype=dtype)
+    return model, traj, rng.integers(0, 2, size=(P, T)).astype(np.int32)
+
+
+def assoc_phase(bt, work):
+    """The temporal-parallel filter on the card: the crossover grid
+    `ASSOC_GRID` (assoc, sym, dense and the plain recursion in float32 on
+    the same profiles: ms per call with CUDA events, three calls after a
+    warm-up, the plain recursion's one call; and the filter's peak device
+    memory above its inputs), float64 against the dense kernel's float64 build at
+    `ASSOC_CHECKS`, a one-rank NCCL ``time`` mesh against ``mesh=None``, and
+    two gloo processes sharing the card (`ASSOC_RUNNER`) against one
+    process. Returns the kernels' launches in the evaluations (not the
+    timing loops)."""
+    import torch.distributed as dist
+    from bild_tpu_torch.experimental.assoc_kalman import msrouse_logL_assoc_batch
+    from bild_tpu_torch.ops.kalman import msrouse_logL_batch
+    from bild_tpu_torch.ops.kalman_dense import msrouse_logL_dense
+    from bild_tpu_torch.ops.kalman_sym import msrouse_logL_sym
+    from bild_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def counted(fns):
+        """Each function once, its kernels' launches summed into
+        ``launches``; the results on the host."""
+        reset_counts()
+        out = {k: fn() for k, fn in fns.items()}
+        torch.cuda.synchronize()
+        for k, v in read_counts().items():
+            launches[k] = launches.get(k, 0) + v
+        return {k: v.cpu().numpy().astype(float) for k, v in out.items()}
+
+    def args(model, traj, prof):
+        s2, Cind = model._noise_arrays(traj)
+        return (model.Bs, model.Gs, model.Sigs, model.M0s, model.C0s, model.w,
+                s2, Cind, torch.as_tensor(prof, device=DEVICE), traj.data,
+                traj.valid)
+
+    for T, P in ASSOC_GRID:
+        model, traj, prof = assoc_case(bt, T, 0, P, torch.float32)
+        a = args(model, traj, prof)
+        ops = model.sym_operators()
+        fns = {"assoc": lambda: msrouse_logL_assoc_batch(*a),
+               "kalman_sym": lambda: msrouse_logL_sym(*a, ops=ops),
+               "kalman_dense": lambda: msrouse_logL_dense(*a),
+               "plain": lambda: msrouse_logL_batch(*a)}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        vals = counted({"assoc": fns["assoc"]})
+        peak = torch.cuda.max_memory_allocated() - base
+        # the plain recursion (seconds at T=16384) is timed on its one
+        # evaluation: a frame loop of thousands of launches needs no warm-up
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+        def plain():
+            start.record()
+            out = fns["plain"]()
+            stop.record()
+            return out
+
+        vals.update(counted({"kalman_sym": fns["kalman_sym"],
+                             "kalman_dense": fns["kalman_dense"],
+                             "plain": plain}))
+        check(all(np.all(np.isfinite(v)) for v in vals.values()),
+              f"assoc grid T={T} P={P}: finite")
+        ms = {k: time_ms(fns[k], 3) for k in ("assoc", "kalman_sym", "kalman_dense")}
+        ms["plain"] = start.elapsed_time(stop)
+        print(f"assoc grid T={T:5d} P={P:2d} float32: assoc {ms['assoc']:.3f} ms "
+              f"(peak {peak / 2**30:.3f} GiB above the inputs), sym "
+              f"{ms['kalman_sym']:.3f} ms, dense {ms['kalman_dense']:.3f} ms, "
+              f"plain {ms['plain']:.3f} ms; assoc / dense "
+              f"{ms['assoc'] / ms['kalman_dense']:.1f}x; assoc against dense "
+              f"max rel {rel_err(vals['assoc'], vals['kalman_dense']):.2e}",
+              flush=True)
+
+    for T, missing in ASSOC_CHECKS:
+        model, traj, prof = assoc_case(bt, T, missing, 8, torch.float64)
+        a = args(model, traj, prof)
+        vals = counted({"assoc": lambda: msrouse_logL_assoc_batch(*a),
+                        "dense": lambda: msrouse_logL_dense(*a)})
+        err = rel_err(vals["assoc"], vals["dense"])
+        print(f"assoc float64 T={T} ({missing} frames missing, frame 0 among "
+              f"them), P=8: max rel {err:.2e} against the dense kernel's "
+              f"float64 build", flush=True)
+        check(err <= RTOL_ASSOC_DENSE,
+              f"assoc float64 T={T} within {RTOL_ASSOC_DENSE} of dense")
+
+    # a one-rank NCCL time mesh, and two gloo processes on the card
+    model, traj, prof = assoc_case(bt, ASSOC_MESH_T, 200, ASSOC_MESH_P,
+                                   torch.float64)
+    one = model.logL_batch_assoc(prof, traj).cpu().numpy()
+    mesh = make_mesh((1,), axis_names=("time",), distributed=True,
+                     coordinator_address=f"127.0.0.1:{free_port()}",
+                     num_processes=1, process_id=0,
+                     timeout=datetime.timedelta(seconds=120))
+    try:
+        unit = torch.ones(1, device=mesh.device)
+        dist.all_reduce(unit)
+        got = model.logL_batch_assoc(prof, traj, mesh=mesh)
+        backend = mesh.backend
+    finally:
+        dist.destroy_process_group()
+    check(got.device.type == "cuda", "logL_batch_assoc returns a CUDA tensor")
+    err1 = rel_err(got.cpu().numpy(), one)
+    print(f"assoc one-rank {backend} time mesh {mesh.shape}, T={ASSOC_MESH_T}: "
+          f"max rel {err1:.2e} against mesh=None", flush=True)
+    check(backend == "nccl" and float(unit) == 1.0, "a one-rank NCCL world")
+    check(err1 <= RTOL_ASSOC_ONE_RANK,
+          f"one-rank time mesh within {RTOL_ASSOC_ONE_RANK} of mesh=None")
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.getcwd()] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    port = free_port()
+    outs = [os.path.join(work, f"assoc{r}.npz") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", ASSOC_RUNNER, str(port),
+                               str(r), outs[r]], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        for r, p in enumerate(procs):
+            _, err = p.communicate(timeout=300)
+            check(p.returncode == 0, f"assoc rank {r} exited {p.returncode}: "
+                  f"{err[-2000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    res = [dict(np.load(o)) for o in outs]
+    errs = [rel_err(r["got"], one) for r in res]
+    print(f"assoc two ranks on one card: {wall:.3f} s (process start to exit), "
+          f"backends {[str(r['backend']) for r in res]}, devices "
+          f"{[str(r['device']) for r in res]}, mesh {str(res[0]['shape'])}; max "
+          f"rel against one process {errs[0]:.2e} / {errs[1]:.2e}; ranks "
+          f"equal: {np.array_equal(res[0]['got'], res[1]['got'])}", flush=True)
+    check(all(str(r["backend"]) == "gloo" and str(r["device"]) == "cuda"
+              for r in res), "both ranks on the card over gloo")
+    check(max(errs) <= RTOL_ASSOC_TWO_RANKS,
+          f"two-rank time mesh within {RTOL_ASSOC_TWO_RANKS} of one process")
+    print(f"assoc phase: {time.perf_counter() - t_phase:.1f} s, launches "
+          f"{launches}", flush=True)
+    return launches
+
+
 def time_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -2194,7 +2574,8 @@ def main():
     launches = slice_phase(bt)
     lane_kernel_phase(bt, rng, max_abs)
     lock_times = lockstep_phase(bt, rng, max_abs)
-    ladder_phase(bt)
+    ladder = ladder_phase(bt)
+    tier_launches = tiers_phase(bt, ladder)
     ds_launches = dataset_phase(bt)
     ad_launches = adaptive_phase(bt)
     c4_launches = config4_phase(bt)
@@ -2207,6 +2588,8 @@ def main():
     ggm_phase(bt, rng)
     with tempfile.TemporaryDirectory() as work:
         mesh_launches = mesh_phase(bt, work)
+    with tempfile.TemporaryDirectory() as work:
+        assoc_launches = assoc_phase(bt, work)
 
     replaces = {"kalman_sym": "bild_tpu/ops/kalman_sym.py:189",
                 "kalman_dense": "bild_tpu/ops/kalman_pallas.py:50"}
@@ -2218,8 +2601,10 @@ def main():
     # PyTorch call computes the recursion: library_ms is null. "launches"
     # sums the main-path runs: sample(), the lockstep and adaptive dataset
     # runs, config 4 under both selectors, config 5p, the CLI runs, the
-    # checkpoint phase, the examples and the mesh phase (its own process
-    # and its three CLI processes). The calibration's M-step runs the plain
+    # checkpoint phase, the examples, the mesh phase (its own process
+    # and its three CLI processes), and the tiers and assoc phases (the
+    # kernels beside the square-root and temporal-parallel filters, one
+    # evaluation per shape). The calibration's M-step runs the plain
     # recursion under autograd by design: its calls stand apart, under
     # "calibration_plain_calls".
     shapes = {"lockstep": "one chunk of 128", "adaptive": "adaptive round",
@@ -2232,7 +2617,8 @@ def main():
             "replaces": replaces[name],
             "launches": (launches[name] + cli_counts[name] + ck_launches[name]
                          + mesh_launches[name] + c5_launches[name]
-                         + ex_counts[name]
+                         + ex_counts[name] + tier_launches[name]
+                         + assoc_launches[name]
                          + sum(r[name] for r in ds_launches.values())
                          + sum(r[name] for r in ad_launches.values())
                          + sum(r[name] for r in c4_launches.values())),

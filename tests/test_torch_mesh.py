@@ -1,5 +1,5 @@
 """bild_tpu_torch.parallel.mesh in one process: one-rank meshes, the shape
-rules, `shard_batch`'s blocks against bild_tpu's on the 8-device CPU JAX
+rules, the ``time`` mesh, `shard_batch`'s blocks against bild_tpu's on the 8-device CPU JAX
 mesh (tests/conftest.py), the single-rank identities, and the byte
 transport of `fetch_to_host` through a real one-rank gloo group. The
 two-process runs are in tests/test_torch_distributed.py."""
@@ -10,12 +10,16 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
+from scipy import stats as sp_stats
 
 from bild_tpu.parallel import make_mesh as j_make_mesh
 from bild_tpu.parallel import shard_batch as j_shard_batch
+import bild_tpu_torch as bt
 from bild_tpu_torch.parallel import mesh as tmesh
 from bild_tpu_torch.parallel import (broadcast_from_process0, fetch_to_host,
-                                     is_multiprocess, make_mesh, shard_batch)
+                                     is_multiprocess, make_mesh, sample_batch,
+                                     sample_dataset, sample_dataset_sharded,
+                                     shard_batch, stack_trajectories)
 import test_torch_kalman  # noqa: F401  (one torch thread per worker)
 
 
@@ -40,6 +44,34 @@ def test_shape_rules(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_mesh()                       # the GPU by default, never the CPU
+
+
+def test_time_mesh():
+    """A mesh whose sharded axis is ``time`` (bild_tpu's
+    ``make_mesh((8,), axis_names=("time",))``, for logL_batch_assoc); the
+    dataset runners refuse it."""
+    mesh = make_mesh((1,), axis_names=("time",), devices="cpu")
+    assert mesh.shape == {"time": 1} and mesh.ranks == (0,)
+    assert mesh.index == 0 and mesh.group is None and not is_multiprocess(mesh)
+    assert tuple(j_make_mesh((8,), axis_names=("time",)).axis_names) == ("time",)
+    with pytest.raises(ValueError, match="'prof'"):
+        make_mesh((1, 2), axis_names=("time", "prof"), devices="cpu")
+    with pytest.raises(ValueError, match="only the 'data' axis"):
+        make_mesh((1, 2), axis_names=("data", "time"), devices="cpu")
+    with pytest.raises(ValueError, match="needs 2 devices"):
+        make_mesh((2,), axis_names=("time",), devices="cpu")
+
+    model = bt.models.FactorizedModel([sp_stats.maxwell(scale=0.1),
+                                       sp_stats.maxwell(scale=1)], d=1,
+                                      device="cpu", dtype=torch.float64)
+    trajs = [bt.Trajectory.create(np.random.default_rng(0).normal(size=8),
+                                  dtype=torch.float64)]
+    kw = dict(k_max=1, steps_per_k=2, N=8, mesh=mesh)
+    for run in (lambda: sample_batch(model, stack_trajectories(trajs), **kw),
+                lambda: sample_dataset(model, trajs, **kw),
+                lambda: sample_dataset_sharded(model, trajs, [0], **kw)):
+        with pytest.raises(ValueError, match="need a mesh with a 'data' axis"):
+            run()
 
 
 def test_shard_batch_blocks_match_bild_tpu():

@@ -1,15 +1,16 @@
 """The port's public surface covers bild_tpu's: every public name of
-`bild_tpu` and of `bild_tpu.parallel` exists in `bild_tpu_torch`, apart
-from what ROADMAP.md lists under "Do not port"."""
+`bild_tpu`, `bild_tpu.parallel` and `bild_tpu.experimental` exists in
+`bild_tpu_torch`, apart from what ROADMAP.md lists under "Do not port"
+(no public name since `experimental` was ported)."""
 import pytest
 
 import bild_tpu as bj
 import bild_tpu_torch as bt
 
-DO_NOT_PORT = {"experimental"}      # experimental/assoc_kalman.py
+DO_NOT_PORT = set()
 
 
-@pytest.mark.parametrize("name", ["", "parallel"])
+@pytest.mark.parametrize("name", ["", "parallel", "experimental"])
 def test_public_names_exist_in_the_port(name):
     ref = getattr(bj, name) if name else bj
     port = getattr(bt, name) if name else bt
