@@ -246,6 +246,54 @@ class CFC:
     def n(self):
         return self.transitions.shape[0]
 
+    # -- tensor wrappers: the functions above on this transition matrix,
+    # placed on the device of their first argument
+    def _tr(self, like):
+        return torch.as_tensor(self.transitions, device=like.device)
+
+    def _converged(self, result):
+        logp, converged = result
+        if not bool(torch.all(converged)):
+            raise RuntimeError("Iteration did not converge")
+        return logp
+
+    def sample(self, logp, N=1, generator=None):
+        """``(N, k+1)`` traces from CFC(logp), drawn from ``generator``
+        (where bild_tpu takes a key)."""
+        logp = torch.as_tensor(logp)
+        return cfc_sample(generator, logp, self._tr(logp), N)
+
+    def logpmf(self, logp, thetas):
+        logp = torch.as_tensor(logp)
+        return cfc_logpmf(logp, torch.as_tensor(thetas, device=logp.device),
+                          self._tr(logp))
+
+    def estimate(self, thetas, log_weights):
+        """Method of marginals (`cfc_estimate`); raises if the fixed-point
+        solve does not converge."""
+        thetas = torch.as_tensor(thetas)
+        return self._converged(cfc_estimate(
+            thetas, torch.as_tensor(log_weights, device=thetas.device),
+            self._tr(thetas), self.n, self.MOM_maxiter, self.MOM_precision))
+
+    def logp_from_marginals(self, log_marginals):
+        """Weights reproducing the per-slot marginals ``(n, k+1)``
+        (reference ``bild/amis.py:307-334``); raises if a slot's solve
+        does not converge, like `estimate`."""
+        log_marginals = torch.as_tensor(log_marginals)
+        return self._converged(cfc_logp_from_marginals(
+            log_marginals, self._tr(log_marginals), self.MOM_maxiter,
+            self.MOM_precision))
+
+    def solve_marginals_single(self, logf, logg):
+        """The fixed-point solve of one slot: weights ``(n,)`` from its
+        marginal ``logf`` and the previous slot's ``logg``."""
+        logf = torch.as_tensor(logf)
+        logp, converged = _solve_marginals(
+            logf[None], torch.as_tensor(logg, device=logf.device)[None],
+            self._tr(logf), self.MOM_maxiter, self.MOM_precision)
+        return self._converged((logp[0], converged[0]))
+
     def _T_int(self):
         """Transition matrix as a python-int nested list."""
         return [[int(v) for v in row] for row in self.transitions]

@@ -19,8 +19,8 @@ import torch
 
 from ..lanes import lane_sum, normal, uniform
 
-__all__ = ["standard_gamma", "dirichlet_logpdf", "dirichlet_estimate",
-           "dirichlet_sample_masked"]
+__all__ = ["Dirichlet", "standard_gamma", "dirichlet_logpdf",
+           "dirichlet_estimate", "dirichlet_sample_masked"]
 
 
 def standard_gamma(alpha: torch.Tensor, generator=None) -> torch.Tensor:
@@ -147,3 +147,22 @@ def dirichlet_estimate(ss, log_weights, active=None, exact=False):
     if active is not None:
         out = torch.where(active, out, torch.ones_like(out))
     return out
+
+
+class Dirichlet:
+    """Stateless wrapper of sample / logpdf / estimate (bild_tpu's
+    `amis.Dirichlet`); draws come from ``generator`` (a `torch.Generator`
+    or a `lanes.LaneRNG`) where bild_tpu takes a key."""
+
+    def sample(self, a, N=1, generator=None):
+        """``(N, k+1)`` draws from Dirichlet(a)."""
+        a = torch.as_tensor(a)
+        return dirichlet_sample_masked(generator, a,
+                                       torch.ones_like(a, dtype=torch.bool), N)
+
+    def logpdf(self, a, ss):
+        return dirichlet_logpdf(torch.as_tensor(a), torch.as_tensor(ss))
+
+    def estimate(self, ss, log_weights):
+        return dirichlet_estimate(torch.as_tensor(ss),
+                                  torch.as_tensor(log_weights))

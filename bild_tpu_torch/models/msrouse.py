@@ -15,7 +15,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import DEFAULT_DEVICE, resolve_device, rouse_kernel
+from ..config import (DEFAULT_DEVICE, resolve_device, resolve_matmul,
+                      rouse_kernel)
 from ..ops.kalman import msrouse_logL_batch
 from ..ops.kalman_dense import msrouse_logL_dense
 from ..ops.kalman_sqrt import psd_factor
@@ -151,15 +152,19 @@ class MultiStateRouse(MultiStateModel):
                 device=self.device, dtype=self.dtype)
         return self._sym_ops
 
-    def _kernel(self):
+    def _kernel(self, matmul="exact"):
         """The likelihood this model runs: the plain recursion for CPU
-        tensors, the selected kernel (`config.rouse_kernel`) for CUDA."""
+        tensors, the selected kernel (`config.rouse_kernel`) for CUDA.
+        ``matmul`` (a resolved tier, `config.resolve_matmul`) reaches the
+        packed kernel only: the dense kernel and the plain recursion are
+        always exact, as in bild_tpu."""
         name = rouse_kernel()
         if self.device.type == "cpu" or name == "torch":
             return msrouse_logL_batch
         if name == "dense":
             return msrouse_logL_dense
-        return functools.partial(msrouse_logL_sym, ops=self.sym_operators())
+        return functools.partial(msrouse_logL_sym, ops=self.sym_operators(),
+                                 matmul=matmul)
 
     # -- noise handling --------------------------------------------------------
     def _get_noise(self, traj) -> np.ndarray:
@@ -224,16 +229,18 @@ class MultiStateRouse(MultiStateModel):
     def lockstep_fns_single(self, traj, max_intervals=None):
         """``(per_traj, logL_fn)`` for the AMIS loop: ``logL_fn(profiles,
         per_traj)`` with ``per_traj = (data, valid)``. The noise tensors are
-        made once per noise configuration and kernel selection. The
-        recursion visits every frame: ``max_intervals`` changes nothing."""
-        key = (tuple(self._get_noise(traj).tolist()), rouse_kernel())
+        made once per noise configuration, kernel selection and matmul
+        tier (the ``'single'`` context). The recursion visits every frame:
+        ``max_intervals`` changes nothing."""
+        tier = resolve_matmul("single")
+        key = (tuple(self._get_noise(traj).tolist()), rouse_kernel(), tier)
         if key not in self._single_fns:
             # bounded: per-trajectory noise would otherwise add one entry
             # per distinct value
             while len(self._single_fns) >= 16:
                 self._single_fns.pop(next(iter(self._single_fns)))
             s2, Cind = self._noise_arrays(traj)
-            kern = self._kernel()
+            kern = self._kernel(tier)
             args = (self.Bs, self.Gs, self.Sigs, self.M0s, self.C0s, self.w,
                     s2, Cind)
 
@@ -254,18 +261,21 @@ class MultiStateRouse(MultiStateModel):
         likelihood of each lane's profiles against its own trajectory: one
         kernel launch for every lane. Needs a model-level
         ``localization_error`` (one noise model for the dataset). The
-        closure is made once per kernel selection. ``max_intervals`` (the
-        caller's bound on a profile's intervals) changes nothing here.
+        closure is made once per kernel selection and matmul tier (the
+        ``'lockstep'`` context at the batch's T: 'auto' splits up to
+        `config.SPLIT_MAX_T` frames), so that a change of either gives a
+        fresh closure. ``max_intervals`` (the caller's bound on a
+        profile's intervals) changes nothing here.
         """
         if self.localization_error is None:
             raise ValueError("lockstep batch mode needs model.localization_error")
-        key = rouse_kernel()
+        key = (rouse_kernel(), resolve_matmul("lockstep", T=batch.T))
         if key not in self._lockstep_fns:
             unique, Cind = np.unique(self.localization_error,
                                      return_inverse=True)
             s2 = torch.as_tensor(unique**2, dtype=self.dtype, device=self.device)
             Cind = torch.as_tensor(Cind.astype(np.int32), device=self.device)
-            kern = self._kernel()
+            kern = self._kernel(key[1])
             args = (self.Bs, self.Gs, self.Sigs, self.M0s, self.C0s, self.w,
                     s2, Cind)
 

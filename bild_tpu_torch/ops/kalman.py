@@ -23,8 +23,8 @@ import torch
 
 LOG_2PI = math.log(2.0 * math.pi)
 
-__all__ = ["msrouse_logL_batch", "kalman_update_batch", "in_range_mask",
-           "as_lanes"]
+__all__ = ["msrouse_logL_batch", "msrouse_logL_single", "kalman_update_batch",
+           "in_range_mask", "as_lanes"]
 
 
 def in_range_mask(profiles: torch.Tensor, n: int) -> torch.Tensor:
@@ -140,3 +140,12 @@ def msrouse_logL_batch(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind,
 
 
 msrouse_logL_batch.calls = 0
+
+
+def msrouse_logL_single(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind, profile, ydata,
+                        valid):
+    """One profile's log-likelihood (a 0-d tensor): `msrouse_logL_batch`
+    on ``profile (T,)`` as a batch of one."""
+    profile = torch.as_tensor(profile, device=ydata.device)
+    return msrouse_logL_batch(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind,
+                              profile[None, :], ydata, valid)[0]

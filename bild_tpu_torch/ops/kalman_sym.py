@@ -25,9 +25,21 @@ needs only ``n N^2`` operator scalars: above it the wrapper calls
 `ops.kalman_dense.msrouse_logL_dense`, as the reference falls back from
 its packed kernel to its dense one.
 
+Matmul tiers (``matmul=``, bild_tpu's ``split_bf16``/``split_update``
+flags; `config.set_rouse_matmul`), float32 only: ``'exact'``;
+``'split_cov'``, the conjugation as three bfloat16 products with float32
+sums, ``P c ~ P_hi c_hi + P_hi c_lo + P_lo c_hi`` (``hi = bf16(x)``, ``lo =
+bf16(x - hi)``, round to nearest even; the operators' pairs split from
+the float32-rounded operators, as the reference splits ``Pall_ref[:]``),
+on the H100's tensor cores; ``'split'``, the update contraction ``U1 c``
+and the mean propagation ``Ballw M`` split too. In float64 every tier is
+the exact one, bit for bit.
+
 `msrouse_logL_sym` launches the kernel for CUDA tensors and runs
 `msrouse_logL_sym_torch` for CPU tensors, with no fallback between them.
-Counters: ``msrouse_logL_sym.launches``, ``msrouse_logL_sym_torch.calls``.
+Counters: ``msrouse_logL_sym.launches`` (every launch),
+``msrouse_logL_sym.split_launches`` (those of a split tier),
+``msrouse_logL_sym_torch.calls``.
 """
 from __future__ import annotations
 
@@ -46,7 +58,8 @@ from .kalman_dense import (H100_SMS, SMEM_LIMIT, SMEM_PER_SM,
 
 __all__ = ["SymOperators", "build_sym_operators", "msrouse_logL_sym",
            "msrouse_logL_sym_torch", "sym_fits", "sym_plan", "SymPlan",
-           "sym_smem_bytes", "SYM_OPERATOR_BUDGET", "SYM_TILES"]
+           "sym_smem_bytes", "SYM_OPERATOR_BUDGET", "SYM_TILES", "TIERS",
+           "check_tier", "hi_lo", "split_product", "split_fragments"]
 
 # Bytes of the stacked packed operators (n * PPp^2 scalars) above which the
 # dense kernel runs instead. Every block reads its state's P_s once per
@@ -67,45 +80,81 @@ SYM_TILES = (32, 16, 8, 4, 2, 1)
 # columns per slab, operator rows per slab at most, covariance columns
 # per thread tile, spatial dimensions at most
 SYM_THREADS, _BK, _ROWS_MAX, _TN, _MAX_D = 256, 8, 256, 4, 4
+# the split tiers' constants: columns per mma tile (n = 8), bytes of one
+# 16 x 16 operator tile's hi and lo fragments, operator m-tiles per slab,
+# (m-tile, column-tile) products per pass (8 warps of 8)
+_TN_SPLIT, _FRAG_BYTES, _MT_SLAB, _ITEMS = 8, 1024, 7, 64
+
+TIERS = ("exact", "split", "split_cov")
+
+
+def check_tier(matmul) -> str:
+    """``matmul`` as a tier name: None resolves from `config.rouse_matmul`
+    in the ``'single'`` context (so 'auto' is 'exact' here); an unknown
+    name raises ``ValueError``."""
+    if matmul is None:
+        from ..config import resolve_matmul
+        matmul = resolve_matmul("single")
+    if matmul not in TIERS:
+        raise ValueError(f"matmul must be 'exact'|'split'|'split_cov', "
+                         f"got {matmul!r}")
+    return matmul
 
 
 def _a16(nbytes):
     return -(-nbytes // 16) * 16
 
 
-def sym_smem_bytes(tile, n, N, d, q, itemsize) -> int:
+def split_ld(PPp) -> int:
+    """Covariance column stride of the split tiers (scalars): the depth
+    padded to the mma's 16, then to 4 modulo 32, so that the 32 lanes'
+    B-fragment words (column g, word t: 4 g + t) fall in 32 banks."""
+    K16 = _pad(PPp, 16)
+    return K16 + (4 - K16 % 32) % 32
+
+
+def sym_smem_bytes(tile, n, N, d, q, itemsize, tier="exact") -> int:
     """Shared memory of one block of the packed kernel with ``tile``
     profiles (``sym_layout`` in ``csrc/kalman_sym.cu``): two packed
     covariance buffers of ``tile * q`` columns (stride ``PPp`` plus one
-    16-byte vector), two ``P_s`` slabs for each of the n states,
-    two mean buffers, ``Cw`` and ``1/S`` per column, the log-likelihoods,
-    the mean operators ``Ballw, Gsw``, ``w``, ``s2``, one frame's data,
-    the packed index table, ``Cind``, the column lists and two slab
-    barriers."""
+    16-byte vector; `split_ld` for the split tiers), two ``P_s`` slabs for
+    each of the n states (split: ``_MT_SLAB`` 16-row tiles of hi and lo
+    fragments), two mean buffers, ``Cw`` and ``1/S`` per column, the
+    log-likelihoods, the mean operators ``Ballw, Gsw``, ``w``, ``s2``, one
+    frame's data, the packed index table, the S row of ``U1`` (split
+    tiers only), ``Cind``, the column lists and two slab barriers."""
     PP = N * (N + 1) // 2
     PPp = _pad(PP, 8)
-    ld = PPp + 16 // itemsize
+    split = tier != "exact"
+    ld = split_ld(PPp) if split else PPp + 16 // itemsize
     ncol = tile * q
-    nct = -(-ncol // _TN) + n
-    rows_slab = min(PPp, _ROWS_MAX)
-    floats = (ncol * ld, ncol * ld, 2 * n * rows_slab * _BK,
-              tile * (N + 1) * d, tile * (N + 1) * d, ncol * N, ncol, tile,
-              n * (N + 1) * N, n * (N + 1) * d, N, q, d)
-    ints = (d, nct * _TN, nct, tile)
-    return (sum(_a16(x * itemsize) for x in floats) + _a16(2 * PP)
+    tn = _TN_SPLIT if split else _TN
+    nct = -(-ncol // tn) + n
+    slab = (2 * n * min(_pad(PP, 16) // 16, _MT_SLAB) * _FRAG_BYTES if split
+            else 2 * n * min(PPp, _ROWS_MAX) * _BK * itemsize)
+    floats = (ncol * ld, ncol * ld, tile * (N + 1) * d, tile * (N + 1) * d,
+              ncol * N, ncol, tile, n * (N + 1) * N, n * (N + 1) * d, N, q, d,
+              PPp if split else 0)
+    ints = (d, nct * tn, nct, tile)
+    return (sum(_a16(x * itemsize) for x in floats) + _a16(slab) + _a16(2 * PP)
             + sum(_a16(4 * x) for x in ints) + 16 + 16)
 
 
-def _tile_fits(tile, n, N, d, q, itemsize):
-    return (sym_smem_bytes(tile, n, N, d, q, itemsize) <= SMEM_LIMIT
-            and -(-tile * q // _TN) + n <= SYM_THREADS)
+def _tile_fits(tile, n, N, d, q, itemsize, tier="exact"):
+    if tier == "exact":
+        cols = -(-tile * q // _TN) + n <= SYM_THREADS
+    else:
+        cols = itemsize == 4 and -(-tile * q // _TN_SPLIT) + n <= _ITEMS
+    return (sym_smem_bytes(tile, n, N, d, q, itemsize, tier) <= SMEM_LIMIT
+            and cols)
 
 
-def sym_fits(n, N, d, q, itemsize) -> bool:
-    """Whether the packed kernel takes this shape (else: the dense one)."""
+def sym_fits(n, N, d, q, itemsize, tier="exact") -> bool:
+    """Whether the packed kernel takes this shape in this tier (else: the
+    dense one)."""
     PPp = _pad(N * (N + 1) // 2, 8)
     return (n * PPp * PPp * itemsize <= SYM_OPERATOR_BUDGET and d <= _MAX_D
-            and _tile_fits(SYM_TILES[-1], n, N, d, q, itemsize))
+            and _tile_fits(SYM_TILES[-1], n, N, d, q, itemsize, tier))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,25 +167,27 @@ class SymPlan:
     smem: int
 
 
-def sym_plan(L, P, n, N, d, q, itemsize, sms=H100_SMS) -> SymPlan:
+def sym_plan(L, P, n, N, d, q, itemsize, sms=H100_SMS,
+             tier="exact") -> SymPlan:
     """
-    Tile width for an ``(L, P)`` launch. The widest tile (of `SYM_TILES`)
-    that fits `SMEM_LIMIT`, keeps two blocks resident per SM and still
-    gives every SM two blocks; else the widest that gives every SM one
-    block; else the narrowest, so that a single-trajectory step (L=1,
-    P=100) spreads over as many SMs as it has profiles. Raises for shapes
-    that `sym_fits` refuses.
+    Tile width for an ``(L, P)`` launch in ``tier``. The widest tile (of
+    `SYM_TILES`) that fits `SMEM_LIMIT`, keeps two blocks resident per SM
+    and still gives every SM two blocks; else the widest that gives every
+    SM one block; else the narrowest, so that a single-trajectory step
+    (L=1, P=100) spreads over as many SMs as it has profiles. Raises for
+    shapes that `sym_fits` refuses.
     """
-    fits = [t for t in SYM_TILES if _tile_fits(t, n, N, d, q, itemsize)]
+    fits = [t for t in SYM_TILES
+            if _tile_fits(t, n, N, d, q, itemsize, tier)]
     if not fits:
         raise ValueError(f"packed kernel does not fit n={n}, N={N}, d={d}, "
-                         f"q={q}, {itemsize}-byte floats")
+                         f"q={q}, {itemsize}-byte floats, tier {tier!r}")
 
     def blocks(t):
         return L * -(-P // t)
 
     def smem(t):
-        return sym_smem_bytes(t, n, N, d, q, itemsize)
+        return sym_smem_bytes(t, n, N, d, q, itemsize, tier)
 
     two = [t for t in fits if 2 * (smem(t) + 1024) <= SMEM_PER_SM
            and blocks(t) >= 2 * sms]
@@ -219,13 +270,57 @@ def slab_operators(Pall, n, PPp, itemsize):
     return out.reshape(n, nkb, PPp, _BK)
 
 
+def hi_lo(x: torch.Tensor):
+    """The bfloat16 pair of a float32 tensor: ``hi = bf16(x)``, ``lo =
+    bf16(x - hi)``, each rounded to nearest even (``x - hi`` is exact);
+    ``hi + lo`` carries 16 bits of x's 24."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.to(x.dtype)).to(torch.bfloat16)
+
+
+def split_product(product, a_pair, x):
+    """``product(a, x)`` in the split tier: ``a`` given as its bf16 pair,
+    ``x`` split here, three products of exactly representable operands in
+    ``x``'s float type, summed as the reference sums them,
+    ``(a_hi x_hi + a_hi x_lo) + a_lo x_hi``."""
+    a_hi, a_lo = (v.to(x.dtype) for v in a_pair)
+    x_hi, x_lo = (v.to(x.dtype) for v in hi_lo(x))
+    return product(a_hi, x_hi) + product(a_hi, x_lo) + product(a_lo, x_hi)
+
+
+def split_fragments(Pall, n, PPp) -> np.ndarray:
+    """The split tiers' propagators in the order the kernel streams them:
+    ``(n, KS, MT, 2, 32, 8)`` int16 (bfloat16 bits) for ``KS`` 16-deep
+    k-steps and ``MT`` 16-row m-tiles (rows padded to 16 and columns to 16
+    with zeros), per tile the hi then the lo operand in the
+    ``mma.m16n8k16`` A-fragment order: lane ``l = 4 g + t`` holds rows
+    ``g, g+8`` at columns ``2t, 2t+1`` and ``2t+8, 2t+9`` as
+    ``A[g][2t], A[g][2t+1], A[g+8][2t], A[g+8][2t+1], A[g][2t+8],
+    A[g][2t+9], A[g+8][2t+8], A[g+8][2t+9]``, so one 16-byte load gives a
+    lane its four registers. ``Pall`` is split from float32 (`hi_lo`)."""
+    K16 = _pad(PPp, 16)          # also the rows: _pad(PP, 16) == _pad(PPp, 16)
+    A = torch.as_tensor(np.asarray(Pall).reshape(n, PPp, PPp),
+                        dtype=torch.float32)
+    out = np.zeros((2, n, K16, K16), dtype=np.int16)
+    for i, half in enumerate(hi_lo(A)):
+        out[i, :, :PPp, :PPp] = half.view(torch.int16).numpy()
+    lane = np.arange(32)[:, None]
+    h = np.arange(8)[None, :]
+    rows = lane // 4 + 8 * ((h // 2) % 2)             # (32, 8)
+    cols = 2 * (lane % 4) + h % 2 + 8 * (h // 4)
+    tiles = out.reshape(2, n, K16 // 16, 16, K16 // 16, 16)
+    frag = tiles[:, :, :, rows, :, cols]                # (32, 8, 2, n, MT, KS)
+    return np.ascontiguousarray(frag.transpose(3, 5, 4, 2, 0, 1))
+
+
 @dataclasses.dataclass(frozen=True)
 class SymOperators:
     """The packed operators as tensors of one dtype on one device. The
     CUDA kernel reads ``Pslab``, the propagators in its order
-    (`slab_operators`; built for a CUDA device only). The plain version
-    reads ``Pall`` and ``U1``, made on the device from the float64 host
-    arrays ``host`` when it first runs."""
+    (`slab_operators`; built for a CUDA device only), and in a split tier
+    ``Psplit`` and ``Srow``. The plain version reads ``Pall`` and ``U1``,
+    made on the device from the float64 host arrays ``host`` when it
+    first runs, and in a split tier ``pairs``."""
 
     sig: torch.Tensor
     c0: torch.Tensor
@@ -266,6 +361,32 @@ class SymOperators:
         return torch.as_tensor(self.host[1], dtype=self.sig.dtype,
                                device=self.sig.device)
 
+    @functools.cached_property
+    def pairs(self) -> dict:
+        """``{"Pall", "U1", "Ballw": (hi, lo)}``: the bfloat16 pairs
+        (`hi_lo`) of the float32-rounded operators, as the reference
+        kernel splits its float32 operator refs."""
+        def f32(a):
+            return torch.as_tensor(a, dtype=torch.float32,
+                                   device=self.sig.device)
+
+        return {"Pall": hi_lo(f32(self.host[0])), "U1": hi_lo(f32(self.host[1])),
+                "Ballw": hi_lo(self.Ballw.to(torch.float32))}
+
+    @functools.cached_property
+    def Psplit(self) -> torch.Tensor:
+        """The split tiers' propagators in the kernel's order
+        (`split_fragments`), on the operators' device."""
+        return torch.as_tensor(split_fragments(self.host[0], self.n, self.PPp),
+                               device=self.sig.device)
+
+    @functools.cached_property
+    def Srow(self) -> torch.Tensor:
+        """Row ``S_OFF`` of ``U1`` in float32 (``S = Srow.c``): the split
+        tier's kernel splits it as the reference splits ``U1``."""
+        return torch.as_tensor(self.host[1][self.S_OFF], dtype=torch.float32,
+                               device=self.sig.device)
+
     @property
     def n(self) -> int:
         return self.sig.shape[0]
@@ -276,11 +397,29 @@ class SymOperators:
 
 
 def msrouse_logL_sym_torch(ops: SymOperators, s2, Cind, profiles, ydata,
-                           valid):
+                           valid, matmul="exact"):
     """Plain PyTorch version of the packed kernel: the same algorithm on
     the same operators, every profile of every lane in one tensor. Shapes
-    as `ops.kalman.msrouse_logL_batch` (lane or single-lane form)."""
+    as `ops.kalman.msrouse_logL_batch` (lane or single-lane form).
+    ``matmul`` is the tier (`check_tier`; inert unless ``ydata`` is
+    float32): the split products are `split_product` on the operators'
+    `pairs`."""
+    matmul = check_tier(matmul)
     msrouse_logL_sym_torch.calls += 1
+    split_cov = matmul != "exact" and ydata.dtype == torch.float32
+    split_upd = split_cov and matmul == "split"
+
+    def mat(x, name, split):                               # x @ A.T
+        if split:
+            return split_product(lambda a, v: v @ a.T, ops.pairs[name], x)
+        return x @ getattr(ops, name).T
+
+    def means(M):                                          # Ballw M, per row
+        if split_upd:
+            return split_product(lambda a, v: torch.einsum("rk,pkd->prd", a, v),
+                                 ops.pairs["Ballw"], M)
+        return torch.einsum("rk,pkd->prd", ops.Ballw, M)
+
     profiles, ydata, valid, single = as_lanes(profiles, ydata, valid)
     n, N, PPp, S_OFF, N1p = ops.n, ops.N, ops.PPp, ops.S_OFF, ops.N1p
     L, P, T = profiles.shape
@@ -299,7 +438,7 @@ def msrouse_logL_sym_torch(ops: SymOperators, s2, Cind, profiles, ydata,
 
     def observe(t, c, M, acc):
         y = ydata[lane, t]                                 # (R, d)
-        R1 = c @ ops.U1.T                                  # (R, q, U1Rows)
+        R1 = mat(c, "U1", split_upd)                       # (R, q, U1Rows)
         Sinv = 1.0 / (R1[..., S_OFF] + s2)                 # (R, q)
         Cw = R1[..., :N]                                   # (R, q, N)
         upd = torch.zeros_like(c)
@@ -320,9 +459,9 @@ def msrouse_logL_sym_torch(ops: SymOperators, s2, Cind, profiles, ydata,
     rows = torch.arange(R, device=dev)
     for t in range(1, T):
         st = prof[:, t]
-        Pc = (c @ ops.Pall.T).view(R, q, n, PPp)           # every state
+        Pc = mat(c, "Pall", split_cov).view(R, q, n, PPp)   # every state
         c = Pc[rows, :, st] + ops.sig[st][:, None, :]
-        BM = torch.einsum("rk,pkd->prd", ops.Ballw, M[:, :N])
+        BM = means(M[:, :N])
         M = BM.view(R, n, N1p, -1)[rows, st] + ops.Gsw[st]
         c, M, acc = observe(t, c, M, acc)
 
@@ -336,28 +475,34 @@ msrouse_logL_sym_torch.calls = 0
 
 
 def msrouse_logL_sym(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind, profiles, ydata,
-                     valid, ops: SymOperators | None = None):
+                     valid, ops: SymOperators | None = None, matmul=None):
     """
     Log-likelihoods, arguments and shapes as `ops.kalman.msrouse_logL_batch`
     (``(L, P)`` for L lanes, ``(P,)`` for the single-lane form), plus the
     prebuilt packed operators ``ops`` (built here if omitted; models pass
-    theirs, built once in float64). Shapes that `sym_fits` refuses go to
-    the dense kernel. CUDA tensors launch the kernel, one block per tile
-    of profiles of one lane (the width from `sym_plan`), on the current
-    stream (no synchronization); CPU tensors run
-    `msrouse_logL_sym_torch`. Out-of-range states give NaN.
+    theirs, built once in float64) and the matmul tier ``matmul``
+    (`check_tier`: None is `config.resolve_matmul("single")`; float64
+    computes every tier exactly). Shapes that `sym_fits` refuses go to
+    the dense kernel, which is always exact. CUDA tensors launch the
+    kernel, one block per tile of profiles of one lane (the width from
+    `sym_plan`), on the current stream (no synchronization); CPU tensors
+    run `msrouse_logL_sym_torch`. Out-of-range states give NaN.
     """
     n, N, _ = Bs.shape
     d = Gs.shape[2]
     q = s2.shape[0]
-    if not sym_fits(n, N, d, q, ydata.element_size()):
+    tier = check_tier(matmul)
+    if ydata.dtype != torch.float32:
+        tier = "exact"                 # the split tiers are float32 only
+    if not sym_fits(n, N, d, q, ydata.element_size(), tier):
         return msrouse_logL_dense(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind,
                                   profiles, ydata, valid)
     if ops is None:
         ops = SymOperators.build(Bs, Gs, Sigs, M0s, C0s, w,
                                  device=ydata.device, dtype=ydata.dtype)
     if ydata.device.type == "cpu":
-        return msrouse_logL_sym_torch(ops, s2, Cind, profiles, ydata, valid)
+        return msrouse_logL_sym_torch(ops, s2, Cind, profiles, ydata, valid,
+                                      matmul=tier)
     if ydata.device.type != "cuda":
         raise ValueError(f"no kernel for device {ydata.device}")
     profiles, ydata, valid, single = as_lanes(profiles, ydata, valid)
@@ -375,11 +520,18 @@ def msrouse_logL_sym(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind, profiles, ydata,
     L, P, T = profiles.shape
     index = ydata.device.index or 0
     plan = sym_plan(L, P, n, N, d, q, ydata.element_size(),
-                    sms=sm_count(index))
+                    sms=sm_count(index), tier=tier)
     out = torch.empty((L, P), dtype=ydata.dtype, device=ydata.device)
     if L * P > 0:
-        lib, fn = _build.entry("kalman_sym", f"bild_kalman_sym_{sfx}", 13, 12)
-        rc = fn(ops.Pslab.data_ptr(), ops.sig.data_ptr(), ops.c0.data_ptr(),
+        if tier == "exact":
+            lib, fn = _build.entry("kalman_sym", f"bild_kalman_sym_{sfx}", 13, 12)
+            ptrs = (ops.Pslab.data_ptr(),)
+        else:
+            name = "split" if tier == "split" else "splitcov"
+            lib, fn = _build.entry("kalman_sym", f"bild_kalman_sym_{name}_f32",
+                                   14, 12)
+            ptrs = (ops.Psplit.data_ptr(), ops.Srow.data_ptr())
+        rc = fn(*ptrs, ops.sig.data_ptr(), ops.c0.data_ptr(),
                 w.data_ptr(), ops.Ballw.data_ptr(), ops.Gsw.data_ptr(),
                 ops.M0w.data_ptr(), s2.data_ptr(), Cind.data_ptr(),
                 profiles.data_ptr(), ydata.data_ptr(), valid.data_ptr(),
@@ -387,6 +539,8 @@ def msrouse_logL_sym(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind, profiles, ydata,
                 plan.tile, plan.smem, index,
                 torch.cuda.current_stream(ydata.device).cuda_stream)
         msrouse_logL_sym.launches += 1
+        if tier != "exact":
+            msrouse_logL_sym.split_launches += 1
         _build.check(lib, rc, "kalman_sym launch")
         out = torch.where(in_range_mask(profiles, n), out,
                           torch.full_like(out, math.nan))
@@ -394,3 +548,4 @@ def msrouse_logL_sym(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind, profiles, ydata,
 
 
 msrouse_logL_sym.launches = 0
+msrouse_logL_sym.split_launches = 0

@@ -125,6 +125,11 @@ class RouseModel:
             object.__setattr__(self, name, torch.as_tensor(
                 arr, dtype=self.dtype, device=self.device))
 
+    def check_dynamics(self):
+        """The dynamics are computed at construction; kept for the
+        reference API (``rouse.Model.check_dynamics``)."""
+        return True
+
     def steady_state(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(M, C)``: steady-state mean ``(N, d)`` and covariance ``(N, N)``."""
         return self.M_ss, self.C_ss

@@ -88,6 +88,15 @@ class Trajectory:
         val = self.valid.cpu().numpy()
         return np.where(val[:, None], dat, np.nan)[key]
 
+    def abs(self) -> "Trajectory":
+        """The magnitude trajectory ``|x_t|``, ``(T, 1)`` (cf. noctiluca's
+        ``traj.abs()``); the same missing frames and looping profile, no
+        localization error."""
+        return Trajectory(
+            data=torch.linalg.vector_norm(self.data, dim=1, keepdim=True),
+            valid=self.valid, localization_error=None,
+            loopingprofile=self.loopingprofile)
+
     def magnitudes(self) -> torch.Tensor:
         """``(T,)`` distance magnitudes; 0 at missing frames (use ``valid``)."""
         return torch.linalg.vector_norm(self.data, dim=1)

@@ -51,6 +51,22 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    centered nats printed beside bild_tpu's TPU numbers (BASELINE.md), four
    profiles per shape against the numpy float64 oracle; rtol 2e-5 at T=100
    and 300, `F32_CENTERED_NATS_T1000` where T=1000 misses it.
+6b'. Split phase: the packed kernel's split-bf16 tiers ('split_cov',
+   'split'; the conjugation on bf16 tensor cores) against their plain
+   split versions at `kernel_cases()` and at the dataset run's lockstep
+   launches ('split_cov' rtol 1e-4; 'split' within twice its plain
+   version's error against the float64 build), and at those launches cut
+   to one frame ('split') and two ('split_cov'): each tier within 1e-6 of
+   its plain version, and shifted from the exact tier as its plain version
+   is; bit for bit across
+   permuted, subset and single-lane launches at L=640; the ladder's
+   rungs against the float64 build beside bild_tpu's TPU readings
+   ('split_cov' within 1e-4 and 0.1 centered nats at T=100; for 'split'
+   those bars gate the default); CUDA-event times of exact, split_cov and
+   split at L=1, 640 and 5,120 beside `split_bound_ms`; config 3's
+   lockstep `sample_dataset` under 'exact' and 'auto' in one call (wall,
+   busy share, accuracy bars, split launches). The default may be 'auto'
+   only if 'split' meets its T=100 bars and 'auto' is no slower.
 6c. Tiers phase: tools/parity_tiers.py's configuration (N=20, d=3, T=100,
    two states, 64 random profiles): sym, dense and the plain recursion in
    float32, the square-root filter (`ops.kalman_sqrt`) and the
@@ -157,6 +173,7 @@ printed. Without a CUDA device it exits non-zero at once.
 from __future__ import annotations
 
 import datetime
+import functools
 import json
 import os
 import socket
@@ -336,6 +353,7 @@ def counters():
     from bild_tpu_torch.ops import kalman, kalman_dense, kalman_sym
     return {
         "kalman_sym": (kalman_sym.msrouse_logL_sym, "launches"),
+        "kalman_sym_split": (kalman_sym.msrouse_logL_sym, "split_launches"),
         "kalman_dense": (kalman_dense.msrouse_logL_dense, "launches"),
         "plain_sym": (kalman_sym.msrouse_logL_sym_torch, "calls"),
         "plain_dense": (kalman_dense.msrouse_logL_dense_torch, "calls"),
@@ -795,6 +813,424 @@ def ladder_phase(bt):
     return out
 
 
+# The split tiers of the packed kernel (bild_tpu's split_bf16 / split_update
+# flags; `config.set_rouse_matmul`), checked by `split_phase`. Every bar was
+# written into PERF.md section 2 before the phase first ran on the card.
+SPLIT_TIERS = ("split_cov", "split")
+# The kernel against its plain split version at T=100: rtol 1e-4, the
+# tier's own floor on a TPU v5e (bild_tpu's sym split, 8.8e-5 against the
+# oracle, BASELINE.md:59-67), for 'split_cov'. 'split' rounds every
+# covariance slot to its bf16 pair before the update contraction, so two
+# float32 implementations that sum the conjugation in another order differ
+# by the tier's own error (tests/test_torch_matmul_tiers.py): it is held
+# to twice its plain version's own error against the float64 build on the
+# same launch (then the kernel is no less accurate than its plain
+# version), and to 1e-4 where that is larger. Neither bar tells a tier
+# from another at T=100; the two-frame checks below do.
+RTOL_SPLIT = 1e-4
+# The tiers told apart: every lockstep shape cut, for each split tier, to
+# the shortest length where its split acts on inputs that the kernel and
+# its plain version hold bit for bit (SPLIT_SHORT_T): 'split' at one frame
+# (its update contraction of the host's c0), 'split_cov' at two (its
+# conjugation of the first update's output, which feeds an exact update).
+# (a) The kernel against its plain version within RTOL_SPLIT_SHORT
+# (relative to max(|logL|, 1 nat)), and the plain tier at least twice
+# that far from what a skipped split computes ('split': the exact tier;
+# 'split_cov': 'split'); (b) the kernel's shift from its exact tier,
+# k_tier - k_exact, against the plain shift, p_tier - p_exact: the
+# least-squares slope of one on the other within SPLIT_SLOPE (a kernel
+# without the split has no shift). 'split' at two frames is printed with
+# no bar: its update contraction rounds the conjugation's output to bf16
+# pairs, and one bf16 ulp in the low half of a slot moves it by more than
+# its whole shift (PERF.md section 2). The CPU tests hold the plain tiers
+# to the same bars against bild_tpu's interpret kernel
+# (tests/test_torch_matmul_tiers.py::test_short_split_tiers_*).
+SPLIT_SHORT_T = {"split": 1, "split_cov": 2}
+RTOL_SPLIT_SHORT = 1e-6
+SPLIT_SLOPE = (0.5, 2.0)
+# the ladder's T=100 bars against the float64 build (max rel, centered
+# nats per profile family): 'split_cov' must meet them. For 'split' they
+# are the gate of the default: `config.rouse_matmul()` may be bild_tpu's
+# 'auto' only if 'split' meets them and config 3 under 'auto' is no slower
+# than under 'exact' (split_phase's in-call comparison); T=300 and 1000
+# are read without a bar ('auto' never splits there).
+SPLIT_LADDER_T100 = (1e-4, 0.1)
+# bild_tpu's split tiers on a TPU v5e against the float64 oracle
+# (BASELINE.md:59-67): (max rel or None where not recorded, max centered
+# nats)
+BILD_TPU_SPLIT = {("split", 100): (8.8e-5, 0.085), ("split", 300): (None, 0.52),
+                  ("split", 1000): (5.8e-4, 4.5), ("split_cov", 1000): (None, 0.81)}
+# The dataset run's lockstep launches (per 64-trajectory chunk: scout,
+# refine, the boundary climb; config 3 in one chunk), and the launches
+# timed: the AMIS step of sample(), config 3 in one chunk, config 5's scout
+SPLIT_SHAPES = (("chunk scout", 320, 128), ("chunk refine", 192, 128),
+                ("boundary climb", 64, 9), ("one chunk of 128", 640, 128))
+SPLIT_TIMED = ((1, 100), (640, 128), (5120, 128))
+# H100 SXM dense bf16 tensor-core peak (data sheet, 700 W)
+PEAK_FLOPS_BF16 = 989e12
+
+
+def split_bound_ms(L, P, T, n, N, d, q, observed):
+    """The least time of `kernel_work`'s work in a split tier: the
+    conjugation's least FLOP (``2 N^3 + N (N+1) (2N+1) / 2`` per copy and
+    profile-frame) as three bf16 products at the tensor cores' peak, the
+    rest of the likelihood at the float32 peak, or the HBM bytes, whichever
+    is longer."""
+    flops, nbytes = kernel_work(L, P, T, n, N, d, q, observed)
+    conj = L * P * (T - 1) * q * (2 * N ** 3 + N * (N + 1) * (2 * N + 1) // 2)
+    t_ops = (3 * conj / PEAK_FLOPS_BF16 + (flops - conj) / PEAK_FLOPS_F32) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def rel_err_floor(got, want):
+    """Largest relative error over the finite reference rows, each row
+    relative to max(|want|, 1 nat) (two-frame likelihoods can be near 0)."""
+    fin = np.isfinite(want)
+    return float(np.max(np.abs(got[fin] - want[fin]) / np.maximum(np.abs(want[fin]), 1.0)))
+
+
+def shift_slope(got, want):
+    """The least-squares slope of shift ``got`` on shift ``want`` (both
+    over the finite rows of ``want``)."""
+    fin = np.isfinite(want)
+    got, want = got[fin], want[fin]
+    return float(got @ want / (want @ want))
+
+
+def split_bar(tier, plain_f64):
+    """The kernel-against-plain bar of ``tier`` (see `RTOL_SPLIT`), given
+    the plain split version's max relative error against the float64
+    build on the same launch."""
+    return RTOL_SPLIT if tier == "split_cov" else max(RTOL_SPLIT, 2 * plain_f64)
+
+
+def split_phase(bt, rng):
+    """The split tiers on the card: for 'split_cov' and 'split',
+    the tensor-core kernel against its plain split version at
+    `kernel_cases()` and at `SPLIT_SHAPES` (NaN rows, missing frames; bars
+    `split_bar`), with the float64 build beside it, and at `SPLIT_SHAPES`
+    cut to `SPLIT_SHORT_T` frames (`hold_short`: `RTOL_SPLIT_SHORT`,
+    `SPLIT_SLOPE`); at L=640 permuted
+    profiles, 7 profiles alone and lanes alone give the same bits; the
+    ladder at T=100, 300 and 1000 (`ladder_case`) against the float64
+    build beside bild_tpu's TPU readings (bars `SPLIT_LADDER_T100`);
+    CUDA-event times of exact, split_cov and split at `SPLIT_TIMED`
+    beside `split_bound_ms`; and config 3's lockstep `sample_dataset`
+    (tools/ab_dataset.py's settings) under 'exact' and 'auto' in one call:
+    wall, busy share, accuracy against the dataset bars, the split
+    launches of the 'auto' runs. Checks the default against its gate.
+    Returns ``{"launches", "max_abs", "times", "default"}``."""
+    from bild_tpu_torch.ops.kalman_sym import (msrouse_logL_sym,
+                                               msrouse_logL_sym_torch, sym_plan)
+    from bild_tpu_torch.parallel import sample_dataset
+
+    t_phase = time.perf_counter()
+    default = bt.config.rouse_matmul()
+    max_abs = 0.0
+
+    def hold_split(label, tier, got, plain, f64, nan_rows):
+        """Check one split launch against its plain version; returns the
+        printed readings."""
+        nonlocal max_abs
+        got, plain, f64 = (x.cpu().numpy().astype(float) for x in (got, plain, f64))
+        check(np.array_equal(np.isnan(got), nan_rows)
+              and np.array_equal(np.isnan(plain), nan_rows),
+              f"split {tier} {label}: NaN exactly on the out-of-range rows")
+        check(np.all(np.isfinite(got[~nan_rows])), f"split {tier} {label}: finite")
+        e_plain, e_p64, e_k64 = (rel_err(got, plain), rel_err(plain, f64),
+                                 rel_err(got, f64))
+        bar = split_bar(tier, e_p64)
+        max_abs = max(max_abs, float(np.max(np.abs(got - plain)[~nan_rows])))
+        line = (f"split {tier:9s} {label:44s} kernel against plain rel "
+                f"{e_plain:.2e} (bar {bar:.2e}); against the float64 build: "
+                f"kernel {e_k64:.2e}, plain {e_p64:.2e}")
+        check(e_plain <= bar, f"{line}: kernel within its bar of the plain version")
+        return line
+
+    # -- the kernel against its plain version: sample()'s launches ---------
+    for label, loops, err, P, missing, bad_rows in kernel_cases():
+        n = len(loops)
+        models = {dt: bt.models.MultiStateRouse(
+            N, D, KSPRING, d=DIM, looppositions=loops, localization_error=err,
+            device=DEVICE, dtype=dt) for dt in (torch.float32, torch.float64)}
+        true = np.zeros(T, dtype=int)
+        true[30:60] = 1
+        traj = models[torch.float32].trajectory_from_loopingprofile(
+            true, missing_frames=np.asarray(missing, dtype=int),
+            generator=torch.Generator(device=DEVICE).manual_seed(P))
+        prof = make_profiles(rng, P, n, T)
+        for r, bad in zip(bad_rows, (n, -1)):
+            prof[r, T // 2] = bad
+        nan_rows = np.zeros(P, dtype=bool)
+        nan_rows[list(bad_rows)] = True
+        args = {}
+        for dt, m in models.items():
+            s2, Cind = m._noise_arrays(traj)
+            args[dt] = (m.Bs, m.Gs, m.Sigs, m.M0s, m.C0s, m.w, s2, Cind,
+                        torch.as_tensor(prof, device=DEVICE), traj.data.to(dt),
+                        traj.valid)
+        ops = models[torch.float32].sym_operators()
+        f64 = msrouse_logL_sym(*args[torch.float64],
+                               ops=models[torch.float64].sym_operators())
+        for tier in SPLIT_TIERS:
+            got = msrouse_logL_sym(*args[torch.float32], ops=ops, matmul=tier)
+            plain = msrouse_logL_sym_torch(ops, *args[torch.float32][6:],
+                                           matmul=tier)
+            torch.cuda.synchronize()
+            print(hold_split(label, tier, got, plain, f64, nan_rows), flush=True)
+
+    # -- the lockstep launches, and bit equality at L=640 -------------------
+    model = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
+                                      localization_error=0.1, device=DEVICE)
+    model64 = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
+                                        localization_error=0.1, device=DEVICE,
+                                        dtype=torch.float64)
+    truths, true_k, batch, trajs = config3(bt, model)
+    s2, Cind = model._noise_arrays(trajs[0])
+    margs = (model.Bs, model.Gs, model.Sigs, model.M0s, model.C0s, model.w, s2, Cind)
+    margs64 = (model64.Bs, model64.Gs, model64.Sigs, model64.M0s, model64.C0s,
+               model64.w, s2.double(), Cind)
+    ops, ops64 = model.sym_operators(), model64.sym_operators()
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+
+    def lanes(L, P):
+        rows = torch.arange(L, device=DEVICE) % batch.B
+        prof = lane_profiles(gen, L, P, 2, T)
+        prof[0, P // 2, T // 3] = 2
+        prof[L - 1, P - 1, T - 1] = -1
+        valid = torch.rand((L, T), generator=gen, device=DEVICE) > 0.05
+        nan_rows = np.zeros((L, P), dtype=bool)
+        nan_rows[0, P // 2] = nan_rows[L - 1, P - 1] = True
+        return prof, batch.data[rows].contiguous(), valid, nan_rows
+
+    def hold_short(label, L, P, prof, ydata, valid):
+        """The short-length checks (`SPLIT_SHORT_T`) of one lockstep shape,
+        on the first frames of its launch, the out-of-range rows moved
+        there."""
+        for TS in (1, 2):
+            sprof = prof[..., :TS].clone()
+            sprof[0, P // 2, TS - 1] = 2
+            sprof[L - 1, P - 1, 0] = -1
+            nan_rows = np.zeros((L, P), dtype=bool)
+            nan_rows[0, P // 2] = nan_rows[L - 1, P - 1] = True
+            sy = ydata[:, :TS].contiguous()
+            sv = valid[:, :TS].clone()
+            sv[:, 0] = True             # frame 0 seen: no lane's logL is 0
+            k, p = {}, {}
+            for tier in ("exact",) + SPLIT_TIERS:
+                k[tier] = msrouse_logL_sym(*margs, sprof, sy, sv, ops=ops, matmul=tier)
+                p[tier] = msrouse_logL_sym_torch(ops, s2, Cind, sprof, sy, sv,
+                                                 matmul=tier)
+            torch.cuda.synchronize()
+            k = {t: v.cpu().numpy().astype(float) for t, v in k.items()}
+            p = {t: v.cpu().numpy().astype(float) for t, v in p.items()}
+            for tier in SPLIT_TIERS:
+                check(np.array_equal(np.isnan(k[tier]), nan_rows)
+                      and np.array_equal(np.isnan(p[tier]), nan_rows),
+                      f"split {tier} T={TS} {label}: NaN exactly on the out-of-range rows")
+                e = rel_err_floor(k[tier], p[tier])
+                line = (f"split {tier:9s} T={TS} lockstep {label} L={L} P={P}: "
+                        f"kernel against plain {e:.2e}")
+                if TS != SPLIT_SHORT_T[tier]:   # 'split_cov' splits nothing at T=1
+                    if tier == "split":
+                        print(f"{line} (no bar: the update contraction rounds the "
+                              f"conjugation's output to bf16 pairs)", flush=True)
+                    continue
+                near = "exact" if tier == "split" else "split"
+                sep = rel_err_floor(p[tier], p[near])
+                slope = shift_slope(k[tier] - k["exact"], p[tier] - p["exact"])
+                line += (f" (bar {RTOL_SPLIT_SHORT:.0e}); plain {tier} from plain "
+                         f"{near} {sep:.2e} (at least {2 * RTOL_SPLIT_SHORT:.0e}); "
+                         f"shift from exact, kernel on plain: slope {slope:.3f} "
+                         f"(within {SPLIT_SLOPE})")
+                print(line, flush=True)
+                check(e <= RTOL_SPLIT_SHORT, f"{line}: kernel within its bar")
+                check(sep >= 2 * RTOL_SPLIT_SHORT, f"{line}: the bar tells the tiers apart")
+                check(SPLIT_SLOPE[0] <= slope <= SPLIT_SLOPE[1],
+                      f"{line}: the kernel shifts as its plain version does")
+
+    for label, L, P in SPLIT_SHAPES:
+        prof, ydata, valid, nan_rows = lanes(L, P)
+        f64 = msrouse_logL_sym(*margs64, prof, ydata.double(), valid, ops=ops64)
+        for tier in SPLIT_TIERS:
+            kern = functools.partial(msrouse_logL_sym, *margs, ops=ops, matmul=tier)
+            got = kern(prof, ydata, valid)
+            plain = msrouse_logL_sym_torch(ops, s2, Cind, prof, ydata, valid,
+                                           matmul=tier)
+            torch.cuda.synchronize()
+            sp = sym_plan(L, P, 2, N, DIM, 1, 4, tier=tier)
+            line = hold_split(f"lockstep {label} L={L} P={P}", tier, got, plain,
+                              f64, nan_rows) + f" (tile {sp.tile}, {sp.blocks} blocks, {sp.smem} B shared)"
+            if label == CHECKED_SHAPE:
+                got = got.cpu().numpy()
+                perm = torch.stack([torch.randperm(P, generator=torch.Generator().manual_seed(i))
+                                    for i in range(L)]).to(DEVICE)
+                permuted = kern(torch.gather(prof, 1, perm[..., None].expand(-1, -1, T))
+                                .contiguous(), ydata, valid)
+                chosen = torch.as_tensor([0, 5, 17, P // 2, 90, P - 2, P - 1], device=DEVICE)
+                alone = kern(prof[:, chosen].contiguous(), ydata, valid)
+                picks = (0, L // 2, L - 1)
+                singles = [kern(prof[i], ydata[i], valid[i]) for i in picks]
+                torch.cuda.synchronize()
+                same = (np.array_equal(permuted.cpu().numpy(),
+                                       np.take_along_axis(got, perm.cpu().numpy(), 1),
+                                       equal_nan=True),
+                        np.array_equal(alone.cpu().numpy(), got[:, chosen.cpu().numpy()],
+                                       equal_nan=True),
+                        all(np.array_equal(one.cpu().numpy(), got[i], equal_nan=True)
+                            for i, one in zip(picks, singles)))
+                line += (f"  permuted within lanes: {'same bits' if same[0] else 'DIFFER'}"
+                         f"  7 profiles alone: {'same bits' if same[1] else 'DIFFER'}"
+                         f"  lanes alone: {'same bits' if same[2] else 'DIFFER'}")
+                check(all(same), f"{line}: the same bits in every launch shape")
+            print(line, flush=True)
+        hold_short(label, L, P, prof, ydata, valid)
+        del prof, ydata, valid, f64
+
+    # -- the ladder ----------------------------------------------------------
+    ladder_ok = {}
+    for Tl, n, _ in LADDER:
+        models, traj, families, prof, fam_of = ladder_case(bt, Tl, n)
+        prof_t = torch.as_tensor(prof, device=DEVICE)
+        vals = {}
+        for dtype, m in models.items():
+            s2l, Cl = m._noise_arrays(traj)
+            a = (m.Bs, m.Gs, m.Sigs, m.M0s, m.C0s, m.w, s2l, Cl, prof_t,
+                 traj.data.to(dtype), traj.valid)
+            if dtype == torch.float64:
+                vals["f64"] = msrouse_logL_sym(*a, ops=m.sym_operators())
+                continue
+            for tier in SPLIT_TIERS:
+                vals[tier] = msrouse_logL_sym(*a, ops=m.sym_operators(), matmul=tier)
+                vals[f"plain {tier}"] = msrouse_logL_sym_torch(
+                    m.sym_operators(), *a[6:], matmul=tier)
+        torch.cuda.synchronize()
+        vals = {k: v.cpu().numpy().astype(float) for k, v in vals.items()}
+        for tier in SPLIT_TIERS:
+            read = {}
+            for who in (tier, f"plain {tier}"):
+                check(np.all(np.isfinite(vals[who])), f"ladder {who} T={Tl}: finite")
+                err = vals[who] - vals["f64"]
+                read[who] = (float(np.max(np.abs(err / vals["f64"]))),
+                             [centered_nats(err[fam_of == i], fam_of[fam_of == i])
+                              for i in range(3)])
+            rel, cen = read[tier]
+            tpu = BILD_TPU_SPLIT.get((tier, Tl))
+            tpu = ("not recorded" if tpu is None else
+                   f"max rel {'not recorded' if tpu[0] is None else f'{tpu[0]:.1e}'}, "
+                   f"{tpu[1]} centered")
+            line = (f"ladder split {tier:9s} T={Tl:4d} n={n} ({len(prof)} profiles): "
+                    f"kernel against the float64 build: max rel {rel:.2e}, "
+                    f"centered {' / '.join(f'{c:.4f}' for c in cen)} nats "
+                    f"({' / '.join(families)}); plain {tier} "
+                    f"{read[f'plain {tier}'][0]:.2e}, "
+                    f"{' / '.join(f'{c:.4f}' for c in read[f'plain {tier}'][1])}; "
+                    f"bild_tpu {tier} on a TPU v5e against the oracle: {tpu}")
+            if Tl == 100:
+                ladder_ok[tier] = (rel <= SPLIT_LADDER_T100[0]
+                                   and max(cen) <= SPLIT_LADDER_T100[1])
+                line += (f"  [T=100 bars {SPLIT_LADDER_T100[0]} / "
+                         f"{SPLIT_LADDER_T100[1]} nats: "
+                         f"{'met' if ladder_ok[tier] else 'MISSED'}]")
+            print(line, flush=True)
+    check(ladder_ok["split_cov"], "ladder split_cov at T=100 within its bars")
+
+    # -- times ---------------------------------------------------------------
+    times = {}
+    for L, P in SPLIT_TIMED:
+        if L == 1:
+            prof = torch.as_tensor(make_profiles(rng, P, 2, T), device=DEVICE)
+            ydata, valid = batch.data[0], batch.valid[0]
+        else:
+            prof, ydata, valid, _ = lanes(L, P)
+            prof = prof.clamp(0, 1)
+        fns = {tier: functools.partial(msrouse_logL_sym, *margs, prof, ydata,
+                                       valid, ops=ops, matmul=tier)
+               for tier in ("exact",) + SPLIT_TIERS}
+        reps = 20 if L == 1 else 2
+        order = ("exact",) + SPLIT_TIERS + SPLIT_TIERS[::-1] + ("exact",)
+        ms = {tier: [] for tier in fns}
+        for tier in order:
+            ms[tier].append(time_ms(fns[tier], reps))
+        observed = int(valid.sum())
+        bnd_exact, by_exact = bound_ms(*kernel_work(L, P, T, 2, N, DIM, 1, observed))
+        bnd, by = split_bound_ms(L, P, T, 2, N, DIM, 1, observed)
+        plain = ({tier: time_ms(lambda tier=tier: msrouse_logL_sym_torch(
+                     ops, s2, Cind, prof, ydata, valid, matmul=tier), 1)
+                  for tier in SPLIT_TIERS} if L <= 640 else {})
+        for tier in fns:
+            t = float(np.mean(ms[tier]))
+            b, by_t = (bnd_exact, by_exact) if tier == "exact" else (bnd, by)
+            times[(tier, L)] = (t, plain.get(tier), b, by_t)
+            pl = ("" if tier not in plain else
+                  f"  plain {plain[tier]:9.3f} ms")
+            print(f"time split phase {tier:9s} L={L:4d} P={P}: kernel {t:9.3f} ms "
+                  f"({' / '.join(f'{x:.3f}' for x in ms[tier])}; "
+                  f"{L * P / t * 1e3:12.1f} profiles/s){pl}  bound {b:.4f} ms "
+                  f"({by_t}), {b / t:.1%} of bound", flush=True)
+        del prof, ydata, valid
+
+    # -- config 3 under 'exact' and 'auto', in one call ----------------------
+    kw = dict(k_max=4, steps_per_k=12, N=128, informed_init=True,
+              scout_steps=4, refine_top=3, marginals=True,
+              optimize_boundaries=True, chunk_size=64)
+
+    def run():
+        return sample_dataset(model, trajs, **kw,
+                              generator=torch.Generator().manual_seed(7))
+
+    walls, result, launches = {"exact": [], "auto": []}, {}, {}
+    for mode in ("exact", "auto", "exact", "auto", "auto", "exact"):
+        bt.config.set_rouse_matmul(mode)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        walls[mode].append(time.perf_counter() - t0)
+        ran = read_counts()
+        if mode not in result:
+            result[mode], launches[mode] = res, ran
+    summary = {}
+    for mode in ("exact", "auto"):
+        bt.config.set_rouse_matmul(mode)
+        res, ran = result[mode], launches[mode]
+        acc = float(np.mean(np.concatenate(res.best_profile()) == truths.ravel()))
+        sw = float(np.mean(res.best_k() == true_k))
+        share, _, _ = busy_share(run)
+        wall = float(np.mean(walls[mode][1:]))
+        summary[mode] = wall
+        tier = bt.config.resolve_matmul("lockstep", T=T)
+        print(f"split in-call config 3 rouse_matmul={mode!r} (lockstep tier "
+              f"{tier!r}): wall {wall:.3f} s (the later calls; all: "
+              f"{' / '.join(f'{w:.3f}' for w in walls[mode])} s), frame accuracy "
+              f"{acc:.4f}, switch-count accuracy {sw:.4f}, device busy share "
+              f"{share}, launches {ran}", flush=True)
+        check(acc >= DATASET_FRAME_ACCURACY,
+              f"config 3 {mode}: frame accuracy {acc:.4f} >= {DATASET_FRAME_ACCURACY}")
+        check(sw >= DATASET_SWITCH_ACCURACY,
+              f"config 3 {mode}: switch-count accuracy {sw:.4f} >= {DATASET_SWITCH_ACCURACY}")
+        check((ran["kalman_sym_split"] > 0) == (tier != "exact")
+              and ran["kalman_sym"] > 0,
+              f"config 3 {mode}: the {tier} tier of the sym kernel ran")
+        check(all(ran[k] == 0 for k in ran if k.startswith("plain")),
+              "no plain version ran on the CUDA path")
+    bt.config.set_rouse_matmul(default)
+    no_slower = summary["auto"] <= summary["exact"]
+    may_auto = ladder_ok["split"] and no_slower
+    print(f"split default gate: 'split' meets the T=100 ladder bars: "
+          f"{ladder_ok['split']}; config 3 under 'auto' no slower than under "
+          f"'exact': {no_slower} ({summary['auto']:.3f} s against "
+          f"{summary['exact']:.3f} s); the default may be 'auto': {may_auto}; "
+          f"the shipped default: {default!r}", flush=True)
+    check(default != "auto" or may_auto,
+          "the default is 'auto' only where its gate holds")
+    print(f"split phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"launches": launches["auto"]["kalman_sym_split"], "max_abs": max_abs,
+            "times": times, "default": default}
+
+
 # tools/parity_tiers.py's configuration (N=20, d=3, T=100, two states, a
 # loop at frames 30-60 and 75-90, 64 every-frame random profiles), and
 # bild_tpu's TPU v5e readings there against the float64 oracle
@@ -1067,7 +1503,8 @@ def dataset_phase(bt, B=128, chunk_size=64, sub_B=16):
         acc = float(np.mean(np.concatenate(res.best_profile()) == truths.ravel()))
         sw = float(np.mean(res.best_k() == true_k))
         acc_opt = float(np.mean(np.concatenate(res.optimized) == truths.ravel()))
-        print(f"dataset selector={selector}: wall {wall:.3f} s, "
+        print(f"dataset selector={selector} (matmul tier "
+              f"{bt.config.resolve_matmul('lockstep', T=T)!r}): wall {wall:.3f} s, "
               f"{B / wall:.2f} trajectories/s, {evals / wall:.1f} profile "
               f"evaluations/s ({evals} evaluations), lockstep AMIS steps "
               f"{steps} ({lane_steps} lane-steps), frame accuracy {acc:.4f}, "
@@ -1215,7 +1652,8 @@ def adaptive_phase(bt, B=128):
         direct = sample_batch_adaptive(
             model, batch, **kw, generator=torch.Generator(device=DEVICE)
             .manual_seed(mix_int(seed) & (2**63 - 1)))
-        print(f"adaptive selector={selector}: wall {wall:.3f} s, "
+        print(f"adaptive selector={selector} (matmul tier "
+              f"{bt.config.resolve_matmul('lockstep', T=T)!r}): wall {wall:.3f} s, "
               f"{B / wall:.2f} trajectories/s, likelihood evaluations per "
               f"trajectory mean {ev.mean():.1f} (q10/50/90 {q[0]:.0f}/"
               f"{q[1]:.0f}/{q[2]:.0f}; lockstep 5632), frame accuracy "
@@ -1311,7 +1749,9 @@ def config4_phase(bt):
               f"{np.min(gaps):.3f} nats; evidence standard error at the best k: "
               f"median {np.median(se):.3f}, min {np.min(se):.3f} nats", flush=True)
         print(f"config 4 selector={selector}: B={len(truths)} T={truths.shape[1]} "
-              f"n=3: wall {wall:.3f} s, "
+              f"n=3 (matmul tier "
+              f"{bt.config.resolve_matmul('lockstep', T=truths.shape[1])!r}): "
+              f"wall {wall:.3f} s, "
               f"{len(truths) / wall:.2f} trajectories/s, lockstep AMIS steps "
               f"{steps} ({lane_steps} lane-steps), frame accuracy {acc:.4f}, "
               f"switch-count accuracy {sw:.4f}, best k {res.best_k().tolist()} "
@@ -1398,7 +1838,8 @@ def config5p_phase(bt):
     acc, sw, acc_post, cred = acc / n, sw / n, acc_post / n, cred / n
     B = n * CONFIG5_CHUNK
     steady = float(np.median(chunk_s[1:])) if n > 1 else float("nan")
-    print(f"config 5p: {n} chunks of {CONFIG5_CHUNK} (B={B}, T={T}): wall "
+    print(f"config 5p: {n} chunks of {CONFIG5_CHUNK} (B={B}, T={T}; matmul tier "
+          f"{bt.config.resolve_matmul('lockstep', T=T)!r}): wall "
           f"{wall:.3f} s, {B / wall:.2f} trajectories/s, first chunk "
           f"{chunk_s[0]:.3f} s, steady chunk (median of the rest) {steady:.3f} s "
           f"(each: {', '.join(f'{x:.2f}' for x in chunk_s)}), frame accuracy "
@@ -1598,6 +2039,7 @@ atexit.register(lambda: json.dump({
     "peak_device_gib": (torch.cuda.max_memory_allocated() / 2**30
                         if torch.cuda.is_available() else 0.0),
     "kalman_sym": kalman_sym.msrouse_logL_sym.launches,
+    "kalman_sym_split": kalman_sym.msrouse_logL_sym.split_launches,
     "kalman_dense": kalman_dense.msrouse_logL_dense.launches,
     "plain_sym": kalman_sym.msrouse_logL_sym_torch.calls,
     "plain_dense": kalman_dense.msrouse_logL_dense_torch.calls,
@@ -2575,6 +3017,7 @@ def main():
     lane_kernel_phase(bt, rng, max_abs)
     lock_times = lockstep_phase(bt, rng, max_abs)
     ladder = ladder_phase(bt)
+    split = split_phase(bt, rng)
     tier_launches = tiers_phase(bt, ladder)
     ds_launches = dataset_phase(bt)
     ad_launches = adaptive_phase(bt)
@@ -2607,6 +3050,10 @@ def main():
     # evaluation per shape). The calibration's M-step runs the plain
     # recursion under autograd by design: its calls stand apart, under
     # "calibration_plain_calls".
+    main_path = [launches, cli_counts, ck_launches, mesh_launches, c5_launches,
+                 ex_counts, tier_launches, assoc_launches,
+                 *ds_launches.values(), *ad_launches.values(),
+                 *c4_launches.values()]
     shapes = {"lockstep": "one chunk of 128", "adaptive": "adaptive round",
               "config4": "config 4 scout", "config5": "config 5 scout"}
     kernels = []
@@ -2615,13 +3062,9 @@ def main():
             "name": name, "route": "cuda",
             "source": f"bild_tpu_torch/csrc/{name}.cu",
             "replaces": replaces[name],
-            "launches": (launches[name] + cli_counts[name] + ck_launches[name]
-                         + mesh_launches[name] + c5_launches[name]
-                         + ex_counts[name] + tier_launches[name]
-                         + assoc_launches[name]
-                         + sum(r[name] for r in ds_launches.values())
-                         + sum(r[name] for r in ad_launches.values())
-                         + sum(r[name] for r in c4_launches.values())),
+            "launches": sum(r[name] - (r.get("kalman_sym_split", 0)
+                                       if name == "kalman_sym" else 0)
+                            for r in main_path),
             "max_abs_err": max_abs[name],
             "ms": times[(name, 100)][0],
             "plain_ms": times[(name, 100)][1],
@@ -2634,6 +3077,39 @@ def main():
             row.update({f"{key}_ms": ms, f"{key}_plain_ms": plain_ms,
                         f"{key}_bound_ms": bnd})
         kernels.append(row)
+    # the split tiers of the packed kernel: a kernel of its own in the
+    # library (kalman_sym_kernel<float, 1 | 2>). Its main path is the
+    # lockstep dataset run under 'auto' (the split phase's config 3 runs,
+    # and every other lockstep run if 'auto' is the default):
+    # "ms", "plain_ms" and "bound_ms" are the 'split' tier's at config 3's
+    # lockstep launch (L=640, P=128), "split_cov_*" the other tier's there,
+    # "sample_*" both at sample()'s step (L=1, P=100), "config5_*" at
+    # config 5's scout (L=5,120). "launches" counts the split launches of
+    # the 'auto' run; the kalman_sym row counts the exact tier's.
+    st = split["times"]
+    kernels.insert(1, {
+        "name": "kalman_sym_split", "route": "cuda",
+        "source": "bild_tpu_torch/csrc/kalman_sym.cu",
+        "replaces": "bild_tpu/ops/kalman_sym.py:189 (split_bf16)",
+        "launches": split["launches"] + sum(r.get("kalman_sym_split", 0)
+                                            for r in main_path),
+        "max_abs_err": split["max_abs"],
+        "ms": st[("split", 640)][0],
+        "plain_ms": st[("split", 640)][1],
+        "bound_ms": st[("split", 640)][2],
+        "bound_by": st[("split", 640)][3],
+        "library_ms": None,
+        "split_cov_ms": st[("split_cov", 640)][0],
+        "split_cov_plain_ms": st[("split_cov", 640)][1],
+        "exact_ms": st[("exact", 640)][0],
+        "sample_ms": st[("split", 1)][0], "sample_plain_ms": st[("split", 1)][1],
+        "sample_bound_ms": st[("split", 1)][2],
+        "sample_split_cov_ms": st[("split_cov", 1)][0],
+        "config5_ms": st[("split", 5120)][0],
+        "config5_split_cov_ms": st[("split_cov", 5120)][0],
+        "config5_bound_ms": st[("split", 5120)][2],
+        "default_tier": split["default"],
+    })
     print(json.dumps({"kernels": kernels,
                       "calibration_plain_calls": (cli_counts["calibration_plain"]
                                                   + ex_counts["calibration_plain"])}),
