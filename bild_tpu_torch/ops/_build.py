@@ -7,9 +7,10 @@ shared library with a plain C interface,
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
 
-and loaded with `ctypes`. The file name carries a hash of every source in
-``csrc/`` and of the flags, so an edited source builds anew and an
-unchanged one is reused. No source includes PyTorch's headers: a build
+and loaded with `ctypes`. The file name carries a hash of the source, of
+the shared headers in ``csrc/`` and of the flags, so an edited source
+builds anew and an unchanged one is reused. ``load(name, defines)`` builds
+a copy with preprocessor macros defined (``-D``), as a library of its own. No source includes PyTorch's headers: a build
 takes seconds, not minutes.
 
 Each C entry point launches on the stream it is given and returns
@@ -55,8 +56,8 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _source_hash(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _source_hash(name: str, defines=()) -> str:
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
     for path in sorted(CSRC.glob("*.cu*")):
         if path.suffix == ".cuh" or path.stem == name:
             h.update(path.name.encode())
@@ -64,20 +65,22 @@ def _source_hash(name: str) -> str:
     return h.hexdigest()[:16]
 
 
-def _build(name: str) -> Path:
+def _build(name: str, defines=()) -> Path:
     src = CSRC / f"{name}.cu"
     if not src.exists():
         raise FileNotFoundError(src)
-    out = BUILD_DIR / f"{name}-{_source_hash(name)}.so"
+    tag = "".join(f"-{d.lower()}" for d in defines)
+    out = BUILD_DIR / f"{name}{tag}-{_source_hash(name, defines)}.so"
     if out.exists():
-        build_seconds[name] = 0.0
+        build_seconds[name + tag] = 0.0
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I", str(CSRC),
+           "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds[name] = time.perf_counter() - t0
+    build_seconds[name + tag] = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed to build {src.name} "
@@ -87,9 +90,11 @@ def _build(name: str) -> Path:
 
 
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built if needed."""
-    lib = ctypes.CDLL(str(_build(name)))
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built if needed, with the
+    macros ``defines`` defined (its `build_seconds` key: ``name`` and
+    ``-<define, lower case>`` for each)."""
+    lib = ctypes.CDLL(str(_build(name, defines)))
     lib.bild_cuda_error_string.argtypes = [ctypes.c_int]
     lib.bild_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -31,7 +31,8 @@ flags; `config.set_rouse_matmul`), float32 only: ``'exact'``;
 sums, ``P c ~ P_hi c_hi + P_hi c_lo + P_lo c_hi`` (``hi = bf16(x)``, ``lo =
 bf16(x - hi)``, round to nearest even; the operators' pairs split from
 the float32-rounded operators, as the reference splits ``Pall_ref[:]``),
-on the H100's tensor cores; ``'split'``, the update contraction ``U1 c``
+on the H100's tensor cores (``wgmma``) in a kernel of its own,
+``csrc/kalman_sym_split.cu``; ``'split'``, the update contraction ``U1 c``
 and the mean propagation ``Ballw M`` split too. In float64 every tier is
 the exact one, bit for bit.
 
@@ -59,7 +60,8 @@ from .kalman_dense import (H100_SMS, SMEM_LIMIT, SMEM_PER_SM,
 __all__ = ["SymOperators", "build_sym_operators", "msrouse_logL_sym",
            "msrouse_logL_sym_torch", "sym_fits", "sym_plan", "SymPlan",
            "sym_smem_bytes", "SYM_OPERATOR_BUDGET", "SYM_TILES", "TIERS",
-           "check_tier", "hi_lo", "split_product", "split_fragments"]
+           "update_contraction", "mean_propagation",
+           "check_tier", "hi_lo", "split_product", "split_stages"]
 
 # Bytes of the stacked packed operators (n * PPp^2 scalars) above which the
 # dense kernel runs instead. Every block reads its state's P_s once per
@@ -80,10 +82,11 @@ SYM_TILES = (32, 16, 8, 4, 2, 1)
 # columns per slab, operator rows per slab at most, covariance columns
 # per thread tile, spatial dimensions at most
 SYM_THREADS, _BK, _ROWS_MAX, _TN, _MAX_D = 256, 8, 256, 4, 4
-# the split tiers' constants: columns per mma tile (n = 8), bytes of one
-# 16 x 16 operator tile's hi and lo fragments, operator m-tiles per slab,
-# (m-tile, column-tile) products per pass (8 warps of 8)
-_TN_SPLIT, _FRAG_BYTES, _MT_SLAB, _ITEMS = 8, 1024, 7, 64
+# the split tiers' constants (csrc/kalman_sym_split.cu): ring stages at
+# least and at most (`sym_plan` takes the most that shared memory allows),
+# operator columns (k) per stage, operator rows per m-block (wgmma's m),
+# columns of a block at most (wgmma's n <= 32 per state)
+_STAGES, _MAX_STAGES, _DEPTH, _MB, _SPLIT_COLS = 3, 16, 32, 64, 32
 
 TIERS = ("exact", "split", "split_cov")
 
@@ -107,35 +110,48 @@ def _a16(nbytes):
 
 def split_ld(PPp) -> int:
     """Covariance column stride of the split tiers (scalars): the depth
-    padded to the mma's 16, then to 4 modulo 32, so that the 32 lanes'
-    B-fragment words (column g, word t: 4 g + t) fall in 32 banks."""
-    K16 = _pad(PPp, 16)
-    return K16 + (4 - K16 % 32) % 32
+    padded to whole stages of ``_DEPTH``, then to 4 modulo 32, so that the
+    16-byte loads of 8 columns at one depth fall in 32 banks."""
+    KP = _pad(PPp, _DEPTH)
+    return KP + (4 - KP % 32) % 32
 
 
-def sym_smem_bytes(tile, n, N, d, q, itemsize, tier="exact") -> int:
+def sym_smem_bytes(tile, n, N, d, q, itemsize, tier="exact",
+                   stages=_STAGES) -> int:
     """Shared memory of one block of the packed kernel with ``tile``
-    profiles (``sym_layout`` in ``csrc/kalman_sym.cu``): two packed
-    covariance buffers of ``tile * q`` columns (stride ``PPp`` plus one
-    16-byte vector; `split_ld` for the split tiers), two ``P_s`` slabs for
-    each of the n states (split: ``_MT_SLAB`` 16-row tiles of hi and lo
-    fragments), two mean buffers, ``Cw`` and ``1/S`` per column, the
-    log-likelihoods, the mean operators ``Ballw, Gsw``, ``w``, ``s2``, one
-    frame's data, the packed index table, the S row of ``U1`` (split
-    tiers only), ``Cind``, the column lists and two slab barriers."""
+    profiles. The exact tier (``sym_layout`` in ``csrc/kalman_sym.cu``):
+    two packed covariance buffers of ``tile * q`` columns (stride ``PPp``
+    plus one 16-byte vector), two ``P_s`` slabs for each of the n states,
+    two mean buffers, ``Cw`` and ``1/S`` per column, the log-likelihoods,
+    the mean operators ``Ballw, Gsw``, ``w``, ``s2``, one frame's data, the
+    packed index table, ``Cind``, the column lists and two slab barriers.
+    The split tiers (``split_layout`` in ``csrc/kalman_sym_split.cu``,
+    float32): the ring of ``stages`` operator stages (a hi and a lo tile of
+    ``_MB x _DEPTH`` bf16 each), one float32 covariance buffer (stride
+    `split_ld`), the columns' bf16 pairs (hi and lo, ``8 x`` the most tiles
+    of 8 the states can take, ``(tile q + 7 n) // 8``, by the depth padded
+    to whole stages), then as the exact tier, with the S row of ``U1`` for
+    'split', the indices of w's nonzero entries (and the S row's, for
+    'split') and a full and an empty barrier per stage."""
     PP = N * (N + 1) // 2
     PPp = _pad(PP, 8)
-    split = tier != "exact"
-    ld = split_ld(PPp) if split else PPp + 16 // itemsize
     ncol = tile * q
-    tn = _TN_SPLIT if split else _TN
-    nct = -(-ncol // tn) + n
-    slab = (2 * n * min(_pad(PP, 16) // 16, _MT_SLAB) * _FRAG_BYTES if split
-            else 2 * n * min(PPp, _ROWS_MAX) * _BK * itemsize)
+    if tier != "exact":
+        KP = _pad(PPp, _DEPTH)
+        nct = (ncol + 7 * n) // 8
+        parts = (4 * ncol * split_ld(PPp), 8 * nct * KP * 4,
+                 4 * tile * (N + 1) * d, 4 * tile * (N + 1) * d, 4 * ncol * N,
+                 4 * ncol, 4 * tile, 4 * n * (N + 1) * N, 4 * n * (N + 1) * d,
+                 4 * N, 4 * q, 4 * d, 2 * PP, 4 * PPp if tier == "split" else 0,
+                 4 * (N + (PPp if tier == "split" else 0)), 4 * d, 4 * 8 * nct,
+                 4 * nct, 4 * tile, 16, 16 * stages)
+        return stages * _MB * _DEPTH * 4 + sum(_a16(x) for x in parts)
+    ld = PPp + 16 // itemsize
+    nct = -(-ncol // _TN) + n
+    slab = 2 * n * min(PPp, _ROWS_MAX) * _BK * itemsize
     floats = (ncol * ld, ncol * ld, tile * (N + 1) * d, tile * (N + 1) * d,
-              ncol * N, ncol, tile, n * (N + 1) * N, n * (N + 1) * d, N, q, d,
-              PPp if split else 0)
-    ints = (d, nct * tn, nct, tile)
+              ncol * N, ncol, tile, n * (N + 1) * N, n * (N + 1) * d, N, q, d)
+    ints = (d, nct * _TN, nct, tile)
     return (sum(_a16(x * itemsize) for x in floats) + _a16(slab) + _a16(2 * PP)
             + sum(_a16(4 * x) for x in ints) + 16 + 16)
 
@@ -144,7 +160,7 @@ def _tile_fits(tile, n, N, d, q, itemsize, tier="exact"):
     if tier == "exact":
         cols = -(-tile * q // _TN) + n <= SYM_THREADS
     else:
-        cols = itemsize == 4 and -(-tile * q // _TN_SPLIT) + n <= _ITEMS
+        cols = itemsize == 4 and tile * q <= _SPLIT_COLS
     return (sym_smem_bytes(tile, n, N, d, q, itemsize, tier) <= SMEM_LIMIT
             and cols)
 
@@ -159,12 +175,14 @@ def sym_fits(n, N, d, q, itemsize, tier="exact") -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class SymPlan:
-    """One launch of the packed kernel: ``tile`` profiles per block."""
+    """One launch of the packed kernel: ``tile`` profiles per block; the
+    split tiers' ring of ``stages`` operator stages (0 in the exact tier)."""
 
     tile: int
     tiles_per_lane: int
     blocks: int
     smem: int
+    stages: int = 0
 
 
 def sym_plan(L, P, n, N, d, q, itemsize, sms=H100_SMS,
@@ -174,8 +192,10 @@ def sym_plan(L, P, n, N, d, q, itemsize, sms=H100_SMS,
     `SYM_TILES`) that fits `SMEM_LIMIT`, keeps two blocks resident per SM
     and still gives every SM two blocks; else the widest that gives every
     SM one block; else the narrowest, so that a single-trajectory step
-    (L=1, P=100) spreads over as many SMs as it has profiles. Raises for
-    shapes that `sym_fits` refuses.
+    (L=1, P=100) spreads over as many SMs as it has profiles. The split
+    tiers then take the deepest operator ring (up to `_MAX_STAGES`) that
+    keeps two blocks per SM where the tile was chosen for two, else that
+    fits `SMEM_LIMIT`. Raises for shapes that `sym_fits` refuses.
     """
     fits = [t for t in SYM_TILES
             if _tile_fits(t, n, N, d, q, itemsize, tier)]
@@ -193,7 +213,17 @@ def sym_plan(L, P, n, N, d, q, itemsize, sms=H100_SMS,
            and blocks(t) >= 2 * sms]
     one = [t for t in fits if blocks(t) >= sms]
     chosen = (two or one or fits[-1:])[0]
-    return SymPlan(chosen, -(-P // chosen), blocks(chosen), smem(chosen))
+    if tier == "exact":
+        return SymPlan(chosen, -(-P // chosen), blocks(chosen), smem(chosen))
+    # the split tiers: the deepest ring that keeps the blocks per SM
+    budget = SMEM_PER_SM // 2 - 1024 if two else SMEM_LIMIT
+    stages = _STAGES
+    while (stages < _MAX_STAGES and sym_smem_bytes(
+            chosen, n, N, d, q, itemsize, tier, stages + 1) <= budget):
+        stages += 1
+    return SymPlan(chosen, -(-P // chosen), blocks(chosen),
+                   sym_smem_bytes(chosen, n, N, d, q, itemsize, tier, stages),
+                   stages)
 
 
 def build_sym_operators(Bs, Gs, Sigs, M0s, C0s, w, pad=8):
@@ -288,37 +318,38 @@ def split_product(product, a_pair, x):
     return product(a_hi, x_hi) + product(a_hi, x_lo) + product(a_lo, x_hi)
 
 
-def split_fragments(Pall, n, PPp) -> np.ndarray:
-    """The split tiers' propagators in the order the kernel streams them:
-    ``(n, KS, MT, 2, 32, 8)`` int16 (bfloat16 bits) for ``KS`` 16-deep
-    k-steps and ``MT`` 16-row m-tiles (rows padded to 16 and columns to 16
-    with zeros), per tile the hi then the lo operand in the
-    ``mma.m16n8k16`` A-fragment order: lane ``l = 4 g + t`` holds rows
-    ``g, g+8`` at columns ``2t, 2t+1`` and ``2t+8, 2t+9`` as
-    ``A[g][2t], A[g][2t+1], A[g+8][2t], A[g+8][2t+1], A[g][2t+8],
-    A[g][2t+9], A[g+8][2t+8], A[g+8][2t+9]``, so one 16-byte load gives a
-    lane its four registers. ``Pall`` is split from float32 (`hi_lo`)."""
-    K16 = _pad(PPp, 16)          # also the rows: _pad(PP, 16) == _pad(PPp, 16)
+def split_stages(Pall, n, PPp) -> np.ndarray:
+    """The split tiers' propagators in the order the kernel streams them,
+    ``(n, 2 KP^2)`` int16 (bfloat16 bits; ``KP`` = PPp padded to whole
+    stages of ``_DEPTH``, rows and columns padded with zeros). Per state,
+    per m-block of ``_MB`` rows (the last one ``KP - _MB mb`` rows), per
+    stage of ``_DEPTH`` operator columns: the hi tile, then the lo tile,
+    each ``rows x _DEPTH`` in wgmma's K-major core matrices without
+    swizzle, core matrix (8 rows x 8 columns, 128 contiguous bytes) ``(rg,
+    kg)`` at ``rg * _DEPTH / 8 + kg``, row-major inside. ``Pall`` is split
+    from float32 (`hi_lo`)."""
+    KP = _pad(PPp, _DEPTH)
     A = torch.as_tensor(np.asarray(Pall).reshape(n, PPp, PPp),
                         dtype=torch.float32)
-    out = np.zeros((2, n, K16, K16), dtype=np.int16)
+    full = np.zeros((2, n, KP, KP), dtype=np.int16)
     for i, half in enumerate(hi_lo(A)):
-        out[i, :, :PPp, :PPp] = half.view(torch.int16).numpy()
-    lane = np.arange(32)[:, None]
-    h = np.arange(8)[None, :]
-    rows = lane // 4 + 8 * ((h // 2) % 2)             # (32, 8)
-    cols = 2 * (lane % 4) + h % 2 + 8 * (h // 4)
-    tiles = out.reshape(2, n, K16 // 16, 16, K16 // 16, 16)
-    frag = tiles[:, :, :, rows, :, cols]                # (32, 8, 2, n, MT, KS)
-    return np.ascontiguousarray(frag.transpose(3, 5, 4, 2, 0, 1))
+        full[i, :, :PPp, :PPp] = half.view(torch.int16).numpy()
+    stream = []
+    for r0 in range(0, KP, _MB):
+        rows = min(_MB, KP - r0)
+        for k0 in range(0, KP, _DEPTH):
+            tile = full[:, :, r0:r0 + rows, k0:k0 + _DEPTH]
+            cores = tile.reshape(2, n, rows // 8, 8, _DEPTH // 8, 8)
+            stream.append(cores.transpose(1, 0, 2, 4, 3, 5).reshape(n, -1))
+    return np.ascontiguousarray(np.concatenate(stream, axis=1))
 
 
 @dataclasses.dataclass(frozen=True)
 class SymOperators:
     """The packed operators as tensors of one dtype on one device. The
     CUDA kernel reads ``Pslab``, the propagators in its order
-    (`slab_operators`; built for a CUDA device only), and in a split tier
-    ``Psplit`` and ``Srow``. The plain version reads ``Pall`` and ``U1``,
+    (`slab_operators`; built for a CUDA device only), and the split tiers'
+    kernel ``Psplit`` and ``Srow``. The plain version reads ``Pall`` and ``U1``,
     made on the device from the float64 host arrays ``host`` when it
     first runs, and in a split tier ``pairs``."""
 
@@ -376,8 +407,8 @@ class SymOperators:
     @functools.cached_property
     def Psplit(self) -> torch.Tensor:
         """The split tiers' propagators in the kernel's order
-        (`split_fragments`), on the operators' device."""
-        return torch.as_tensor(split_fragments(self.host[0], self.n, self.PPp),
+        (`split_stages`), on the operators' device."""
+        return torch.as_tensor(split_stages(self.host[0], self.n, self.PPp),
                                device=self.sig.device)
 
     @functools.cached_property
@@ -396,6 +427,30 @@ class SymOperators:
         return self.Ballw.shape[1]
 
 
+def update_contraction(ops: SymOperators, c, s2, split=False):
+    """The update contraction ``R1 = U1 c`` of packed covariances ``c``
+    (..., q, PPp): ``(Cw (..., q, N), Sinv (..., q))``, ``Sinv = 1 / (S +
+    s2)``; ``split``: each product split (`split_product`), 'split''s."""
+    if split:
+        R1 = split_product(lambda a, v: v @ a.T, ops.pairs["U1"], c)
+    else:
+        R1 = c @ ops.U1.T
+    return R1[..., :ops.N], 1.0 / (R1[..., ops.S_OFF] + s2)
+
+
+def mean_propagation(ops: SymOperators, M, st, split=False):
+    """``Ballw_s M + Gsw_s`` for means ``M`` (R, N1p or N + 1, d) in states
+    ``st`` (R,): (R, N1p, d); ``split``: each product split, 'split''s."""
+    Mt = M[:, :ops.N]
+    if split:
+        BM = split_product(lambda a, v: torch.einsum("rk,pkd->prd", a, v),
+                           ops.pairs["Ballw"], Mt)
+    else:
+        BM = torch.einsum("rk,pkd->prd", ops.Ballw, Mt)
+    rows = torch.arange(M.shape[0], device=M.device)
+    return BM.view(M.shape[0], ops.n, ops.N1p, -1)[rows, st] + ops.Gsw[st]
+
+
 def msrouse_logL_sym_torch(ops: SymOperators, s2, Cind, profiles, ydata,
                            valid, matmul="exact"):
     """Plain PyTorch version of the packed kernel: the same algorithm on
@@ -409,19 +464,8 @@ def msrouse_logL_sym_torch(ops: SymOperators, s2, Cind, profiles, ydata,
     split_cov = matmul != "exact" and ydata.dtype == torch.float32
     split_upd = split_cov and matmul == "split"
 
-    def mat(x, name, split):                               # x @ A.T
-        if split:
-            return split_product(lambda a, v: v @ a.T, ops.pairs[name], x)
-        return x @ getattr(ops, name).T
-
-    def means(M):                                          # Ballw M, per row
-        if split_upd:
-            return split_product(lambda a, v: torch.einsum("rk,pkd->prd", a, v),
-                                 ops.pairs["Ballw"], M)
-        return torch.einsum("rk,pkd->prd", ops.Ballw, M)
-
     profiles, ydata, valid, single = as_lanes(profiles, ydata, valid)
-    n, N, PPp, S_OFF, N1p = ops.n, ops.N, ops.PPp, ops.S_OFF, ops.N1p
+    n, N, PPp = ops.n, ops.N, ops.PPp
     L, P, T = profiles.shape
     R = L * P
     q = s2.shape[0]
@@ -438,9 +482,7 @@ def msrouse_logL_sym_torch(ops: SymOperators, s2, Cind, profiles, ydata,
 
     def observe(t, c, M, acc):
         y = ydata[lane, t]                                 # (R, d)
-        R1 = mat(c, "U1", split_upd)                       # (R, q, U1Rows)
-        Sinv = 1.0 / (R1[..., S_OFF] + s2)                 # (R, q)
-        Cw = R1[..., :N]                                   # (R, q, N)
+        Cw, Sinv = update_contraction(ops, c, s2, split_upd)  # (R, q, N), (R, q)
         upd = torch.zeros_like(c)
         upd[..., :len(ia)] = Cw[..., ia] * Cw[..., ja]
         c_u = c - upd * Sinv[..., None]
@@ -459,10 +501,12 @@ def msrouse_logL_sym_torch(ops: SymOperators, s2, Cind, profiles, ydata,
     rows = torch.arange(R, device=dev)
     for t in range(1, T):
         st = prof[:, t]
-        Pc = mat(c, "Pall", split_cov).view(R, q, n, PPp)   # every state
-        c = Pc[rows, :, st] + ops.sig[st][:, None, :]
-        BM = means(M[:, :N])
-        M = BM.view(R, n, N1p, -1)[rows, st] + ops.Gsw[st]
+        if split_cov:                                      # every state
+            Pc = split_product(lambda a, v: v @ a.T, ops.pairs["Pall"], c)
+        else:
+            Pc = c @ ops.Pall.T
+        c = Pc.view(R, q, n, PPp)[rows, :, st] + ops.sig[st][:, None, :]
+        M = mean_propagation(ops, M, st, split_upd)
         c, M, acc = observe(t, c, M, acc)
 
     acc = acc.view(L, P)
@@ -525,18 +569,19 @@ def msrouse_logL_sym(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind, profiles, ydata,
     if L * P > 0:
         if tier == "exact":
             lib, fn = _build.entry("kalman_sym", f"bild_kalman_sym_{sfx}", 13, 12)
-            ptrs = (ops.Pslab.data_ptr(),)
+            ptrs, ints = (ops.Pslab.data_ptr(),), ()
         else:
             name = "split" if tier == "split" else "splitcov"
-            lib, fn = _build.entry("kalman_sym", f"bild_kalman_sym_{name}_f32",
-                                   14, 12)
+            lib, fn = _build.entry("kalman_sym_split",
+                                   f"bild_kalman_sym_{name}_f32", 14, 13)
             ptrs = (ops.Psplit.data_ptr(), ops.Srow.data_ptr())
+            ints = (plan.stages,)
         rc = fn(*ptrs, ops.sig.data_ptr(), ops.c0.data_ptr(),
                 w.data_ptr(), ops.Ballw.data_ptr(), ops.Gsw.data_ptr(),
                 ops.M0w.data_ptr(), s2.data_ptr(), Cind.data_ptr(),
                 profiles.data_ptr(), ydata.data_ptr(), valid.data_ptr(),
                 out.data_ptr(), n, N, d, q, L, P, T, ops.PPp, ops.N1p,
-                plan.tile, plan.smem, index,
+                plan.tile, *ints, plan.smem, index,
                 torch.cuda.current_stream(ydata.device).cuda_stream)
         msrouse_logL_sym.launches += 1
         if tier != "exact":

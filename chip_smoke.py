@@ -5,8 +5,8 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
     python3 chip_smoke.py          (from the repository root)
 
 1. Builds the CUDA kernels of ``bild_tpu_torch/csrc/`` (into
-   ``bild_tpu_torch/_build/``), one nvcc per source, all at once, and
-   prints the build seconds.
+   ``bild_tpu_torch/_build/``), one nvcc per source, and the split
+   kernel's probe build, all at once, and prints the build seconds.
 2. Kernel phase: each kernel against its plain PyTorch version on the card
    (float32, rtol 2e-5 per profile) and against the float64 oracle
    (float32: rtol 2e-5; the kernels' float64 build: rtol 1e-9), at the
@@ -52,13 +52,16 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    profiles per shape against the numpy float64 oracle; rtol 2e-5 at T=100
    and 300, `F32_CENTERED_NATS_T1000` where T=1000 misses it.
 6b'. Split phase: the packed kernel's split-bf16 tiers ('split_cov',
-   'split'; the conjugation on bf16 tensor cores) against their plain
+   'split'; csrc/kalman_sym_split.cu, the conjugation on wgmma) against their plain
    split versions at `kernel_cases()` and at the dataset run's lockstep
    launches ('split_cov' rtol 1e-4; 'split' within twice its plain
    version's error against the float64 build), and at those launches cut
    to one frame ('split') and two ('split_cov'): each tier within 1e-6 of
    its plain version, and shifted from the exact tier as its plain version
-   is; bit for bit across
+   is; at each of those launches the probe build's frame 1 of the first
+   tile (the update contraction's Cw and 1/S and the propagated means)
+   against the plain steps on the same inputs (`PROBE_RTOL`), and at least
+   twice that from the other tier's steps; bit for bit across
    permuted, subset and single-lane launches at L=640; the ladder's
    rungs against the float64 build beside bild_tpu's TPU readings
    ('split_cov' within 1e-4 and 0.1 centered nats at T=100; for 'split'
@@ -175,6 +178,7 @@ from __future__ import annotations
 import datetime
 import functools
 import json
+import math
 import os
 import socket
 import subprocess
@@ -898,6 +902,86 @@ def shift_slope(got, want):
     return float(got @ want / (want @ want))
 
 
+# The split kernel's probe build (csrc/kalman_sym_split.cu with
+# PROBE_DEFINE): the first tile of a lockstep launch writes what frame 1's
+# update contraction and mean propagation read and wrote. The plain
+# version's steps (ops/kalman_sym.py::update_contraction,
+# mean_propagation) applied to those same input bits differ from the
+# kernel's outputs by float32 summation order only: each quantity within
+# PROBE_RTOL of its largest entry (the plain steps with their sums taken in
+# float64 move by at most 1.05e-7 on the CPU). The steps without the split
+# (Cw rows exact, means exact) land at least 1.6e-6 away there, so a
+# kernel is also held at least 2 x PROBE_RTOL from the other variant:
+# 'split' must split Cw and the means, 'split_cov' must not
+# (tests/test_torch_matmul_tiers.py::test_split_probe_bar_tells_the_splits_apart).
+PROBE_RTOL = 4e-7
+PROBE_DEFINE = "BILD_SPLIT_PROBE"
+
+
+def split_probe(tier, ops, w, s2, Cind, prof, ydata, valid):
+    """Frame 1's update contraction and mean propagation of the split
+    kernel's first tile (its probe build) against the plain steps on the
+    kernel's own inputs; frames 0 and 1 are observed. Returns the line."""
+    import ctypes
+    from bild_tpu_torch.ops import _build
+    from bild_tpu_torch.ops.kalman_dense import cind_tensor
+    from bild_tpu_torch.ops.kalman_sym import (mean_propagation, sym_plan,
+                                               update_contraction)
+    lib = _build.load("kalman_sym_split", (PROBE_DEFINE,))
+    fn = getattr(lib, "bild_kalman_sym_split_f32" if tier == "split"
+                 else "bild_kalman_sym_splitcov_f32")
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    lib.bild_split_probe_set.argtypes = [ctypes.c_void_p]
+    L, P, T = prof.shape
+    n, N, d, q = ops.n, ops.N, ydata.shape[2], s2.shape[0]
+    PP, N1 = N * (N + 1) // 2, N + 1
+    plan = sym_plan(L, P, n, N, d, q, 4, tier=tier)
+    tp = min(plan.tile, P)
+    ncol = tp * q
+    buf = torch.full((ncol * (PP + N + 1) + 2 * tp * N1 * d,), math.nan, device=DEVICE)
+    check(lib.bild_split_probe_set(buf.data_ptr()) == 0, "probe buffer set")
+    valid = valid.clone()
+    valid[:, :2] = True
+    cind = cind_tensor(Cind, d, ydata.device)
+    out = torch.empty((L, P), device=DEVICE)
+    rc = fn(ops.Psplit.data_ptr(), ops.Srow.data_ptr(), ops.sig.data_ptr(),
+            ops.c0.data_ptr(), w.data_ptr(), ops.Ballw.data_ptr(), ops.Gsw.data_ptr(),
+            ops.M0w.data_ptr(), s2.data_ptr(), cind.data_ptr(), prof.data_ptr(),
+            ydata.data_ptr(), valid.data_ptr(), out.data_ptr(), n, N, d, q, L, P, T,
+            ops.PPp, ops.N1p, plan.tile, plan.stages, plan.smem, ydata.device.index or 0,
+            torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"probe launch of {tier} (rc {rc})")
+    torch.cuda.synchronize()
+    parts = torch.split(buf, [ncol * PP, ncol * N, ncol, tp * N1 * d, tp * N1 * d])
+    c = torch.zeros((tp, q, ops.PPp), device=DEVICE)
+    c[..., :PP] = parts[0].view(tp, q, PP)
+    got = {"Cw": parts[1].view(tp, q, N), "1/S": parts[2].view(tp, q),
+           "Mn": parts[4].view(tp, N1, d)}
+    M = parts[3].view(tp, N1, d)
+    check(bool(torch.isfinite(c).all() and torch.isfinite(M).all()) and bool(M.abs().max() > 0),
+          f"probe {tier}: the kernel wrote its inputs")
+    st = prof[0, :tp, 1].long().clamp(0, n - 1)
+
+    def steps(split):
+        Cw, Sinv = update_contraction(ops, c, s2, split)
+        return {"Cw": Cw, "1/S": Sinv, "Mn": mean_propagation(ops, M, st, split)[:, :N1]}
+
+    def r(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    own, other = steps(tier == "split"), steps(tier != "split")
+    e = {k: r(got[k], own[k]) for k in got}
+    sep = {k: r(got[k], other[k]) for k in got}
+    line = (f"split {tier:9s} probe, frame 1 of tile 0 at L={L} P={P}: kernel against its "
+            f"plain steps on the same inputs " + ", ".join(f"{k} {v:.2e}" for k, v in e.items())
+            + f" (bar {PROBE_RTOL:.0e}); from the {'exact' if tier == 'split' else 'split'} "
+            f"steps " + ", ".join(f"{k} {v:.2e}" for k, v in sep.items())
+            + f" (Cw, Mn at least {2 * PROBE_RTOL:.0e})")
+    check(max(e.values()) <= PROBE_RTOL, f"{line}: kernel within its bar")
+    check(min(sep["Cw"], sep["Mn"]) >= 2 * PROBE_RTOL, f"{line}: the tier's own split")
+    return line
+
+
 def split_bar(tier, plain_f64):
     """The kernel-against-plain bar of ``tier`` (see `RTOL_SPLIT`), given
     the plain split version's max relative error against the float64
@@ -1086,6 +1170,9 @@ def split_phase(bt, rng):
                 check(all(same), f"{line}: the same bits in every launch shape")
             print(line, flush=True)
         hold_short(label, L, P, prof, ydata, valid)
+        for tier in SPLIT_TIERS:
+            print(split_probe(tier, ops, model.w, s2, Cind, prof.clamp(0, 1).contiguous(),
+                              ydata, valid), flush=True)
         del prof, ydata, valid, f64
 
     # -- the ladder ----------------------------------------------------------
@@ -3005,10 +3092,13 @@ def main():
     bt.config.exact_fp32()
 
     names = ("kalman_sym", "kalman_dense")
-    with ThreadPoolExecutor(len(names)) as pool:
-        list(pool.map(_build.load, names))      # one nvcc per source, at once
-    for name in names:
-        print(f"build {name}: {_build.build_seconds[name]:.2f} s", flush=True)
+    builds = [(name, ()) for name in ("kalman_sym", "kalman_sym_split", "kalman_dense")]
+    builds.append(("kalman_sym_split", (PROBE_DEFINE,)))   # split_phase's probe
+    with ThreadPoolExecutor(len(builds)) as pool:           # one nvcc per build, at once
+        list(pool.map(lambda b: _build.load(*b), builds))
+    for name, defines in builds:
+        key = name + "".join(f"-{x.lower()}" for x in defines)
+        print(f"build {key}: {_build.build_seconds[key]:.2f} s", flush=True)
 
     rng = np.random.default_rng(20261016)
     max_abs = kernel_phase(bt, rng)
@@ -3077,8 +3167,8 @@ def main():
             row.update({f"{key}_ms": ms, f"{key}_plain_ms": plain_ms,
                         f"{key}_bound_ms": bnd})
         kernels.append(row)
-    # the split tiers of the packed kernel: a kernel of its own in the
-    # library (kalman_sym_kernel<float, 1 | 2>). Its main path is the
+    # the split tiers of the packed kernel: a kernel of its own
+    # (csrc/kalman_sym_split.cu). Its main path is the
     # lockstep dataset run under 'auto' (the split phase's config 3 runs,
     # and every other lockstep run if 'auto' is the default):
     # "ms", "plain_ms" and "bound_ms" are the 'split' tier's at config 3's
@@ -3089,7 +3179,7 @@ def main():
     st = split["times"]
     kernels.insert(1, {
         "name": "kalman_sym_split", "route": "cuda",
-        "source": "bild_tpu_torch/csrc/kalman_sym.cu",
+        "source": "bild_tpu_torch/csrc/kalman_sym_split.cu",
         "replaces": "bild_tpu/ops/kalman_sym.py:189 (split_bf16)",
         "launches": split["launches"] + sum(r.get("kalman_sym_split", 0)
                                             for r in main_path),

@@ -303,31 +303,85 @@ def test_operator_pairs_equal_bild_tpu_hi_lo(rng, N, n):
 
 @pytest.mark.parametrize("N,n", [(20, 2), (6, 3), (1, 2)])
 def test_split_fragments_hold_the_pairs(rng, N, n):
-    """The kernel's A fragments (``split_fragments``) hold every operator
-    entry's hi and lo at its mma.m16n8k16 place (lane 4g + t: rows g and
-    g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9 of each 16 x 16 tile) and
-    zeros in the padding to 16."""
+    """The split kernel's operator stream (``split_stages``), read back at
+    the offsets its producer copies from (state s, m-block mb of 64 rows,
+    stage kc of _DEPTH columns at byte (s KP^2 + 64 mb KP + rows _DEPTH
+    kc) 4, the hi tile then the lo tile, core matrix (rg, kg) at 128 (rg
+    _DEPTH / 8 + kg)), holds every operator entry's hi and lo bit for bit
+    and zeros in the padding to whole stages."""
     Bs = rng.normal(size=(n, N, N))
     Pall, *_, PPp, _ = kalman_sym.build_sym_operators(
         Bs, rng.normal(size=(n, N, 1)), Bs, rng.normal(size=(n, N, 1)), Bs,
         rng.normal(size=N))
-    frag = kalman_sym.split_fragments(Pall, n, PPp)
-    K16 = -(-PPp // 16) * 16
-    KS = K16 // 16
-    assert frag.shape == (n, KS, KS, 2, 32, 8) and frag.dtype == np.int16
-    back = np.zeros((2, n, K16, K16), dtype=np.int16)
-    for lane, h in itertools.product(range(32), range(8)):
-        g, t = divmod(lane, 4)
-        r = g + 8 * ((h // 2) % 2)
-        k = 2 * t + h % 2 + 8 * (h // 4)
-        for ks, mt in itertools.product(range(KS), range(KS)):
-            back[:, :, 16 * mt + r, 16 * ks + k] = frag[:, ks, mt, :, lane, h].T
+    stream = kalman_sym.split_stages(Pall, n, PPp)
+    D = kalman_sym._DEPTH
+    KP = -(-PPp // D) * D
+    assert stream.shape == (n, 2 * KP * KP) and stream.dtype == np.int16
+    raw = stream.view(np.uint8)
+    back = np.zeros((2, n, KP, KP), dtype=np.int16)
+    for s, mb, kc, half in itertools.product(range(n), range(-(-KP // 64)),
+                                             range(KP // D), range(2)):
+        rows = min(64, KP - 64 * mb)
+        at = (64 * mb * KP + rows * D * kc) * 4 + half * rows * D * 2
+        tile = raw[s, at:at + rows * D * 2].view(np.int16)
+        back[half, s, 64 * mb:64 * mb + rows, D * kc:D * (kc + 1)] = (
+            tile.reshape(rows // 8, D // 8, 8, 8).transpose(0, 2, 1, 3)
+            .reshape(rows, D))
     pairs = kalman_sym.hi_lo(torch.as_tensor(Pall.reshape(n, PPp, PPp),
                                              dtype=torch.float32))
     for half, pair in zip(back, pairs):
         np.testing.assert_array_equal(half[:, :PPp, :PPp],
                                       pair.view(torch.int16).numpy())
         assert not half[:, PPp:].any() and not half[:, :, PPp:].any()
+
+
+# chip_smoke.py's bar for the split kernel's probe (PROBE_RTOL): frame 1's
+# Cw, 1/S and propagated means against the plain steps on the kernel's own
+# inputs, relative to each quantity's largest entry
+PROBE_RTOL = 4e-7
+
+
+@pytest.mark.parametrize("case", list(SHORT))
+def test_split_probe_bar_tells_the_splits_apart(rng, case):
+    """The plain update contraction and mean propagation of 'split'
+    (``update_contraction``, ``mean_propagation``) with their split sums
+    taken in float64 stay within PROBE_RTOL of float32 (another summation
+    order moves them less than the bar), and a copy without the Cw split
+    or without the means split lands at least twice the bar away (so the
+    probe sees whether a kernel splits them)."""
+    _, tm, *_ = short_lanes(rng, 2, **SHORT[case])
+    ops = kalman_sym.SymOperators.build(*tm[:6], device="cpu",
+                                        dtype=torch.float32)
+    s2, R = tm[6], 64
+    st = torch.as_tensor(rng.integers(0, 2, R))
+    c0 = ops.c0[st][:, None, :].expand(R, s2.shape[0], -1)
+    c = (c0 @ ops.Pall.T).view(R, -1, ops.n, ops.PPp)[torch.arange(R), :, st] \
+        + ops.sig[st][:, None, :]
+    M = 0.3 * torch.as_tensor(rng.normal(size=(R, ops.N1p, 3)), dtype=torch.float32)
+
+    def steps(split):
+        Cw, Sinv = kalman_sym.update_contraction(ops, c, s2, split)
+        return Cw, Sinv, kalman_sym.mean_propagation(ops, M, st, split)
+
+    def f64_sums(product, a_pair, x):
+        a_hi, a_lo = (v.double() for v in a_pair)
+        x_hi, x_lo = (v.double() for v in kalman_sym.hi_lo(x))
+        return (product(a_hi, x_hi) + product(a_hi, x_lo)
+                + product(a_lo, x_hi)).float()
+
+    def r(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    split, exact = steps(True), steps(False)
+    split_product = kalman_sym.split_product
+    kalman_sym.split_product = f64_sums
+    try:
+        other_order = steps(True)
+    finally:
+        kalman_sym.split_product = split_product
+    assert max(r(a, b) for a, b in zip(other_order, split)) <= PROBE_RTOL
+    assert r(exact[0], split[0]) >= 2 * PROBE_RTOL          # Cw
+    assert r(exact[2], split[2]) >= 2 * PROBE_RTOL          # the means
 
 
 def test_split_tier_sensitive_to_summation_order(rng, monkeypatch):
@@ -390,22 +444,35 @@ def test_wrapper_resolves_the_single_context(rng, restore_matmul):
 
 
 def test_split_layout_and_plan_at_the_lockstep_tile():
-    """The split tiers' shared memory at TP=32, n=2, N=20, d=3, q=1
-    (each part rounded up to 16 bytes): c and cn 2 x 32 x 228 x 4 (the
-    stride padded to 224 and then to 4 mod 32), the slabs 2 x 2 x 7 x 1
-    KB, the means, Cw, 1/S, ll, Ballw, Gsw, w, s2, y and the index table
-    as in the exact tier, U1's S row 216 x 4, Cind, the lists of 8-column
-    tiles 6 x 8 x 4 + 6 x 4 (-> 32) + 32 x 4, the counts and the barriers:
-    111,664 bytes, still two blocks per SM and 32-profile tiles. The split
-    tiers take float32 only."""
-    want = (2 * 29184 + 28672 + 16128 + 2560 + 256 + 3360 + 512 + 80 + 16
-            + 16 + 432 + 864 + 16 + 192 + 32 + 128 + 16 + 16)
-    for tier in SPLIT:
-        assert kalman_sym.sym_smem_bytes(32, 2, 20, 3, 1, 4, tier) == want == 111664
+    """The split kernel's shared memory at TP=32, n=2, N=20, d=3, q=1
+    (each part rounded up to 16 bytes): the ring of 3 stages of a 64 x 32
+    hi and lo tile, 3 x 8 KB; the float32 covariances 32 x 228 x 4 (the
+    depth 216 padded to whole 32-deep stages, then to 4 mod 32); the
+    columns' bf16 pairs, 40 slots (the 5 tiles of 8 that 32 columns in two
+    states take at most) x 224 x 2 x 2; the means, Cw, 1/S, ll, Ballw, Gsw,
+    w, s2, y and the index table as in the exact tier; U1's S row 216 x 4
+    ('split' only); the indices of w's nonzero entries 20 x 4 (and the S
+    row's 216 x 4, 'split' only); Cind, the slot list 40 x 4, the tile
+    states 5 x 4 (-> 32), the profile states, 4 counts and a full and an
+    empty barrier per stage: 113,440 bytes ('split_cov') and 115,168
+    ('split'), still two blocks per SM, so 3 stages, and 32-profile tiles.
+    A block takes at most 32 columns (tile x q), so three localization
+    errors give tiles of 8. At one trajectory (L=1, P=100: one profile a
+    block, one block an SM) the ring takes 16 stages. The split tiers take
+    float32 only."""
+    common = (24576 + 29184 + 35840 + 2 * 8064 + 2560 + 128 + 128 + 3360 + 512
+              + 80 + 16 + 16 + 432 + 80 + 16 + 160 + 32 + 128 + 16 + 48)
+    for tier, want in (("split_cov", common), ("split", common + 2 * 864)):
+        assert kalman_sym.sym_smem_bytes(32, 2, 20, 3, 1, 4, tier) == want
         plan = kalman_sym.sym_plan(640, 128, 2, 20, 3, 1, 4, tier=tier)
         assert plan.tile == 32 and plan.smem == want
+        assert plan.stages == 3
+        one = kalman_sym.sym_plan(1, 100, 2, 20, 3, 1, 4, tier=tier)
+        assert (one.tile, one.stages) == (1, 16)
         assert 2 * (plan.smem + 1024) <= kalman_sym.SMEM_PER_SM
+        assert kalman_sym.sym_plan(640, 128, 2, 20, 3, 3, 4, tier=tier).tile == 8
         assert not kalman_sym.sym_fits(2, 20, 3, 1, 8, tier)
+    assert common == 113440
     assert kalman_sym.split_ld(216) == 228 and kalman_sym.split_ld(40) == 68
     assert kalman_sym.sym_smem_bytes(32, 2, 20, 3, 1, 4) == 107712
 

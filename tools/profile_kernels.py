@@ -1,31 +1,44 @@
 #!/usr/bin/env python3
 """
-Where the time of the port's two CUDA likelihood kernels goes, on one GPU.
+Where the time of the port's CUDA likelihood kernels goes, on one GPU.
 
-    python3 tools/profile_kernels.py        (from the repository root)
+    python3 tools/profile_kernels.py [--tree DIR] [--split-only]
+
+(from the repository root). ``--tree`` profiles the checkout at DIR (for
+example the parent commit unpacked by ``git archive`` under the
+git-ignored ``_chip/``) instead of this one; ``--split-only`` skips the
+exact tier and the dense kernel.
 
 At config 3's lockstep launch (L=640 lanes x P=128 profiles, T=100, the
 README model N=20, d=3, two states, float32):
 
-1. Times both kernels (CUDA events, mean of 3 after a warm-up) with every
-   frame observed, with no frame observed (no measurement update: the
-   difference is the update's time), and, for the packed kernel, with every
-   profile in one state (half the operator bytes streamed per tile-frame).
-2. Builds ``csrc/kalman_sym.cu`` once more with its phase marks
-   (``BILD_PHASE``) defined, into ``bild_tpu_torch/_build/`` (the package
-   never loads it): thread 0 of every block adds the ``clock64()`` cycles
-   since the last mark to the phase the mark ends. Runs it at the lockstep
-   launch and at the single-trajectory step (L=1, P=100), and prints each
-   phase's share of thread 0's cycles. Thread 0 takes part in every block
-   barrier, so its cycles are the block's frame time; a phase that ends in
-   a barrier includes the wait for the slowest thread. The counters cost
-   registers, so the instrumented kernel reads a little slower.
+1. Times the exact packed kernel and the dense kernel (CUDA events, mean
+   of 3 after a warm-up) with every frame observed, with no frame observed
+   (no measurement update: the difference is the update's time), and, for
+   the packed kernel, with every profile in one state (half the operator
+   bytes streamed per tile-frame).
+2. Builds the packed kernel's exact tier (``csrc/kalman_sym.cu``) once
+   more with its phase marks (``BILD_PHASE``) defined, into the package's
+   ``_build/`` (the package never loads it): thread 0 of every block adds
+   the ``clock64()`` cycles since the last mark to the phase the mark ends.
+   Runs it at the lockstep launch and at the single-trajectory step (L=1,
+   P=100), and prints each phase's share of thread 0's cycles.
+3. The same for the split-bf16 tiers ('split_cov', 'split'), built from
+   ``csrc/kalman_sym_split.cu`` with its marks (`SPLIT_PHASES`), plus each
+   tier's plain time at both launches. A tree from before that source
+   existed (the split tiers inside ``csrc/kalman_sym.cu``, which has no
+   marks in its split path) is instrumented by inserting the same phases'
+   marks at the lines `PARENT_SPLIT_MARKS` names.
 
-Prints the card's name and power limit first. Needs one CUDA device and
-nvcc; imports no JAX.
+Thread 0 takes part in every barrier of the frame loop, so its cycles are
+the block's frame time; a phase that ends in a barrier includes the wait
+for the slowest thread. The counters cost registers, so the instrumented
+kernel reads a little slower. Prints the card's name and power limit
+first. Needs one CUDA device and nvcc; imports no JAX.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -34,14 +47,36 @@ from pathlib import Path
 import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-
-import bild_tpu_torch as bt  # noqa: E402
-from bild_tpu_torch.ops import _build, kalman_dense, kalman_sym  # noqa: E402
-
 N, D, KSPRING, DIM, T = 20, 1.0, 5.0, 3, 100
 PHASES = ("partition", "prologue + means", "slab wait + barrier",
           "issue next slab", "product (FMA)", "epilogue + barrier", "update")
+SPLIT_PHASES = ("partition", "split c into bf16 pairs", "means",
+                "conjugation (waits + mma)", "epilogue + barrier",
+                "update contraction (Cw, S)", "downdate, mean update, logL")
+# The split path of csrc/kalman_sym.cu before the split tiers had a source
+# of their own: (line, the same line with SPLIT_PHASES' mark beside it).
+PARENT_SPLIT_MARKS = (
+    ("    // m-tiles per pass: at most a slab's",
+     "    BILD_PHASE(1);\n    // m-tiles per pass: at most a slab's"),
+    ("      if (mt0 == 0) propagate_means();\n      for (int ks = 0; ks < KS; ++ks) {",
+     "      if (mt0 == 0) propagate_means();\n      BILD_PHASE(2);\n"
+     "      for (int ks = 0; ks < KS; ++ks) {"),
+    ("#pragma unroll\n      for (int j = 0; j < kItems; ++j) {\n"
+     "        const int item = warp + j * nwarps;\n        if (item >= items) continue;",
+     "      BILD_PHASE(3);\n#pragma unroll\n      for (int j = 0; j < kItems; ++j) {\n"
+     "        const int item = warp + j * nwarps;\n        if (item >= items) continue;"),
+    ("\n    }\n    __syncthreads();\n  };\n\n  prefetch(0);",
+     "\n      BILD_PHASE(4);\n    }\n    __syncthreads();\n    BILD_PHASE(4);\n  };\n\n"
+     "  prefetch(0);"),
+    ("      Sinv[col] = scalar_t(1) / (((hh + hl) + lh) + s2[col % q]);\n    }\n"
+     "    __syncthreads();\n",
+     "      Sinv[col] = scalar_t(1) / (((hh + hl) + lh) + s2[col % q]);\n    }\n"
+     "    __syncthreads();\n    BILD_PHASE(5);\n"),
+    ("      Sinv[col] = scalar_t(1) / (dot(R + col * N, w, N) + s2[col % q]);\n"
+     "    __syncthreads();\n",
+     "      Sinv[col] = scalar_t(1) / (dot(R + col * N, w, N) + s2[col % q]);\n"
+     "    __syncthreads();\n    BILD_PHASE(5);\n"),
+)
 
 
 def time_ms(fn, reps=3):
@@ -57,10 +92,10 @@ def time_ms(fn, reps=3):
     return start.elapsed_time(stop) / reps
 
 
-# Defines the phase marks of csrc/kalman_sym.cu (empty in the package's
-# build), then includes that source unchanged: thread 0 of every block sums
-# the clock64() cycles of each phase, and of the whole frame loop in slot
-# 7, into a device array that two added C functions zero and read.
+# Defines the phase marks (empty in the package's build), then includes a
+# kernel source unchanged: thread 0 of every block sums the clock64()
+# cycles of each phase, and of the whole frame loop in slot 7, into a
+# device array that two added C functions zero and read.
 PHASE_SOURCE = r"""
 __device__ unsigned long long g_phase[8];
 #define BILD_PHASE_START() \
@@ -70,7 +105,7 @@ __device__ unsigned long long g_phase[8];
 #define BILD_PHASE_END() \
   do { bild_ph[7] = clock64() - bild_t0; \
        if (threadIdx.x == 0) for (int k_ = 0; k_ < 8; ++k_) atomicAdd(&g_phase[k_], bild_ph[k_]); } while (0)
-#include "kalman_sym.cu"
+#include "%s"
 extern "C" int bild_phase_read(unsigned long long* h) {
   return (int)cudaMemcpyFromSymbol(h, g_phase, sizeof(g_phase)); }
 extern "C" int bild_phase_zero() { unsigned long long z[8] = {};
@@ -78,27 +113,97 @@ extern "C" int bild_phase_zero() { unsigned long long z[8] = {};
 """
 
 
-def build_instrumented() -> ctypes.CDLL:
+def build_instrumented(_build, source: Path, tag: str, symbols, n_ptr, n_int) -> ctypes.CDLL:
+    """``source`` with its phase marks defined, as ``_build/<tag>.so``."""
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = _build.BUILD_DIR / "kalman_sym_phases.cu"
-    so = _build.BUILD_DIR / "kalman_sym_phases.so"
-    cu.write_text(PHASE_SOURCE)
+    cu = _build.BUILD_DIR / f"{tag}.cu"
+    so = _build.BUILD_DIR / f"{tag}.so"
+    cu.write_text(PHASE_SOURCE % source.resolve())
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
                            "-o", str(so), str(cu)], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on the instrumented copy:\n{proc.stderr}")
     lib = ctypes.CDLL(str(so))
-    lib.bild_kalman_sym_f32.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 12
-                                        + [ctypes.c_void_p])
+    for sym in symbols:
+        getattr(lib, sym).argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                                      + [ctypes.c_void_p])
     return lib
 
 
+def split_source(_build) -> Path:
+    """The split tiers' source, with phase marks: ``csrc/kalman_sym_split.cu``,
+    or a tree's older ``csrc/kalman_sym.cu`` with `PARENT_SPLIT_MARKS`."""
+    own = _build.CSRC / "kalman_sym_split.cu"
+    if own.exists():
+        return own
+    text = (_build.CSRC / "kalman_sym.cu").read_text()
+    for line, marked in PARENT_SPLIT_MARKS:
+        if text.count(line) != 1:
+            raise RuntimeError(f"no unique line to mark in kalman_sym.cu: {line!r}")
+        text = text.replace(line, marked)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _build.BUILD_DIR / "kalman_sym_split_marked.cu"
+    out.write_text(text)
+    return out
+
+
+def phase_run(lib, entry, ptrs, model, ops, L, P, tier, launch_inputs, kalman_sym, phases):
+    """One instrumented launch at (L, P): its time and each phase's share."""
+    prof, data, valid, s2, Cind = launch_inputs(L, P)
+    plan = kalman_sym.sym_plan(L, P, 2, N, DIM, 1, 4, tier=tier)
+    out = torch.empty((L, P), device="cuda")
+    cind = Cind.to(torch.int32).contiguous()
+    fn = getattr(lib, entry)
+    # the split kernel's ring depth (not in the exact tier's, nor in the
+    # older split kernel's, entry)
+    stages = (plan.stages,) if len(fn.argtypes) - (len(ptrs) + 12) - 1 == 13 else ()
+
+    def run():
+        rc = fn(*ptrs, ops.sig.data_ptr(), ops.c0.data_ptr(),
+                model.w.data_ptr(), ops.Ballw.data_ptr(), ops.Gsw.data_ptr(),
+                ops.M0w.data_ptr(), s2.data_ptr(), cind.data_ptr(), prof.data_ptr(),
+                data.data_ptr(), valid.data_ptr(), out.data_ptr(), 2, N, DIM, 1, L, P, T,
+                ops.PPp, ops.N1p, plan.tile, *stages, plan.smem, 0,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"instrumented launch failed: {rc}")
+
+    buf = (ctypes.c_ulonglong * 8)()
+    run()
+    torch.cuda.synchronize()
+    lib.bild_phase_zero()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop)
+    lib.bild_phase_read(buf)
+    per = buf[7] / plan.blocks / (T - 1)
+    print(f"{entry} phases L={L} P={P} (tile {plan.tile}, {plan.blocks} blocks, "
+          f"{plan.smem} B shared{f', {stages[0]} stages' if stages else ''}, instrumented {ms:.3f} ms): {per:.0f} thread-0 "
+          f"cycles per block-frame", flush=True)
+    for k, phase in enumerate(phases):
+        print(f"    {phase:28s} {buf[k] / buf[7]:7.2%}  {buf[k] / plan.blocks / (T - 1):9.0f} "
+              f"cycles", flush=True)
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--tree", default=str(Path(__file__).resolve().parent.parent))
+    parser.add_argument("--split-only", action="store_true")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels.py: no CUDA device")
+    sys.path.insert(0, str(Path(args.tree).resolve()))
+    import bild_tpu_torch as bt
+    from bild_tpu_torch.ops import _build, kalman_dense, kalman_sym
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
+    print(f"profiling the tree at {Path(bt.__file__).resolve().parent.parent}", flush=True)
     bt.config.exact_fp32()
     model = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM, localization_error=0.1,
                                       device="cuda", dtype=torch.float32)
@@ -115,58 +220,49 @@ def main():
         s2, Cind = model._noise_arrays(bt.Trajectory(data[0], valid[0]))
         return prof, data, valid, s2, Cind
 
-    L, P = 640, 128
-    prof, data, valid, s2, Cind = launch_inputs(L, P)
-    args = (model.Bs, model.Gs, model.Sigs, model.M0s, model.C0s, model.w, s2, Cind)
-    none = torch.zeros_like(valid)
-    one_state = torch.zeros_like(prof)
-    kernels = {"kalman_sym": lambda p, v: kalman_sym.msrouse_logL_sym(*args, p, data, v, ops=ops),
-               "kalman_dense": lambda p, v: kalman_dense.msrouse_logL_dense(*args, p, data, v)}
-    for name, kern in kernels.items():
-        full = time_ms(lambda: kern(prof, valid))
-        bare = time_ms(lambda: kern(prof, none))
-        line = (f"{name:12s} L={L} P={P}: {full:.3f} ms; with no frame observed "
-                f"{bare:.3f} ms (the update {full - bare:.3f} ms, {1 - bare / full:.1%})")
-        if name == "kalman_sym":
-            line += f"; every profile in one state {time_ms(lambda: kern(one_state, valid)):.3f} ms"
-        print(line, flush=True)
-
-    lib = build_instrumented()
-    buf = (ctypes.c_ulonglong * 8)()
-    for L, P in ((640, 128), (1, 100)):
+    if not args.split_only:
+        L, P = 640, 128
         prof, data, valid, s2, Cind = launch_inputs(L, P)
-        plan = kalman_sym.sym_plan(L, P, 2, N, DIM, 1, 4)
-        out = torch.empty((L, P), device="cuda")
-        cind = Cind.to(torch.int32).contiguous()
+        margs = (model.Bs, model.Gs, model.Sigs, model.M0s, model.C0s, model.w, s2, Cind)
+        none = torch.zeros_like(valid)
+        one_state = torch.zeros_like(prof)
+        kernels = {"kalman_sym": lambda p, v: kalman_sym.msrouse_logL_sym(
+                       *margs, p, data, v, ops=ops, matmul="exact"),
+                   "kalman_dense": lambda p, v: kalman_dense.msrouse_logL_dense(
+                       *margs, p, data, v)}
+        for name, kern in kernels.items():
+            full = time_ms(lambda: kern(prof, valid))
+            bare = time_ms(lambda: kern(prof, none))
+            line = (f"{name:12s} L={L} P={P}: {full:.3f} ms; with no frame observed "
+                    f"{bare:.3f} ms (the update {full - bare:.3f} ms, {1 - bare / full:.1%})")
+            if name == "kalman_sym":
+                line += f"; every profile in one state {time_ms(lambda: kern(one_state, valid)):.3f} ms"
+            print(line, flush=True)
+        lib = build_instrumented(_build, _build.CSRC / "kalman_sym.cu", "kalman_sym_phases",
+                                 ["bild_kalman_sym_f32"], 13, 12)
+        for L, P in ((640, 128), (1, 100)):
+            phase_run(lib, "bild_kalman_sym_f32", (ops.Pslab.data_ptr(),), model, ops,
+                      L, P, "exact", launch_inputs, kalman_sym, PHASES)
 
-        def run():
-            rc = lib.bild_kalman_sym_f32(
-                ops.Pslab.data_ptr(), ops.sig.data_ptr(), ops.c0.data_ptr(),
-                model.w.data_ptr(), ops.Ballw.data_ptr(), ops.Gsw.data_ptr(),
-                ops.M0w.data_ptr(), s2.data_ptr(), cind.data_ptr(), prof.data_ptr(),
-                data.data_ptr(), valid.data_ptr(), out.data_ptr(), 2, N, DIM, 1, L, P, T,
-                ops.PPp, ops.N1p, plan.tile, plan.smem, 0,
-                torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f"instrumented launch failed: {rc}")
-
-        run()
-        torch.cuda.synchronize()
-        lib.bild_phase_zero()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run()
-        stop.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(stop)
-        lib.bild_phase_read(buf)
-        per = buf[7] / plan.blocks / (T - 1)
-        print(f"kalman_sym phases L={L} P={P} (tile {plan.tile}, {plan.blocks} blocks, "
-              f"instrumented {ms:.3f} ms): {per:.0f} thread-0 cycles per block-frame",
-              flush=True)
-        for k, phase in enumerate(PHASES):
-            print(f"    {phase:20s} {buf[k] / buf[7]:7.2%}", flush=True)
+    entries = {"split_cov": "bild_kalman_sym_splitcov_f32", "split": "bild_kalman_sym_split_f32"}
+    source = split_source(_build)
+    lib = build_instrumented(_build, source, "kalman_sym_split_phases", entries.values(), 14,
+                             13 if source.name == "kalman_sym_split.cu" else 12)
+    for tier, entry in entries.items():
+        for L, P in ((640, 128), (1, 100)):
+            prof, data, valid, s2, Cind = launch_inputs(L, P)
+            kern = lambda: kalman_sym.msrouse_logL_sym(  # noqa: E731
+                model.Bs, model.Gs, model.Sigs, model.M0s, model.C0s, model.w, s2, Cind,
+                prof, data, valid, ops=ops, matmul=tier)
+            bare = torch.zeros_like(valid)
+            full_ms = time_ms(kern)
+            none_ms = time_ms(lambda: kalman_sym.msrouse_logL_sym(
+                model.Bs, model.Gs, model.Sigs, model.M0s, model.C0s, model.w, s2, Cind,
+                prof, data, bare, ops=ops, matmul=tier))
+            print(f"{tier:9s} L={L} P={P}: package kernel {full_ms:.3f} ms; with no frame "
+                  f"observed {none_ms:.3f} ms", flush=True)
+            phase_run(lib, entry, (ops.Psplit.data_ptr(), ops.Srow.data_ptr()), model, ops,
+                      L, P, tier, launch_inputs, kalman_sym, SPLIT_PHASES)
 
 
 if __name__ == "__main__":
