@@ -13,15 +13,27 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    shapes `sample()` gives them (P = 2, 198, 100; N=20, d=3, T=100) and at
    the edges of their contract (3 states, 3 distinct localization errors,
    missing frames, an unobserved first frame, out-of-range states -> NaN).
-3. Timing phase: kernel and plain version at P = 100 and 8192 (CUDA events),
+3. Timing phase: kernel and plain version at P = 100 (CUDA events),
    beside the least time of the same work on the card (`kernel_work`: the
    likelihood's least FLOP and bytes, the same for both kernels; `bound_ms`:
-   FLOP over the float32 peak or HBM bytes over its rate).
+   FLOP over the float32 peak or HBM bytes over its rate; both in
+   bench_torch.py, with `split_bound_ms` and `time_ms`).
+3b. Bench phase: bench_torch.py's measurement at its shape (L=1, P=8192,
+   T=100; bench.py's workload): each kernel (exact, 'split_cov', 'split',
+   dense) against its plain version there, then its JSON line (the
+   default tier's profiles/s, against the float64 oracle, every kernel's
+   time beside its plain version's and its bound), printed.
 4. Slice phase: the README model, MultiStateRouse(N=20, D=1, k=5, d=3,
    localization_error=0.1), a T=100 trajectory with a loop at frames 30-60,
    and `bild_tpu_torch.sample()` with its defaults, once per kernel
    selector. The launch counters must show that the run went through the
    selected kernel and never through a plain version.
+4b. Bench_e2e phase: bench_e2e_torch.py's config 2 (`sample()` on its
+   two-loop trajectory, the float32 kernel against the float64 oracle on
+   64 profiles), its dict printed: frame accuracy >= 0.90, kernel parity
+   within rtol 2e-5, the kernel launched and no plain version. Configs 3-7
+   run in the phases below, on the data of bench_e2e_torch.py's
+   `config3_data`, `config4_data` and `ggm_data`.
 5. Lane phase: both kernels on one lane batch (L=6 trajectories with their
    own missing frames, P=37, T=100, out-of-range rows in two lanes), in
    float32 and float64, against the plain version, the f64 oracle and six
@@ -168,8 +180,9 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    gloo, frames split in two, within 1e-10 of one process (T=8192,
    float64).
 
-Prints the card's name and power limit, one JSON line of per-kernel
-results, and as the last line ``{"ok": true, "device": {...}}``. Any
+Prints the card's name and power limit, bench_torch.py's JSON line and
+config 2's dict (phases 3b and 4b), one JSON line of per-kernel results,
+and as the last line ``{"ok": true, "device": {...}}``. Any
 failed check raises: the exit code is then non-zero and no result is
 printed. Without a CUDA device it exits non-zero at once.
 """
@@ -190,12 +203,15 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+import bench_e2e_torch
+import bench_torch
+from bench_e2e_torch import (THREE_STATES, config3_data, config4_data, ggm_data,
+                             ggm_model, truth_profiles)
+from bench_torch import (bound_ms, kernel_work, read_counts, reset_counts,
+                         split_bound_ms, time_ms)
+
 RTOL_F32 = 2e-5
 RTOL_F64 = 1e-9
-# NVIDIA H100 SXM peaks (data sheet, at the 700 W power limit): float32
-# outside the tensor cores (the kernels use none: TF32 is off), HBM3
-PEAK_FLOPS_F32 = 67e12
-PEAK_BYTES = 3.35e12
 SLICE_ACCURACY = 0.9
 # likelihood evaluations per trajectory of config 3's lockstep schedule
 # (ADAPTIVE_34_r05.json): the adaptive schedule must spend fewer
@@ -206,27 +222,6 @@ DATASET_FRAME_ACCURACY = 0.97
 DATASET_SWITCH_ACCURACY = 0.75
 N, D, KSPRING, DIM, T = 20, 1.0, 5.0, 3, 100
 DEVICE = "cuda"
-
-
-def kernel_work(L, P, T, n, N, d, q, observed):
-    """``(FLOP, HBM bytes)`` that one float32 evaluation of the likelihood
-    needs on these inputs, whichever kernel computes it: the least work of
-    the direct recursion, C' and the downdate symmetric. ``observed``
-    (lane, frame) pairs of the (L, T) mask take the measurement update,
-    every profile propagates T-1 frames. Propagation, per profile-frame:
-    per copy ``X = B C`` in full, ``2 N^3``, and ``C' = X B + Sig`` on the
-    upper triangle, ``N (N+1) (2N+1) / 2``; the means ``d N (2N+1)``.
-    Update: per copy ``Cw = C w`` (``2 N^2``), ``w.Cw`` (``2N``) and the
-    downdate on the upper triangle (``N (N+1) + N``); ``w.M`` (``2 N d``),
-    the mean update (``3 N d``) and the log-likelihood (``8 d``). Bytes:
-    profiles, data, mask and results once, and the model's ``B, Sig, C0,
-    G, M0, w`` once."""
-    prop = q * (2 * N ** 3 + N * (N + 1) * (2 * N + 1) // 2) + d * N * (2 * N + 1)
-    upd = q * (3 * N * N + 4 * N) + 5 * N * d + 8 * d
-    ops = 3 * n * N * N + 2 * n * N * d + N
-    flops = L * P * (T - 1) * prop + P * observed * upd
-    nbytes = 4 * (L * P * T + L * T * d + L * P + ops) + L * T
-    return flops, nbytes
 
 
 def algorithm_flops(name, L, P, T, N, d, q, observed):
@@ -245,12 +240,6 @@ def algorithm_flops(name, L, P, T, N, d, q, observed):
         prop = q * (4 * N ** 3 + N * N) + d * N * (2 * N + 1)
         upd = q * (4 * N * N + 3 * N)
     return L * P * (T - 1) * prop + P * observed * (upd + 5 * N * d + 8 * d)
-
-
-def bound_ms(flops, nbytes):
-    """The least time of that work on the card and what sets it."""
-    t_ops, t_bytes = flops / PEAK_FLOPS_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def check(ok, what):
@@ -349,29 +338,6 @@ def kernel_phase(bt, rng):
                     check(e_orc <= RTOL_F64, f"{line}: oracle within {RTOL_F64}")
                 print(line, flush=True)
     return max_abs
-
-
-def counters():
-    """Every kernel's launch counter and every plain version's call
-    counter, as (function, attribute) by name."""
-    from bild_tpu_torch.ops import kalman, kalman_dense, kalman_sym
-    return {
-        "kalman_sym": (kalman_sym.msrouse_logL_sym, "launches"),
-        "kalman_sym_split": (kalman_sym.msrouse_logL_sym, "split_launches"),
-        "kalman_dense": (kalman_dense.msrouse_logL_dense, "launches"),
-        "plain_sym": (kalman_sym.msrouse_logL_sym_torch, "calls"),
-        "plain_dense": (kalman_dense.msrouse_logL_dense_torch, "calls"),
-        "plain_torch": (kalman.msrouse_logL_batch, "calls"),
-    }
-
-
-def reset_counts():
-    for fn, attr in counters().values():
-        setattr(fn, attr, 0)
-
-
-def read_counts():
-    return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
 
 
 def lane_kernel_phase(bt, rng, max_abs):
@@ -486,8 +452,6 @@ TIMED_SHAPES = ("one chunk of 128", "adaptive round", "config 4 scout",
                 "config 4 refine", "config 5 scout", "config 5 refine")
 # the shape of the permutation, subset and lane-alone checks
 CHECKED_SHAPE = "one chunk of 128"
-# config 4's three states: unlooped, looped end to end, an inner loop
-THREE_STATES = (None, (0, -1), (0, 10))
 # Float32 against its own float64 build: rtol RTOL_F32 per profile, set
 # from the worst of 81,920 profiles at T=100 (sym, 1.84e-5), but for two
 # bars set from the port's own readings on an H100 (PERF.md section 2):
@@ -588,7 +552,7 @@ def lockstep_phase(bt, rng, max_abs):
             if dtype == torch.float32:
                 data[n] = (model.trajectories_from_loopingprofiles(
                     truths, generator=torch.Generator(device=DEVICE).manual_seed(3)).data
-                    if n == 2 else config4(bt, model)[2].data)
+                    if n == 2 else config4_data(model)[2].data)
             ops = model.sym_operators()
             s2, Cind = model._noise_arrays(bt.Trajectory(
                 data[n][0], torch.ones(data[n].shape[1], dtype=torch.bool)))
@@ -870,21 +834,6 @@ BILD_TPU_SPLIT = {("split", 100): (8.8e-5, 0.085), ("split", 300): (None, 0.52),
 SPLIT_SHAPES = (("chunk scout", 320, 128), ("chunk refine", 192, 128),
                 ("boundary climb", 64, 9), ("one chunk of 128", 640, 128))
 SPLIT_TIMED = ((1, 100), (640, 128), (5120, 128))
-# H100 SXM dense bf16 tensor-core peak (data sheet, 700 W)
-PEAK_FLOPS_BF16 = 989e12
-
-
-def split_bound_ms(L, P, T, n, N, d, q, observed):
-    """The least time of `kernel_work`'s work in a split tier: the
-    conjugation's least FLOP (``2 N^3 + N (N+1) (2N+1) / 2`` per copy and
-    profile-frame) as three bf16 products at the tensor cores' peak, the
-    rest of the likelihood at the float32 peak, or the HBM bytes, whichever
-    is longer."""
-    flops, nbytes = kernel_work(L, P, T, n, N, d, q, observed)
-    conj = L * P * (T - 1) * q * (2 * N ** 3 + N * (N + 1) * (2 * N + 1) // 2)
-    t_ops = (3 * conj / PEAK_FLOPS_BF16 + (flops - conj) / PEAK_FLOPS_F32) * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def rel_err_floor(got, want):
@@ -1070,7 +1019,7 @@ def split_phase(bt, rng):
     model64 = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
                                         localization_error=0.1, device=DEVICE,
                                         dtype=torch.float64)
-    truths, true_k, batch, trajs = config3(bt, model)
+    truths, true_k, batch, trajs = config3_data(model, T=T)
     s2, Cind = model._noise_arrays(trajs[0])
     margs = (model.Bs, model.Gs, model.Sigs, model.M0s, model.C0s, model.w, s2, Cind)
     margs64 = (model64.Bs, model64.Gs, model64.Sigs, model64.M0s, model64.C0s,
@@ -1521,22 +1470,6 @@ def range_phase(bt, rng):
         print(f"{line}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms", flush=True)
 
 
-def truth_profiles(rng, B, T, n_states, k_max=4):
-    """Random piecewise-constant truth profiles with 0..k_max switches (as
-    bench_e2e.py's, which imports JAX and so is not imported here)."""
-    profs = np.zeros((B, T), dtype=int)
-    for b in range(B):
-        k = int(rng.integers(0, k_max + 1))
-        cuts = np.sort(rng.choice(np.arange(1, T), size=k, replace=False))
-        bounds = np.concatenate([[0], cuts, [T]])
-        s = int(rng.integers(0, n_states))
-        for i in range(k + 1):
-            profs[b, bounds[i]:bounds[i + 1]] = s
-            choices = [c for c in range(n_states) if c != s]
-            s = int(rng.choice(choices))
-    return profs
-
-
 def device_time_by_name(prof):
     """``{name: (ms, count)}`` of the device's events (kernels, copies) in
     a torch.profiler trace; empty if the trace holds none."""
@@ -1559,7 +1492,7 @@ def dataset_phase(bt, B=128, chunk_size=64, sub_B=16):
     model = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
                                       localization_error=0.1,
                                       device=DEVICE, dtype=torch.float32)
-    truths, true_k, batch, trajs = config3(bt, model, B)
+    truths, true_k, batch, trajs = config3_data(model, B, T)
     kw = dict(k_max=4, steps_per_k=12, N=128, informed_init=True,
               scout_steps=4, refine_top=3, marginals=True,
               optimize_boundaries=True, chunk_size=chunk_size)
@@ -1648,30 +1581,6 @@ def dataset_phase(bt, B=128, chunk_size=64, sub_B=16):
     return out
 
 
-def config3(bt, model, B=128):
-    """bench_e2e.py config 3: ``(truths (B, T), true switch counts, batch,
-    trajectories)`` made by the port's batched generator on the card."""
-    truths = truth_profiles(np.random.default_rng(3), B, T, 2)
-    true_k = np.sum(truths[:, 1:] != truths[:, :-1], axis=1)
-    batch = model.trajectories_from_loopingprofiles(
-        truths, generator=torch.Generator(device=DEVICE).manual_seed(3))
-    trajs = [bt.Trajectory(data=batch.data[i], valid=batch.valid[i],
-                           localization_error=np.full(DIM, 0.1))
-             for i in range(B)]
-    return truths, true_k, batch, trajs
-
-
-def config4(bt, model, B=16, Tc=1000):
-    """bench_e2e.py config 4: ``(truths (B, Tc), true switch counts,
-    batch)`` of three-state truths, made by the port's batched generator on
-    the card from the three-state ``model``."""
-    truths = truth_profiles(np.random.default_rng(4), B, Tc, 3)
-    true_k = np.sum(truths[:, 1:] != truths[:, :-1], axis=1)
-    batch = model.trajectories_from_loopingprofiles(
-        truths, generator=torch.Generator(device=DEVICE).manual_seed(4))
-    return truths, true_k, batch
-
-
 def busy_share(run):
     """``(device busy share text, top device events)`` of one traced call
     of ``run``."""
@@ -1706,7 +1615,7 @@ def adaptive_phase(bt, B=128):
     model = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
                                       localization_error=0.1,
                                       device=DEVICE, dtype=torch.float32)
-    truths, true_k, batch, trajs = config3(bt, model, B)
+    truths, true_k, batch, trajs = config3_data(model, B, T)
     kw = dict(k_max=4, N=128, informed_init=True, init_steps=4,
               steps_per_round=2, max_steps_per_k=24, samplesize=4096)
     out = {}
@@ -1803,7 +1712,7 @@ def config4_phase(bt):
                                       looppositions=THREE_STATES,
                                       localization_error=0.1,
                                       device=DEVICE, dtype=torch.float32)
-    truths, true_k, batch = config4(bt, model)
+    truths, true_k, batch = config4_data(model)
     out = {}
     for selector in ("sym", "dense"):
         bt.config.set_rouse_kernel(selector)
@@ -2164,7 +2073,7 @@ def cli_phase(bt, work):
     model = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
                                       localization_error=0.1,
                                       device=DEVICE, dtype=torch.float32)
-    truths, true_k, batch, _ = config3(bt, model)
+    truths, true_k, batch, _ = config3_data(model, T=T)
     csv = os.path.join(work, "config3.csv")
     write_two_locus_csv(csv, batch, range(batch.B))
     common = [csv, "--two-locus", "--k-max", "4", "--steps-per-k", "12",
@@ -2281,13 +2190,6 @@ GGM_KW = dict(k_max=4, steps_per_k=12, N=128, scout_steps=4, refine_top=3)
 RTOL_GGM_F32 = 1e-5
 
 
-def ggm_two_state(GGM, **kw):
-    """The two-state two-locus-Rouse model of configs 6 and 7."""
-    return GGM([[(GGM.MSD_function_twoLocusRouse(G=1.0, J=5.0), 0.1, 0)],
-                [(GGM.MSD_function_twoLocusRouse(G=0.2, J=1.0), 0.1, 0)]],
-               device=DEVICE, **kw)
-
-
 def ggm_parity(bt, rng):
     """The interval tables and gather-sums on the card against the float64
     host oracle: a mixed model (ss_order 0 and 1, two dims, missing frames,
@@ -2384,17 +2286,9 @@ def ggm_config(bt, number):
     """Config 6 or 7 of bench_e2e.py at its size: ``(model, truths, true
     switch counts, trajectories, batch)``; the truths and the trajectories
     come from one numpy Generator seeded with the config's number, as
-    there."""
-    from bild_tpu_torch.parallel import stack_trajectories
-
+    there (`bench_e2e_torch.ggm_data`)."""
     B, Tc, T_band, _, _, _ = GGM_CONFIGS[number]
-    rng = np.random.default_rng(number)
-    model = ggm_two_state(bt.models.GenericGaussianModel, T_band=T_band,
-                          dtype=torch.float32)
-    truths = truth_profiles(rng, B, Tc, 2)
-    trajs = [model.trajectory_from_loopingprofile(t, rng=rng) for t in truths]
-    true_k = np.sum(truths[:, 1:] != truths[:, :-1], axis=1)
-    return model, truths, true_k, trajs, stack_trajectories(trajs)
+    return ggm_data(number, B, Tc, T_band, device=DEVICE)
 
 
 def ggm_dataset(bt, number):
@@ -2448,8 +2342,7 @@ def ggm_dataset(bt, number):
     if T_band is None:
         f32_err = rel_err(dev, host)
     else:
-        twin = ggm_two_state(bt.models.GenericGaussianModel, T_band=T_band,
-                             dtype=torch.float64)
+        twin = ggm_model(T_band=T_band, device=DEVICE, dtype=torch.float64)
         dev64 = np.array([twin.logL(truths[b], trajs[b].to(dtype=torch.float64))
                           for b in range(nprobe)])
         f32_err = rel_err(dev, dev64)
@@ -2578,7 +2471,7 @@ def ggm_phase(bt, rng):
     ggm_dataset(bt, 7)
 
     # sample() on one trajectory, saved, loaded and resumed
-    small = ggm_two_state(bt.models.GenericGaussianModel, dtype=torch.float32)
+    small = ggm_model(device=DEVICE, dtype=torch.float32)
     true = np.zeros(20, dtype=int)
     true[8:15] = 1
     traj = small.trajectory_from_loopingprofile(true, rng=np.random.default_rng(5))
@@ -2635,7 +2528,7 @@ def mesh_phase(bt, work):
     model = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
                                       localization_error=0.1,
                                       device=DEVICE, dtype=torch.float32)
-    truths, true_k, batch, trajs = config3(bt, model)
+    truths, true_k, batch, trajs = config3_data(model, T=T)
     ids = np.arange(len(trajs))
     kw = dict(k_max=4, steps_per_k=12, N=128, informed_init=True,
               scout_steps=4, refine_top=3, marginals=True, chunk_size=64)
@@ -2967,24 +2860,11 @@ def assoc_phase(bt, work):
     return launches
 
 
-def time_ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def timing_phase(bt, rng):
-    """Kernel and plain version at the AMIS step (P=100) and at the bench
-    shape (P=8192), in the order plain, kernel, kernel, plain, beside the
-    bound computed from the same inputs. Returns ``{(name, P): (ms,
-    plain_ms, bound_ms, bound_by)}``."""
+    """Kernel and plain version at the AMIS step (P=100), in the order
+    plain, kernel, kernel, plain, beside the bound computed from the same
+    inputs (the bench shape, P=8192, is `bench_phase`'s). Returns
+    ``{(name, P): (ms, plain_ms, bound_ms, bound_by)}``."""
     from bild_tpu_torch.ops.kalman_dense import (msrouse_logL_dense,
                                                  msrouse_logL_dense_torch)
     from bild_tpu_torch.ops.kalman_sym import (msrouse_logL_sym,
@@ -3000,7 +2880,7 @@ def timing_phase(bt, rng):
     s2, Cind = model._noise_arrays(traj)
     ops = model.sym_operators()
     times = {}
-    for P, reps in ((100, 20), (8192, 3)):
+    for P, reps in ((100, 20),):
         prof = torch.as_tensor(make_profiles(rng, P, 2, T), device=DEVICE)
         args = (model.Bs, model.Gs, model.Sigs, model.M0s, model.C0s,
                 model.w, s2, Cind, prof, traj.data, traj.valid)
@@ -3020,7 +2900,66 @@ def timing_phase(bt, rng):
                   f"({P / ms * 1e3:12.1f} profiles/s)  plain {plain_ms:9.3f} ms "
                   f"({P / plain_ms * 1e3:12.1f} profiles/s)  bound {bnd:.4f} ms "
                   f"({by}), {bnd / ms:.1%} of bound", flush=True)
+    # the P=8192 profiles this phase once drew and timed: drawn still, so
+    # that the later phases' draws from ``rng`` keep their bits
+    make_profiles(rng, 8192, 2, T)
     return times
+
+
+def bench_phase(bt):
+    """bench_torch.py's measurement, once: at its shape (L=1, P=8192,
+    T=100) each kernel of `bench_torch.likelihoods` against its plain
+    version (exact tier and dense `RTOL_F32`, 'split_cov' `RTOL_SPLIT`,
+    'split' `split_bar`) with the float64 build beside it, then
+    `bench_torch.bench_line` (which checks that every kernel launched and
+    no plain version ran, then times them beside the bound), printed as
+    its JSON line. Returns the line."""
+    model, traj, profiles = bench_torch.workload(device=DEVICE)
+    got, _ = bench_torch.evaluate(model, traj, profiles)
+    plain = {name: p().cpu().numpy().astype(float)
+             for name, (_, p) in bench_torch.likelihoods(model, traj, profiles).items()}
+    model64 = bench_torch.rouse_model(DEVICE, torch.float64)
+    f64, _ = bench_torch.evaluate(model64, traj.to(dtype=torch.float64), profiles)
+    for name in got:
+        check(np.all(np.isfinite(got[name])), f"bench shape {name}: finite")
+        e_plain, e_p64 = rel_err(got[name], plain[name]), rel_err(plain[name], f64[name])
+        tier = name[len("kalman_sym_"):] if name.startswith("kalman_sym_") else None
+        bar = RTOL_F32 if tier is None else split_bar(tier, e_p64)
+        line = (f"bench shape L=1 P={len(profiles)} T={profiles.shape[1]} {name:20s} "
+                f"kernel against plain rel {e_plain:.2e} (bar {bar:.2e}); against "
+                f"the float64 build: kernel {rel_err(got[name], f64[name]):.2e}, "
+                f"plain {e_p64:.2e}")
+        print(line, flush=True)
+        check(e_plain <= bar, f"{line}: kernel within its bar of the plain version")
+    line = bench_torch.bench_line()
+    print(json.dumps(line), flush=True)
+    check(line["tier"] == bt.config.resolve_matmul("lockstep")
+          and math.isfinite(line["value"]) and line["value"] > 0
+          and line["vs_baseline"] > 0, "bench line: a finite rate of the default tier")
+    return line
+
+
+def bench_e2e_phase(bt):
+    """bench_e2e_torch.py's config 2 (the one config no other phase runs):
+    `sample()` on one trajectory and the float32 kernel against the
+    float64 oracle on 64 profiles, under the shipped tier; its dict
+    printed. Bars: frame accuracy `SLICE_ACCURACY`, kernel parity
+    `RTOL_F32` (PERF.md section 2), the kernel launched and no plain
+    version. Returns the launch counts of the run."""
+    reset_counts()
+    r = bench_e2e_torch.run_configs(["2"], bt.config.rouse_matmul(), device=DEVICE)["2"]
+    ran = read_counts()
+    line = (f"bench_e2e config 2: frame accuracy {r['frame_accuracy']:.4f} (bar "
+            f"{SLICE_ACCURACY}), kernel parity against the float64 oracle "
+            f"{r['kernel_parity_rel_vs_f64_oracle']:.2e} (bar {RTOL_F32}), "
+            f"best k {r['best_k']} (true {r['true_k']}), launches {ran}")
+    print(line, flush=True)
+    check(r["frame_accuracy"] >= SLICE_ACCURACY, f"{line}: frame accuracy")
+    check(r["kernel_parity_rel_vs_f64_oracle"] <= RTOL_F32, f"{line}: kernel parity")
+    check(ran["kalman_sym"] > 0 and not any(v for k, v in ran.items()
+                                            if k.startswith("plain")),
+          f"{line}: the kernel ran, no plain version")
+    return ran
 
 
 def slice_phase(bt):
@@ -3103,7 +3042,9 @@ def main():
     rng = np.random.default_rng(20261016)
     max_abs = kernel_phase(bt, rng)
     times = timing_phase(bt, rng)
+    bench = bench_phase(bt)
     launches = slice_phase(bt)
+    e2e_launches = bench_e2e_phase(bt)
     lane_kernel_phase(bt, rng, max_abs)
     lock_times = lockstep_phase(bt, rng, max_abs)
     ladder = ladder_phase(bt)
@@ -3130,9 +3071,11 @@ def main():
     # trajectory, P=100); "lockstep_*" at config 3's lockstep launch (L=640,
     # P=128); "adaptive_*" at the adaptive round's (L=128, P=128);
     # "config4_*" at config 4's scout launch (L=112, P=128, T=1000, three
-    # states); "config5_*" at config 5's (L=5,120, P=128). No single
+    # states); "config5_*" at config 5's (L=5,120, P=128); "bench_*" at
+    # bench_torch.py's (L=1, P=8192). No single
     # PyTorch call computes the recursion: library_ms is null. "launches"
-    # sums the main-path runs: sample(), the lockstep and adaptive dataset
+    # sums the main-path runs: sample(), bench_e2e_torch.py's config 2,
+    # the lockstep and adaptive dataset
     # runs, config 4 under both selectors, config 5p, the CLI runs, the
     # checkpoint phase, the examples, the mesh phase (its own process
     # and its three CLI processes), and the tiers and assoc phases (the
@@ -3140,8 +3083,8 @@ def main():
     # evaluation per shape). The calibration's M-step runs the plain
     # recursion under autograd by design: its calls stand apart, under
     # "calibration_plain_calls".
-    main_path = [launches, cli_counts, ck_launches, mesh_launches, c5_launches,
-                 ex_counts, tier_launches, assoc_launches,
+    main_path = [launches, e2e_launches, cli_counts, ck_launches, mesh_launches,
+                 c5_launches, ex_counts, tier_launches, assoc_launches,
                  *ds_launches.values(), *ad_launches.values(),
                  *c4_launches.values()]
     shapes = {"lockstep": "one chunk of 128", "adaptive": "adaptive round",
@@ -3166,6 +3109,9 @@ def main():
             ms, plain_ms, bnd = lock_times[(name, label)]
             row.update({f"{key}_ms": ms, f"{key}_plain_ms": plain_ms,
                         f"{key}_bound_ms": bnd})
+        b = bench["kernels"][name]
+        row.update(bench_ms=b["ms"], bench_plain_ms=b["plain_ms"],
+                   bench_bound_ms=b["bound_ms"])
         kernels.append(row)
     # the split tiers of the packed kernel: a kernel of its own
     # (csrc/kalman_sym_split.cu). Its main path is the
@@ -3198,6 +3144,10 @@ def main():
         "config5_ms": st[("split", 5120)][0],
         "config5_split_cov_ms": st[("split_cov", 5120)][0],
         "config5_bound_ms": st[("split", 5120)][2],
+        "bench_ms": bench["kernels"]["kalman_sym_split"]["ms"],
+        "bench_plain_ms": bench["kernels"]["kalman_sym_split"]["plain_ms"],
+        "bench_bound_ms": bench["kernels"]["kalman_sym_split"]["bound_ms"],
+        "bench_split_cov_ms": bench["kernels"]["kalman_sym_split_cov"]["ms"],
         "default_tier": split["default"],
     })
     print(json.dumps({"kernels": kernels,

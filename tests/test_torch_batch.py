@@ -191,6 +191,10 @@ def test_factorized_model_matches_bild_tpu():
     jm = bj.models.FactorizedModel(dists, d=3)
     tm = bt.models.FactorizedModel(dists, d=3, device="cpu", dtype=F64)
     prof = truths(T=30)[:5]
+    # the magnitudes come from numpy's global RNG (`rvs()` in both
+    # packages): seed it, or the data depend on the tests that ran before
+    # on this worker
+    np.random.seed(0)
     datas = [jm.trajectory_from_loopingprofile(p, key=jax.random.key(i))[:]
              for i, p in enumerate(prof)]
     jb = bj.parallel.stack_trajectories([bj.Trajectory.create(x) for x in datas])
