@@ -8,7 +8,8 @@ causally slot by slot.
 
 - Tensor functions: `cfc_sample` (Gumbel-max per slot), `cfc_logpmf`,
   `cfc_estimate` and `cfc_logp_from_marginals` (a fixed-point solve per
-  slot, all slots in one loop).
+  slot: `solve_marginals`, which launches ``csrc/cfc_solve.cu`` for CUDA
+  tensors and runs the plain loop `_solve_marginals` for CPU tensors).
 - Host class `CFC`: counting traces with transition-matrix powers in
   Python ints, exhaustive enumeration, and the uniform-proposal weights
   (numpy; a copy of the JAX package's host code).
@@ -32,15 +33,19 @@ import numpy as np
 import torch
 
 from ..lanes import lane_logsumexp, lane_sum, uniform
+from ..ops import _build
 
 __all__ = ["CFC", "SampleSpaceTooLarge", "cfc_sample", "cfc_logpmf",
-           "cfc_estimate", "cfc_logp_from_marginals"]
+           "cfc_estimate", "cfc_logp_from_marginals", "solve_marginals"]
 
-# `_solve_marginals` asks the device whether every slot has converged only
-# every this many iterations (each ask is a host synchronization). A
-# converged slot is frozen, so the extra iterations change nothing: the
-# result is exactly that of checking after every iteration.
+# The plain `_solve_marginals` asks the device whether every slot has
+# converged only every this many iterations (each ask is a host
+# synchronization). A converged slot is frozen, so the extra iterations
+# change nothing: the result is exactly that of checking after every
+# iteration. The kernel stops each slot on its own and asks nothing.
 SOLVE_CHECK_EVERY = 4
+# the largest state count the kernel takes (csrc/cfc_solve.cu)
+SOLVE_MAX_STATES = 64
 
 
 class SampleSpaceTooLarge(ValueError):
@@ -126,7 +131,10 @@ def _solve_marginals(logf, logg, transitions, maxiter, precision, frozen=None,
     when every slot of every lane is frozen (asked of the device every
     `SOLVE_CHECK_EVERY` iterations) or after ``maxiter`` iterations.
     ``exact`` makes the log-sum-exps lane-exact (`lanes.lane_logsumexp`).
+    The plain version of `solve_marginals`' kernel; counts its calls in
+    ``_solve_marginals.calls``.
     """
+    _solve_marginals.calls += 1
     i_f0 = logf == -math.inf
     i_g0 = logg == -math.inf
     # Kronecker-delta marginals: weights equal the marginal directly
@@ -152,12 +160,73 @@ def _solve_marginals(logf, logg, transitions, maxiter, precision, frozen=None,
     return torch.where(is_delta[..., None], logf, logp), done
 
 
+_solve_marginals.calls = 0
+
+
+def solve_marginals(logf, logg, transitions, maxiter, precision, frozen=None,
+                    exact=False, iters=None):
+    """
+    `_solve_marginals` on the device of ``logf``: CUDA tensors launch the
+    fixed-point kernel (``csrc/cfc_solve.cu``, one thread per slot, on the
+    current stream, no synchronization), CPU tensors run the plain loop.
+    The kernel sums in the lane-exact order, so it computes what
+    ``_solve_marginals(..., exact=True)`` computes, whatever ``exact`` says;
+    it takes float32 and float64 and up to `SOLVE_MAX_STATES` states.
+    ``iters`` (CUDA only): an int32 tensor of ``logf.shape[:-1]`` that
+    receives the iterations each slot ran. Counts its launches in
+    ``solve_marginals.launches``.
+    """
+    if logf.device.type == "cpu":
+        return _solve_marginals(logf, logg, transitions, maxiter, precision,
+                                frozen=frozen, exact=exact)
+    if logf.device.type != "cuda":
+        raise ValueError(f"no kernel for device {logf.device}")
+    n = logf.shape[-1]
+    dtype, dev = logf.dtype, logf.device
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the CFC solve takes float32 or float64, not {dtype}")
+    if not 1 <= n <= SOLVE_MAX_STATES:
+        raise ValueError(f"the CFC solve takes 1 to {SOLVE_MAX_STATES} states, "
+                         f"not {n}")
+    if logg.shape != logf.shape or logg.dtype != dtype or logg.device != dev:
+        raise ValueError("logf and logg must match in shape, dtype and device")
+    if transitions.shape != (n, n) or transitions.device != dev:
+        raise ValueError(f"transitions must be ({n}, {n}) on {dev}")
+    lead = logf.shape[:-1]
+    M = math.prod(lead)
+    logf, logg = logf.contiguous(), logg.contiguous()
+    tr = transitions.to(torch.bool).contiguous()
+    if frozen is not None:
+        frozen = frozen.to(device=dev, dtype=torch.bool).expand(lead).contiguous()
+    if iters is not None and (iters.shape != lead or iters.dtype != torch.int32
+                              or iters.device != dev
+                              or not iters.is_contiguous()):
+        raise ValueError(f"iters must be a contiguous int32 tensor of shape "
+                         f"{tuple(lead)} on {dev}")
+    logp = torch.empty_like(logf)
+    converged = torch.empty(lead, dtype=torch.bool, device=dev)
+    if M > 0:
+        sfx = "f32" if dtype == torch.float32 else "f64"
+        lib, fn = _build.entry("cfc_solve", f"bild_cfc_solve_{sfx}", 7, 4, 1)
+        rc = fn(logf.data_ptr(), logg.data_ptr(), tr.data_ptr(),
+                None if frozen is None else frozen.data_ptr(), logp.data_ptr(),
+                converged.data_ptr(), None if iters is None else iters.data_ptr(),
+                M, n, int(maxiter), dev.index or 0, float(precision),
+                torch.cuda.current_stream(dev).cuda_stream)
+        solve_marginals.launches += 1
+        _build.check(lib, rc, "cfc_solve launch")
+    return logp, converged
+
+
+solve_marginals.launches = 0
+
+
 def cfc_logp_from_marginals(log_marginals, transitions, maxiter=1000,
                             precision=1e-2, active=None, exact=False):
     """Weights reproducing the per-slot marginals ``(..., n, k+1)``.
     Returns ``(logp, converged (...))``; inactive slots get uniform
     weights and never count against convergence. ``exact`` as in
-    `_solve_marginals`."""
+    `_solve_marginals` (`solve_marginals` runs the solve)."""
     n, k1 = log_marginals.shape[-2:]
     lead = log_marginals.shape[:-2]
     logp0 = log_marginals[..., :, 0]
@@ -166,7 +235,7 @@ def cfc_logp_from_marginals(log_marginals, transitions, maxiter=1000,
                                             device=logp0.device)
     act = (torch.ones(k1 - 1, dtype=torch.bool, device=logp0.device)
            if active is None else active[..., 1:])
-    logps, convs = _solve_marginals(
+    logps, convs = solve_marginals(
         log_marginals[..., :, 1:].transpose(-1, -2),
         log_marginals[..., :, :-1].transpose(-1, -2), transitions,
         maxiter, precision, frozen=~act, exact=exact)
@@ -289,7 +358,7 @@ class CFC:
         """The fixed-point solve of one slot: weights ``(n,)`` from its
         marginal ``logf`` and the previous slot's ``logg``."""
         logf = torch.as_tensor(logf)
-        logp, converged = _solve_marginals(
+        logp, converged = solve_marginals(
             logf[None], torch.as_tensor(logg, device=logf.device)[None],
             self._tr(logf), self.MOM_maxiter, self.MOM_precision)
         return self._converged((logp[0], converged[0]))

@@ -17,10 +17,126 @@ import math
 
 import torch
 
-from ..lanes import lane_sum, normal, uniform
+from ..lanes import LaneRNG, lane_sum, normal, uniform
+from ..ops import _build
 
 __all__ = ["Dirichlet", "standard_gamma", "dirichlet_logpdf",
-           "dirichlet_estimate", "dirichlet_sample_masked"]
+           "dirichlet_estimate", "dirichlet_sample_masked", "gamma_accept",
+           "check_exhausted", "GAMMA_MAX_ROUNDS"]
+
+# The most rounds an entry of the sampler on `LaneRNG` streams draws. A
+# round accepts with probability >= 0.95 for a >= 1 in float64, but in
+# float32 the test cancels for large shapes (a >= 1e8, as a degenerate
+# proposal's concentration gives) and accepts about half the draws: an
+# entry then needs tens of rounds. Short of a NaN shape, 1000 is never
+# reached.
+GAMMA_MAX_ROUNDS = 1000
+
+
+def check_exhausted(flag) -> None:
+    """Raise if ``flag`` (a 0-d bool tensor that `gamma_accept` sets, or a
+    bool) says an entry went unaccepted in `GAMMA_MAX_ROUNDS` rounds: one
+    host read. Counts each such event in ``standard_gamma.exhausted``."""
+    if bool(flag):
+        standard_gamma.exhausted += 1
+        raise RuntimeError(
+            f"standard_gamma: an entry was not accepted in {GAMMA_MAX_ROUNDS} "
+            "rejection rounds (a NaN or infinite shape?); its draw would be "
+            "wrong, so the run stops")
+
+
+def _gamma_round(generator, rnd, d, c, out, todo):
+    """One Marsaglia-Tsang round: draws at tags ``2 rnd`` (normals) and ``2
+    rnd + 1`` (uniforms); entries still ``todo`` keep their first
+    acceptance ``d v``."""
+    x = normal(generator, d.shape, 2 * rnd, d.dtype, d.device)
+    u = uniform(generator, d.shape, 2 * rnd + 1, d.dtype, d.device)
+    v = (1.0 + c * x) ** 3
+    pos = v > 0
+    logv = torch.log(torch.where(pos, v, 1.0))
+    ok = pos & (torch.log(u) < 0.5 * x * x + d - d * v + d * logv)
+    return torch.where(todo & ok, d * v, out), todo & ~ok
+
+
+def _gamma_accept(d, c, generator, max_rounds=None):
+    """
+    The plain version of `gamma_accept` (and the sampler's loop for a
+    `torch.Generator`): every round draws for all entries, an entry keeps
+    its first acceptance, and the loop asks the device after each round
+    whether any entry is left. With ``max_rounds`` it stops there: entries
+    left set the streams' ``exhausted`` flag, or without one raise
+    (`check_exhausted`). Counts its calls in ``_gamma_accept.calls``.
+    """
+    _gamma_accept.calls += 1
+    out = torch.zeros_like(d)
+    todo = torch.ones_like(d, dtype=torch.bool)
+    rnd = 0
+    while True:
+        out, todo = _gamma_round(generator, rnd, d, c, out, todo)
+        rnd += 1
+        if not bool(todo.any()):
+            break
+        if max_rounds is not None and rnd >= max_rounds:
+            if generator.exhausted is None:
+                check_exhausted(True)
+            generator.exhausted.fill_(True)
+            break
+    return out
+
+
+_gamma_accept.calls = 0
+
+
+def gamma_accept(d, c, generator: LaneRNG, rounds=None):
+    """
+    ``(L, ...)`` accepted Marsaglia-Tsang draws ``d v`` for shapes ``d = a
+    - 1/3``, ``c = 1/sqrt(9d)`` from the lane streams ``generator``. CUDA
+    tensors launch ``csrc/gamma_accept.cu`` (one thread per entry, each
+    drawing until its first acceptance, on the current stream, no
+    synchronization), CPU tensors run `_gamma_accept`; both give an entry
+    the draw of the first round that accepts it, and stop at
+    `GAMMA_MAX_ROUNDS`. An entry left there sets ``generator.exhausted``
+    (read by the caller after its steps), or without a flag raises here.
+    ``rounds`` (CUDA only): an int32 tensor of ``d``'s shape that receives
+    the rounds each entry drew. Counts launches in ``gamma_accept.launches``.
+    """
+    if d.device.type == "cpu":
+        return _gamma_accept(d, c, generator, GAMMA_MAX_ROUNDS)
+    if d.device.type != "cuda":
+        raise ValueError(f"no kernel for device {d.device}")
+    if d.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the gamma kernel takes float32 or float64, not {d.dtype}")
+    keys = generator.keys
+    L = keys.shape[0]
+    if d.dim() < 1 or d.shape[0] != L or c.shape != d.shape or c.dtype != d.dtype \
+            or c.device != d.device or keys.device != d.device:
+        raise ValueError(f"d and c must match, with {L} lanes first, on "
+                         f"{keys.device}")
+    if rounds is not None and (rounds.shape != d.shape or rounds.dtype != torch.int32
+                               or rounds.device != d.device
+                               or not rounds.is_contiguous()):
+        raise ValueError("rounds must be a contiguous int32 tensor like d")
+    d, c, keys = d.contiguous(), c.contiguous(), keys.contiguous()
+    flag = generator.exhausted
+    if flag is None:
+        flag = torch.zeros((), dtype=torch.bool, device=d.device)
+    out = torch.empty_like(d)
+    per_lane = d.numel() // L if L else 0
+    if d.numel() > 0:
+        sfx = "f32" if d.dtype == torch.float32 else "f64"
+        lib, fn = _build.entry("gamma_accept", f"bild_gamma_accept_{sfx}", 6, 4)
+        rc = fn(d.data_ptr(), c.data_ptr(), keys.data_ptr(), out.data_ptr(),
+                flag.data_ptr(), None if rounds is None else rounds.data_ptr(),
+                L, per_lane, GAMMA_MAX_ROUNDS, d.device.index or 0,
+                torch.cuda.current_stream(d.device).cuda_stream)
+        gamma_accept.launches += 1
+        _build.check(lib, rc, "gamma_accept launch")
+    if generator.exhausted is None:
+        check_exhausted(flag)
+    return out
+
+
+gamma_accept.launches = 0
 
 
 def standard_gamma(alpha: torch.Tensor, generator=None) -> torch.Tensor:
@@ -30,35 +146,28 @@ def standard_gamma(alpha: torch.Tensor, generator=None) -> torch.Tensor:
 
     Marsaglia & Tsang (2000): with ``d = a - 1/3``, ``c = 1/sqrt(9d)``,
     ``x ~ N(0,1)``, ``v = (1 + c x)^3``, accept ``d v`` when ``v > 0`` and
-    ``log u < x^2/2 + d - d v + d log v``. Every round draws for all entries
-    and keeps the first acceptance; rejections are a few percent, so a few
-    rounds suffice, and the loop asks the device once per round whether
-    every entry of every lane is done. ``alpha < 1`` samples
-    Gamma(alpha + 1) and multiplies by ``u^(1/alpha)``; in float32 that
-    product underflows to exactly 0 for small ``alpha``, which
+    ``log u < x^2/2 + d - d v + d log v``; an entry keeps its first
+    acceptance. From a `LaneRNG` the draws of round r are counter-based
+    (tags 2r and 2r + 1) and `gamma_accept` runs the rounds: on CUDA one
+    kernel with no host read. From a `torch.Generator` the loop asks the
+    device once per round whether every entry is done. ``alpha < 1``
+    samples Gamma(alpha + 1) and multiplies by ``u^(1/alpha)``; in float32
+    that product underflows to exactly 0 for small ``alpha``, which
     `dirichlet_logpdf` handles.
     """
     boost = alpha < 1
     a = torch.where(boost, alpha + 1, alpha)
     d = a - 1.0 / 3.0
     c = 1.0 / torch.sqrt(9.0 * d)
-    out = torch.zeros_like(a)
-    todo = torch.ones_like(a, dtype=torch.bool)
-    rnd = 0
-    while True:
-        x = normal(generator, a.shape, 2 * rnd, a.dtype, a.device)
-        u = uniform(generator, a.shape, 2 * rnd + 1, a.dtype, a.device)
-        v = (1.0 + c * x) ** 3
-        pos = v > 0
-        logv = torch.log(torch.where(pos, v, 1.0))
-        ok = pos & (torch.log(u) < 0.5 * x * x + d - d * v + d * logv)
-        out = torch.where(todo & ok, d * v, out)
-        todo = todo & ~ok
-        rnd += 1
-        if not bool(todo.any()):
-            break
+    if isinstance(generator, LaneRNG):
+        out = gamma_accept(d, c, generator)
+    else:
+        out = _gamma_accept(d, c, generator)
     u = uniform(generator, a.shape, -1, a.dtype, a.device)
     return torch.where(boost, out * u ** (1.0 / alpha), out)
+
+
+standard_gamma.exhausted = 0
 
 
 def dirichlet_sample_masked(generator, a, active, N, exact=False):

@@ -13,14 +13,17 @@ tracks. The state may carry a leading lane axis: the lockstep runner
 with one call per step, where `bild_tpu` vmaps. The step counter is a host
 int shared by all lanes (they step in lockstep), or an ``(L,)`` tensor of
 per-lane counts (the adaptive rounds of `infer.adaptive`, whose slots sit
-at different steps). One step is
+at different steps; the lockstep runner too, so that a captured step
+takes its random tags from the device). One step is
 `amis_propose`, the model's batched likelihood and `amis_update`, all on
-the state's device. `FixedkSampler` runs one sampler (no lane axis) and
+the state's device; with per-lane counts a step reads nothing back to
+the host. `FixedkSampler` runs one sampler (no lane axis) and
 fetches several steps' results to the host once, packed in one tensor.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import math
 
@@ -93,6 +96,20 @@ class AmisState:
     def select(self, idx) -> "AmisState":
         """A new state holding the lanes ``idx`` (a long tensor)."""
         return self._map(lambda x: x[idx])
+
+    def assign(self, other: "AmisState") -> None:
+        """Copy every field of ``other`` into this state's tensors, in place
+        (both carry per-lane step counts): the fixed buffers a captured
+        step writes to."""
+        for f in _FIELDS + ("n_steps", "mom_ok"):
+            dst, src = getattr(self, f), getattr(other, f)
+            if src is not dst:
+                dst.copy_(src)
+
+    def tensors(self) -> list:
+        """The state's tensors in field order (per-lane step counts): what
+        ``AmisState(*tensors)`` takes."""
+        return [getattr(self, f) for f in _FIELDS + ("n_steps", "mom_ok")]
 
     def put(self, idx, part: "AmisState") -> None:
         """Write the lanes of ``part`` into lanes ``idx`` (distinct) of this
@@ -237,6 +254,14 @@ def _put(x, sc, value):
         x[:, sc] = value
 
 
+@functools.cache
+def _log1p_table(S, dtype, device):
+    """``log1p(i)`` for ``i < S`` as the host computes it, on ``device``:
+    made once (a captured step makes no new tensor from the host)."""
+    return torch.tensor([math.log1p(i) for i in range(S)],
+                        dtype=torch.float64).to(device=device, dtype=dtype)
+
+
 def _update_lanes(state, ss_new, th_new, logL_new, transitions, logprior,
                   conc_brake_N, pol_brake_N, maxiter, active, exact):
     L, S, N = state.logLs.shape
@@ -289,9 +314,7 @@ def _update_lanes(state, ss_new, th_new, logL_new, transitions, logprior,
     valid = row <= scb
     if per_lane:
         # the host's log1p of each step count, as the shared step's is
-        log1p_sc = torch.tensor([math.log1p(i) for i in range(S)],
-                                dtype=torch.float64).to(
-            device=ss.device, dtype=logLs.dtype)[sc][:, None, None]
+        log1p_sc = _log1p_table(S, logLs.dtype, ss.device)[sc][:, None, None]
         cnt = ((sc + 1) * N).to(logLs.dtype)                    # (L,)
     else:
         log1p_sc = math.log1p(sc)

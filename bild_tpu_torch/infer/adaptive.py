@@ -18,7 +18,8 @@ importance of opening a new k (`KLD_omitK`), and certainty-based stopping.
   trajectory at once on the device (one packed fetch); the chosen ``(k,
   trajectory)`` slots, B of them, are gathered, advanced
   ``steps_per_round`` steps from each slot's own step count (`run_slots`:
-  one likelihood launch per step for all slots) and scattered back.
+  one likelihood launch per step for all slots; on CUDA one replay of a
+  captured step, `parallel.graphs`) and scattered back.
 - **Budget reallocation**: the slot of a converged trajectory goes to
   another live trajectory's next-highest-KLD lane, so one trajectory can
   advance several of its k-lanes in one round; the rest are dead filler
@@ -41,11 +42,12 @@ import numpy as np
 import torch
 
 from ..amis.cfc import CFC
-from ..amis.sampler import (AmisState, _marginal_posterior, amis_propose,
-                            amis_update, draw_seed)
+from ..amis.dirichlet import check_exhausted
+from ..amis.sampler import AmisState, _marginal_posterior, draw_seed
 from ..lanes import LaneRNG, normal
 from ..parallel.batch import (BatchResults, TrajectoryBatch, _informed_proposals_all_k,
-                              _Lanes, _per_k_params, _prepare_batch, run_lanes)
+                              _Lanes, _per_k_params, _prepare_batch, lane_step,
+                              run_lanes, run_steps)
 from ..profiles import st2profile
 
 __all__ = ["sample_batch_adaptive", "decide_batch", "run_slots"]
@@ -170,37 +172,55 @@ def _keep(ok, new: AmisState, old: AmisState) -> AmisState:
                      mom_ok=pick(new.mom_ok, old.mom_ok))
 
 
+def slot_step(mutable, scratch, logL_fn, lane_data, keys, transitions,
+              active, logprior, cb, pb, N, T, mom_maxiter, informed, live):
+    """
+    One step of slots at their own step counts, in place on ``mutable``
+    (`AmisState.tensors`, then the gamma sampler's exhaustion flag): the
+    state is copied into the second buffer ``scratch`` (the same tensors of
+    another state), `parallel.batch.lane_step` advances that copy, and a
+    slot in ``live`` with room left takes it (`_keep`); every other slot
+    keeps its state bit for bit. No host read: the step `run_slots` runs
+    eagerly and replays as a CUDA graph.
+    """
+    state = AmisState(*mutable[:-1])
+    work = AmisState(*scratch)
+    ok = live & (state.n_steps < state.logLs.shape[1])
+    work.assign(state)
+    lane_step(work.tensors() + [mutable[-1]], (), logL_fn, lane_data, keys,
+              transitions, active, logprior, cb, pb, N, T, mom_maxiter,
+              informed)
+    state.assign(_keep(ok, work, state))
+
+
 def run_slots(logL_fn, lane_data, state: AmisState, rng: LaneRNG,
               transitions, active, logprior, cb, pb, *, N, T, steps, live,
               informed=None, mom_maxiter=1000) -> AmisState:
     """
     `parallel.batch.run_lanes` for lanes at their own step counts
-    (``state.n_steps`` an ``(L,)`` tensor): ``steps`` AMIS steps for every
-    lane in ``live`` (bool ``(L,)``) that has room left; the other lanes
-    come back unchanged. Per step one proposal draw (each lane's stream
-    folded by its own step index), one call ``logL_fn(profiles (L, N, T),
-    lane_data)`` for all lanes and one ensemble update. ``informed = (a,
-    logp, use)`` becomes the second mixture component of a lane in ``use``
-    after its first step. Reductions are lane-exact.
+    (``state.n_steps`` an ``(L,)`` tensor): ``steps`` AMIS steps
+    (`slot_step`) for every lane in ``live`` (bool ``(L,)``) that has room
+    left; the other lanes come back unchanged. Per step one proposal draw
+    (each lane's stream folded by its own step index), one call
+    ``logL_fn(profiles (L, N, T), lane_data)`` for all lanes and one
+    ensemble update. ``informed = (a, logp, use)`` becomes the second
+    mixture component of a lane in ``use`` after its first step.
+    Reductions are lane-exact. Updates ``state`` in place and returns it;
+    on CUDA the steps replay one CUDA graph of the step
+    (`parallel.batch.run_steps`). The gamma sampler's exhaustion flag
+    (``rng.exhausted``, made here if ``rng`` has none) is read once, after
+    the steps.
     """
-    S = state.logLs.shape[1]
-    for _ in range(steps):
-        ok = live & (state.n_steps < S)
-        ss, th, profiles = amis_propose(state, rng.fold(state.n_steps),
-                                        transitions, N=N, T=T, active=active,
-                                        exact=True)
-        logLs = logL_fn(profiles, lane_data).to(state.logLs.dtype)
-        new, _ = amis_update(state._map(torch.clone), ss, th, logLs,
-                             transitions, logprior, cb, pb,
-                             maxiter=mom_maxiter, active=active, exact=True)
-        if informed is not None:
-            a_inf, logp_inf, use = informed
-            seed = use & (new.n_steps == 1)
-            new.a_params[:, 1] = torch.where(seed[:, None], a_inf,
-                                             new.a_params[:, 1])
-            new.logps[:, 1] = torch.where(seed[:, None, None], logp_inf,
-                                          new.logps[:, 1])
-        state = _keep(ok, new, state)
+    flag = rng.exhausted
+    if flag is None:
+        flag = torch.zeros((), dtype=torch.bool, device=state.ss.device)
+    mutable = state.tensors() + [flag]
+    run_steps("slots", slot_step, mutable,
+              (logL_fn, tuple(lane_data), rng.keys, transitions, active,
+               logprior, cb, pb, N, T, mom_maxiter, informed, live),
+              steps, scratch=[torch.empty_like(t) for t in mutable[:-1]])
+    if rng.exhausted is None:
+        check_exhausted(flag)
     return state
 
 
@@ -325,6 +345,8 @@ def sample_batch_adaptive(model, batch: TrajectoryBatch,
     # the grid: lane = k * B + trajectory row
     lanes = _Lanes(np.repeat(np.arange(L), B), np.tile(np.arange(B), L),
                    params, lane_keys, device, dtype)
+    # the gamma sampler's exhaustion flag of every step: read once, at the end
+    lanes.rng.exhausted = torch.zeros((), dtype=torch.bool, device=device)
     lane_data = tuple(x[lanes.row_index] for x in per_traj)
 
     # ---- host bookkeeping ------------------------------------------------
@@ -505,6 +527,7 @@ def sample_batch_adaptive(model, batch: TrajectoryBatch,
         rounds += 1
 
     # ---- final summaries -------------------------------------------------
+    check_exhausted(lanes.rng.exhausted)
     maps_d, margs_d = _final_summaries(grid, lanes.active, T, n, marginals)
     K_out = k_max + 1
     map_profiles = np.zeros((K_out, B, T), dtype=int)

@@ -125,16 +125,26 @@ class LaneRNG:
     Independent random streams, one per lane. ``keys`` is an ``(L,)``
     int64 tensor on the device the draws are made on. `fold` derives the
     streams of a sub-task (a step, a call site, a rejection round) from a
-    host int, or per lane from a tensor of ints; a draw of shape ``(L, *shape)`` at tag ``t`` gives element
+    host int, or from a tensor of ints: a 0-d one for every lane, an
+    ``(L,)`` one per lane (a device step counter, so that a captured step
+    takes its tag from the device); a draw of shape ``(L, *shape)`` at tag ``t`` gives element
     ``i`` of lane ``l`` the value ``mix64(mix64(keys[l] ^ c(t)) + (i+1) G)``
     with G the golden-ratio increment of SplitMix64, so a lane's values
     depend only on its key, the tags and the element index.
+
+    ``exhausted`` (optional 0-d bool tensor on the keys' device): a
+    rejection sampler drawing from these streams with a cap on its rounds
+    (`amis.dirichlet.gamma_accept`) sets this flag when an entry is still
+    unaccepted at the cap, and the caller reads it once after its steps;
+    without a flag the sampler checks on the host itself. Folds and lane
+    subsets share their parent's flag.
     """
 
-    def __init__(self, keys: torch.Tensor):
+    def __init__(self, keys: torch.Tensor, exhausted=None):
         if keys.dtype != torch.int64 or keys.dim() != 1:
             raise ValueError("LaneRNG keys must be an (L,) int64 tensor")
         self.keys = keys
+        self.exhausted = exhausted
 
     @staticmethod
     def from_seeds(seeds, device) -> "LaneRNG":
@@ -147,16 +157,18 @@ class LaneRNG:
         return self.keys.shape[0]
 
     def fold(self, tag) -> "LaneRNG":
-        """The streams folded by a host int, or per lane by an ``(L,)``
-        int64 tensor: lane ``l`` then gets what ``fold(int(tag[l]))``
-        gives it."""
+        """The streams folded by a host int, by a 0-d int64 tensor (every
+        lane gets what ``fold(int(tag))`` gives it) or per lane by an
+        ``(L,)`` int64 tensor (lane ``l`` gets what ``fold(int(tag[l]))``
+        gives it)."""
         if isinstance(tag, torch.Tensor):
-            return LaneRNG(mix64(self.keys ^ mix64(tag + _FOLD)))
-        return LaneRNG(mix64(self.keys ^ mix_int(tag + _FOLD)))
+            return LaneRNG(mix64(self.keys ^ mix64(tag + _FOLD)),
+                           self.exhausted)
+        return LaneRNG(mix64(self.keys ^ mix_int(tag + _FOLD)), self.exhausted)
 
     def __getitem__(self, idx) -> "LaneRNG":
         """The streams of a subset of lanes (an index tensor or slice)."""
-        return LaneRNG(self.keys[idx])
+        return LaneRNG(self.keys[idx], self.exhausted)
 
     def bits(self, shape, tag: int) -> torch.Tensor:
         """``(L, *shape)`` uniformly distributed int64 words."""

@@ -101,14 +101,14 @@ def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
 
 
 @functools.cache
-def entry(name: str, symbol: str, n_ptr: int, n_int: int):
+def entry(name: str, symbol: str, n_ptr: int, n_int: int, n_double: int = 0):
     """``(lib, fn)`` for the C entry point ``symbol(ptr * n_ptr, int * n_int,
-    stream) -> int`` of ``csrc/<name>.cu``; pointers and the stream are
-    ``c_void_p`` so 64-bit addresses are not cut."""
+    double * n_double, stream) -> int`` of ``csrc/<name>.cu``; pointers and
+    the stream are ``c_void_p`` so 64-bit addresses are not cut."""
     lib = load(name)
     fn = getattr(lib, symbol)
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_double] * n_double + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
 

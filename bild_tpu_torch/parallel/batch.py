@@ -9,7 +9,10 @@ keeps one `AmisState` with a leading lane axis, one lane per (k,
 trajectory) pair, and runs each step for all lanes at once: one proposal
 draw, one likelihood launch (the CUDA kernels take the lane axis
 themselves) and one ensemble update. The evidence maximum + dE rule then
-picks ``best_k`` per trajectory, as in the adaptive `sample`.
+picks ``best_k`` per trajectory, as in the adaptive `sample`. On CUDA the
+step runs as one captured CUDA graph, replayed for every step
+(`run_steps`, `parallel.graphs`), where `bild_tpu` runs a `fori_loop`
+inside its jitted program; the CPU runs it eagerly.
 
 Randomness: one `torch.Generator` drives a call. It draws one 64-bit key
 per (k, trajectory) lane, k-major, and each lane draws from its own
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 
 from ..amis.cfc import CFC
+from ..amis.dirichlet import check_exhausted
 from ..amis.sampler import (AmisState, _marginal_posterior, amis_propose,
                             amis_update, informed_proposal_batch)
 from ..infer.segment import dp_segment_all_batch, profiles_to_st_batch
@@ -44,6 +48,7 @@ from ..lanes import LaneRNG
 from ..models.base import tensor_token
 from ..profiles import st2profile
 from ..trajectory import Trajectory
+from . import graphs
 from .mesh import (broadcast_from_process0, checkpoint_hit, fetch_to_host,
                    is_multiprocess, require_data_axis)
 
@@ -230,33 +235,91 @@ class BatchResults:
         return profs, w
 
 
+def lane_step(mutable, scratch, logL_fn, lane_data, keys, transitions,
+              active, logprior, cb, pb, N, T, mom_maxiter, informed):
+    """
+    One AMIS step of every lane, in place on ``mutable`` (`AmisState.tensors`
+    with per-lane step counts, then the gamma sampler's exhaustion flag):
+    per lane one proposal draw from its stream (``keys``) folded by its own
+    step count (a device tag), one call ``logL_fn(profiles (L, N, T),
+    lane_data)`` and one ensemble update written back into the same
+    tensors; ``informed = (a (L, K), logp (L, n, K), use (L,))`` becomes the
+    second mixture component of a lane in ``use`` after its first step.
+    Lane-exact reductions and no host read: the step `run_lanes` runs
+    eagerly and replays as a CUDA graph (``scratch`` unused).
+    """
+    state = AmisState(*mutable[:-1])
+    rng = LaneRNG(keys, mutable[-1])
+    ss, th, profiles = amis_propose(state, rng.fold(state.n_steps), transitions,
+                                    N=N, T=T, active=active, exact=True)
+    logLs = logL_fn(profiles, lane_data).to(state.logLs.dtype)
+    new, _ = amis_update(dataclasses.replace(state), ss, th, logLs,
+                         transitions, logprior, cb, pb, maxiter=mom_maxiter,
+                         active=active, exact=True)
+    state.assign(new)
+    if informed is not None:
+        a_inf, logp_inf, use = informed
+        seed = use & (state.n_steps == 1)
+        state.a_params[:, 1] = torch.where(seed[:, None], a_inf,
+                                           state.a_params[:, 1])
+        state.logps[:, 1] = torch.where(seed[:, None, None], logp_inf,
+                                        state.logps[:, 1])
+
+
+def run_steps(kind, step, mutable, args, steps, scratch=()) -> None:
+    """``steps`` calls of ``step(mutable, scratch, *args)`` (``args[0]`` the
+    likelihood closure): on CUDA replays of one CUDA graph of the step
+    (`parallel.graphs`), after one eager step where no graph of these
+    shapes is cached yet (it builds what the step needs; the capture
+    follows it, also when no step is left, for the next call); on the CPU,
+    or under ``graphs._EAGER``, an eager loop. Counts the steps of every
+    call in ``run_steps.steps``."""
+    run_steps.steps += max(steps, 0)
+    device = mutable[0].device
+    if steps > 0 and graphs.graphed(device):
+        if not graphs.cached(kind, args[0], mutable, args, scratch):
+            step(mutable, scratch, *args)
+            steps -= 1
+        graphs.replay(kind, args[0], step, mutable, args, steps, scratch)
+        return
+    for _ in range(steps):
+        step(mutable, scratch, *args)
+
+
+run_steps.steps = 0
+
+
 def run_lanes(logL_fn, lane_data, state: AmisState, rng: LaneRNG,
               transitions, active, logprior, cb, pb, *, N, T, start, stop,
               informed=None, mom_maxiter=1000) -> AmisState:
     """
-    AMIS steps ``start..stop-1`` for every lane of ``state``: per step one
-    proposal draw (lane streams folded by the step index), one call
-    ``logL_fn(profiles (L, N, T), lane_data)`` and one ensemble update.
+    AMIS steps ``start..stop-1`` for every lane of ``state`` (`lane_step`),
+    in place; returns ``state``, its step counts an ``(L,)`` tensor.
     ``informed = (a (L, K), logp (L, n, K), use (L,))`` becomes the second
-    mixture component of the lanes in ``use`` after step 0. Reductions are
-    lane-exact (``exact=True``). Counts its steps in
-    ``run_lanes.steps`` and lane-steps in ``run_lanes.lane_steps``.
+    mixture component of the lanes in ``use`` after step 0. On CUDA the
+    steps replay one CUDA graph of the step (`run_steps`); the CPU runs
+    them eagerly. The gamma sampler's exhaustion flag (``rng.exhausted``,
+    made here if ``rng`` has none) is read once, after the steps. Counts
+    its steps in ``run_lanes.steps`` and lane-steps in
+    ``run_lanes.lane_steps``.
     """
-    for i in range(start, stop):
-        ss, th, profiles = amis_propose(state, rng.fold(i), transitions,
-                                        N=N, T=T, active=active, exact=True)
-        logLs = logL_fn(profiles, lane_data).to(state.logLs.dtype)
-        state, _ = amis_update(state, ss, th, logLs, transitions, logprior,
-                               cb, pb, maxiter=mom_maxiter, active=active,
-                               exact=True)
-        if i == 0 and informed is not None:
-            a_inf, logp_inf, use = informed
-            state.a_params[:, 1] = torch.where(use[:, None], a_inf,
-                                               state.a_params[:, 1])
-            state.logps[:, 1] = torch.where(use[:, None, None], logp_inf,
-                                            state.logps[:, 1])
-        run_lanes.steps += 1
-        run_lanes.lane_steps += state.lanes
+    L = state.lanes
+    device = state.ss.device
+    if not isinstance(state.n_steps, torch.Tensor):
+        state.n_steps = torch.full((L,), state.n_steps, dtype=torch.long,
+                                   device=device)
+    flag = rng.exhausted
+    if flag is None:
+        flag = torch.zeros((), dtype=torch.bool, device=device)
+    steps = max(stop - start, 0)
+    run_steps("lanes", lane_step, state.tensors() + [flag],
+              (logL_fn, tuple(lane_data), rng.keys, transitions, active,
+               logprior, cb, pb, N, T, mom_maxiter,
+               informed if start == 0 else None), steps)
+    run_lanes.steps += steps
+    run_lanes.lane_steps += L * steps
+    if rng.exhausted is None:
+        check_exhausted(flag)
     return state
 
 

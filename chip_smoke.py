@@ -94,6 +94,17 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    1e-9 of the oracle (of the dense float64 build at T=1000), sqrt float32
    within 1e-6 of the oracle at T=100 and within 0.11 centered nats per
    family at T=1000.
+6d. Step kernel phase: the two kernels of the AMIS step that replace
+   device loops of bild_tpu (not Pallas kernels), on every input config
+   3's lockstep run gives them (128 trajectories, run eagerly so that each
+   step's calls are recorded): csrc/cfc_solve.cu (the CFC proposal's
+   fixed-point solve, one thread per slot; bild_tpu's `lax.while_loop`)
+   against the plain solve, float32 within 4 ulp, the inputs in float64
+   within 1e-12 relative, converged flags and non-finite entries equal;
+   csrc/gamma_accept.cu (the gamma sampler's rejection rounds, one thread
+   per entry; jax.random.gamma's loop) against its plain rounds within 4
+   ulp, no entry exhausted; each timed (CUDA events) at the scout call that
+   iterates most, beside the bound of the iterations or rounds it takes.
 7. Dataset phase (bench_e2e.py config 3): 128 trajectories of T=100 made by
    the port's batched generator, `parallel.sample_dataset` with informed
    init, the scout/refine schedule, marginals, the boundary climb and chunk
@@ -118,6 +129,18 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    frame / switch-count accuracy >= 0.97 / 0.50, the launch counters,
    wall, peak device memory and the device-busy share of a traced rerun
    (same bits).
+8b'. Graph phase: the dataset runners replay one CUDA graph of their AMIS
+   step (`parallel.graphs`; every run since the start does) and, through
+   the private `graphs._EAGER`, run their eager loop: config 3's lockstep
+   `sample_dataset` and adaptive schedule under both selectors, config 4
+   under both, GGM configs 6 and 7, each in both modes in one call. Per
+   mode: wall, device-busy share and host launch calls per AMIS step of a
+   traced run, captures and replays, the gamma sampler's exhaustion
+   counter, the peak device memory allocated and reserved. Graphed equals
+   eager bit for bit (evidences, MAP profiles, mom_ok, and the marginals,
+   climbed profiles and evaluations where the run has them); every
+   accuracy bar; the graphed runs launch the selected kernel and the CFC
+   and gamma kernels through replays, and no plain version.
 8c. Config 5p phase (bench_e2e.py config5(postproc=True)): 10 chunks of
    1,024 trajectories (T=100, data made on the card per chunk) through
    `sample_batch(k_max=4, ..., marginals)`, the boundary climb and the
@@ -180,9 +203,15 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    gloo, frames split in two, within 1e-10 of one process (T=8192,
    float64).
 
+On the card the dataset runners replay a CUDA graph of their step: a
+replay counts, in each kernel's launch counter, what the captured step
+launched (`parallel.graphs`), so the counters read as in an eager run.
+
 Prints the card's name and power limit, bench_torch.py's JSON line and
-config 2's dict (phases 3b and 4b), one JSON line of per-kernel results,
-and as the last line ``{"ok": true, "device": {...}}``. Any
+config 2's dict (phases 3b and 4b), one JSON line of per-kernel results
+(the two TPU kernels' ports, the split tiers' kernel, the CFC solve's and
+the gamma sampler's, and the graph phase's readings), and as the last line ``{"ok": true,
+"device": {...}}``. Any
 failed check raises: the exit code is then non-zero and no result is
 printed. Without a CUDA device it exits non-zero at once.
 """
@@ -1772,6 +1801,447 @@ def config4_phase(bt):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the CFC fixed-point kernel, and the dataset runners' step as a CUDA graph
+# ---------------------------------------------------------------------------
+
+# csrc/cfc_solve.cu against the plain solve on the same inputs: float64
+# relative error, float32 in units in the last place of the plain value
+RTOL_CFC_F64 = 1e-12
+ULP_CFC_F32 = 4
+
+
+def cfc_ops(n):
+    """Operations of one iteration of one slot's solve with ``n`` states
+    (an addition, subtraction, comparison, exp or log counts one): 2n + 1
+    log-sum-exps of n entries (n - 1 comparisons, n subtractions, n exps,
+    p2 - 1 additions for p2 the power of two >= n, a log and an addition),
+    the n^2 differences g - norm, and 5n for the weights, their
+    normalization, the change, its maximum and the test."""
+    p2 = 1 << (n - 1).bit_length()
+    lse = (n - 1) + 2 * n + (p2 - 1) + 2
+    return (2 * n + 1) * lse + n * n + 5 * n
+
+
+def cfc_bound_ms(M, n, itemsize, iterations):
+    """The least time of one solve of ``M`` slots on the card: the
+    operations of the ``iterations`` these inputs take (`cfc_ops` each) at
+    the float32 peak, or the bytes (logf, logg and logp (M, n), the
+    transition matrix, the frozen and converged flags, each once) at the
+    HBM rate."""
+    return bound_ms(iterations * cfc_ops(n),
+                    3 * M * n * itemsize + n * n + 2 * M)
+
+
+def ulp_err(got, want):
+    """Largest |got - want| in units in the last place of ``want`` (in its
+    type) over its finite entries."""
+    fin = torch.isfinite(want)
+    w = want[fin]
+    ulp = torch.nextafter(w.abs(), torch.full_like(w, math.inf)) - w.abs()
+    return float(((got[fin] - w).abs() / ulp).max()) if w.numel() else 0.0
+
+
+GAMMA_ULP = 4
+
+
+def gamma_ops(rounds):
+    """Floating-point operations of ``rounds`` rounds of the gamma kernel
+    (the integer hashing of the streams not counted): three uniforms (an
+    addition and a product each), the normal (two products, a log, a sqrt,
+    a cos, a product), v (a product, an addition, two products), log v, the
+    test (a log and seven operations) and the accepted value."""
+    return 26 * rounds
+
+
+def step_kernel_phase(bt):
+    """The step's two kernels of PR 12 against their plain versions on
+    every input config 3's lockstep run gives them: 128 trajectories
+    through `sample_batch(k_max=4, steps_per_k=12, N=128, informed_init,
+    scout_steps=4, refine_top=3)`, run eagerly so that each step's calls
+    are recorded (scout L=640, refine L=384). csrc/cfc_solve.cu (4 slots of
+    2 states) against `_solve_marginals` with lane-exact sums: float32
+    within `ULP_CFC_F32` ulp, the inputs in float64 within `RTOL_CFC_F64`,
+    converged flags and non-finite entries equal. csrc/gamma_accept.cu
+    (128 proposals x 5 slots per lane) against `_gamma_accept`: within
+    `GAMMA_ULP` ulp in float32 and float64, no exhaustion. Each timed
+    (CUDA events) at the scout call that iterates most, beside the bound of
+    the iterations and rounds it takes (`cfc_bound_ms`, `gamma_ops`).
+    Returns ``{name: numbers of the kernels line}``."""
+    from bild_tpu_torch.amis import cfc, dirichlet
+    from bild_tpu_torch.lanes import LaneRNG
+    from bild_tpu_torch.parallel import graphs, sample_batch
+
+    model = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
+                                      localization_error=0.1,
+                                      device=DEVICE, dtype=torch.float32)
+    _, _, batch, _ = config3_data(model, 128, T)
+    solves, gammas = [], []
+    solve, accept = cfc.solve_marginals, dirichlet.gamma_accept
+
+    def record_solve(logf, logg, transitions, maxiter, precision, frozen=None,
+                     exact=False, iters=None):
+        solves.append((logf.clone(), logg.clone(), transitions, maxiter,
+                       precision, None if frozen is None
+                       else frozen.expand(logf.shape[:-1]).clone()))
+        return solve(logf, logg, transitions, maxiter, precision,
+                     frozen=frozen, exact=exact, iters=iters)
+
+    def record_gamma(d, c, generator, rounds=None):
+        gammas.append((d.clone(), c.clone(), generator.keys.clone()))
+        return accept(d, c, generator, rounds=rounds)
+
+    # each wrapper counts its launches on the module's name: the recorder's
+    # meanwhile
+    record_solve.launches = record_gamma.launches = 0
+    cfc.solve_marginals, dirichlet.gamma_accept = record_solve, record_gamma
+    graphs._EAGER = True                  # every step's calls are recorded
+    try:
+        sample_batch(model, batch, k_max=4, steps_per_k=12, N=128,
+                     informed_init=True, scout_steps=4, refine_top=3,
+                     generator=torch.Generator().manual_seed(7))
+    finally:
+        cfc.solve_marginals, dirichlet.gamma_accept = solve, accept
+        solve.launches += record_solve.launches
+        accept.launches += record_gamma.launches
+        graphs._EAGER = False
+
+    # the CFC solve
+    ulps, rels, max_abs, unconverged = [], [], 0.0, 0
+    for logf, logg, tr, maxiter, precision, frozen in solves:
+        for dtype in (torch.float32, torch.float64):
+            f, g = logf.to(dtype), logg.to(dtype)
+            got, conv = cfc.solve_marginals(f, g, tr, maxiter, precision,
+                                            frozen=frozen)
+            want, wconv = cfc._solve_marginals(f, g, tr, maxiter, precision,
+                                               frozen=frozen, exact=True)
+            check(torch.equal(conv, wconv), "cfc_solve: converged flags equal")
+            check(torch.equal(got.isfinite(), want.isfinite())
+                  and torch.equal(got[~want.isfinite()].nan_to_num(),
+                                  want[~want.isfinite()].nan_to_num()),
+                  "cfc_solve: non-finite entries where the plain solve has them")
+            fin = want.isfinite()
+            if dtype == torch.float32:
+                ulps.append(ulp_err(got, want))
+                max_abs = max(max_abs, float((got[fin] - want[fin]).abs().max()))
+                unconverged += int((~conv).sum())
+            else:
+                rels.append(float(((got[fin] - want[fin]).abs()
+                                   / want[fin].abs().clamp_min(1e-300)).max()))
+    shapes = sorted({tuple(r[0].shape) for r in solves})
+    line = (f"cfc_solve: {len(solves)} solves of config 3's lockstep run "
+            f"(shapes {shapes}), kernel against plain: float32 max "
+            f"{max(ulps):.1f} ulp (bar {ULP_CFC_F32}), max abs {max_abs:.3e}; "
+            f"float64 max rel {max(rels):.2e} (bar {RTOL_CFC_F64}); "
+            f"{unconverged} unconverged slots")
+    print(line, flush=True)
+    check(max(ulps) <= ULP_CFC_F32 and max(rels) <= RTOL_CFC_F64, line)
+
+    # the gamma sampler's rounds
+    g_ulps, g_abs, differ = [], 0.0, 0
+    for d, c, keys in gammas:
+        for dtype in (torch.float32, torch.float64):
+            dd, cc = d.to(dtype), c.to(dtype)
+            flag = torch.zeros((), dtype=torch.bool, device=DEVICE)
+            got = dirichlet.gamma_accept(dd, cc, LaneRNG(keys, flag))
+            want = dirichlet._gamma_accept(dd, cc, LaneRNG(keys))
+            check(not bool(flag), "gamma_accept: every entry accepted")
+            g_ulps.append(ulp_err(got, want))
+            differ += int((got != want).sum())
+            if dtype == torch.float32:
+                g_abs = max(g_abs, float((got - want).abs().max()))
+    line = (f"gamma_accept: {len(gammas)} calls of config 3's lockstep run "
+            f"(shapes {sorted({tuple(r[0].shape) for r in gammas})}), kernel "
+            f"against plain: max {max(g_ulps):.1f} ulp (bar {GAMMA_ULP}), max abs "
+            f"{g_abs:.3e} (float32), {differ} entries not bit-equal (both types)")
+    print(line, flush=True)
+    check(max(g_ulps) <= GAMMA_ULP, line)
+
+    out = {}
+    # timed: the scout's call (L=640) that iterates most
+    best = None
+    for rec in solves:
+        if rec[0].shape == solves[0][0].shape:
+            iters = torch.zeros(rec[0].shape[:-1], dtype=torch.int32, device=DEVICE)
+            cfc.solve_marginals(*rec[:5], frozen=rec[5], iters=iters)
+            if best is None or int(iters.sum()) > int(best[1].sum()):
+                best = (rec, iters)
+    (logf, logg, tr, maxiter, precision, frozen), iters = best
+    M, n = math.prod(logf.shape[:-1]), logf.shape[-1]
+    total = int(iters.sum())
+    out["cfc_solve"] = time_kernel(
+        "cfc_solve", tuple(logf.shape),
+        lambda: cfc.solve_marginals(logf, logg, tr, maxiter, precision,
+                                    frozen=frozen),
+        lambda: cfc._solve_marginals(logf, logg, tr, maxiter, precision,
+                                     frozen=frozen, exact=True),
+        cfc_bound_ms(M, n, logf.element_size(), total),
+        f"{total} iterations over {M} slots, at most {int(iters.max())}")
+    out["cfc_solve"].update(max_abs_err=max_abs, max_ulp_f32=max(ulps),
+                            max_rel_f64=max(rels))
+    best = None
+    for d, c, keys in gammas:
+        if d.shape == gammas[0][0].shape:
+            rounds = torch.zeros(d.shape, dtype=torch.int32, device=DEVICE)
+            dirichlet.gamma_accept(d, c, LaneRNG(keys), rounds=rounds)
+            if best is None or int(rounds.sum()) > int(best[1].sum()):
+                best = ((d, c, keys), rounds)
+    (d, c, keys), rounds = best
+    total = int(rounds.sum())
+    out["gamma_accept"] = time_kernel(
+        "gamma_accept", tuple(d.shape),
+        lambda: dirichlet.gamma_accept(d, c, LaneRNG(keys)),
+        lambda: dirichlet._gamma_accept(d, c, LaneRNG(keys)),
+        bound_ms(gamma_ops(total), 3 * d.numel() * d.element_size() + 8 * keys.numel()),
+        f"{total} rounds over {d.numel()} entries, at most {int(rounds.max())}")
+    out["gamma_accept"].update(max_abs_err=g_abs, max_ulp=max(g_ulps),
+                               not_bit_equal=differ)
+    return out
+
+
+def time_kernel(name, shape, kern, plain, bound, work):
+    """CUDA-event times of ``kern`` and ``plain`` (plain, kernel, kernel,
+    plain) beside ``bound = (ms, what bounds it)``; printed and returned as
+    the kernels line's numbers."""
+    p1, k1, k2, p2 = (time_ms(fn, reps) for fn, reps in
+                      ((plain, 3), (kern, 50), (kern, 50), (plain, 3)))
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    bnd, by = bound
+    print(f"time {name} {shape} float32: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bnd:.6f} ms ({by}; {work}), "
+          f"{bnd / ms:.2%} of bound", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "shape": list(shape)}
+
+
+# host-side calls that put work on the device, as torch.profiler names them
+LAUNCH_CALLS = ("LaunchKernel", "GraphLaunch", "MemcpyAsync", "MemsetAsync")
+
+
+def graph_profile(run):
+    """One call of ``run`` traced by torch.profiler (CUDA activity only,
+    read from its raw events: a fraction of the full trace's cost at
+    thousands of launches per step): ``(device ms, profiled wall s, host
+    launch calls (`LAUNCH_CALLS`), its result)``."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_ns = calls = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            busy_ns += e.duration_ns()
+        elif any(k in e.name() for k in LAUNCH_CALLS):
+            calls += 1
+    return busy_ns / 1e6, wall, calls, out
+
+
+def same_bits(a, b, fields):
+    """Whether results ``a`` and ``b`` hold the same bits in ``fields``
+    (arrays, or lists of arrays per trajectory)."""
+    def eq(x, y):
+        if isinstance(x, list):
+            return len(x) == len(y) and all(eq(u, v) for u, v in zip(x, y))
+        return np.array_equal(x, y, equal_nan=np.asarray(x).dtype.kind == "f")
+    return all(eq(getattr(a, f), getattr(b, f)) for f in fields)
+
+
+def graph_cases(bt):
+    """The runs of the graph phase: ``(label, selector, run, fields to
+    compare, score(result) -> (frame, switch-count accuracy), bars)``."""
+    from bild_tpu_torch.parallel import sample_batch, sample_dataset
+
+    m3 = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM, localization_error=0.1,
+                                   device=DEVICE, dtype=torch.float32)
+    truths3, k3, _, trajs3 = config3_data(m3, 128, T)
+    m4 = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
+                                   looppositions=THREE_STATES,
+                                   localization_error=0.1, device=DEVICE,
+                                   dtype=torch.float32)
+    truths4, k4, batch4 = config4_data(m4)
+    lock = dict(k_max=4, steps_per_k=12, N=128, informed_init=True,
+                scout_steps=4, refine_top=3, marginals=True,
+                optimize_boundaries=True, chunk_size=64)
+    adap = dict(k_max=4, N=128, informed_init=True, init_steps=4,
+                steps_per_round=2, max_steps_per_k=24, samplesize=4096,
+                schedule="adaptive", chunk_size=128)
+
+    def score_list(truths, true_k):
+        return lambda r: (float(np.mean(np.concatenate(r.best_profile())
+                                        == truths.ravel())),
+                          float(np.mean(r.best_k() == true_k)))
+
+    def score(truths, true_k):
+        return lambda r: (float(np.mean(r.best_profile() == truths)),
+                          float(np.mean(r.best_k() == true_k)))
+
+    ds = ("evidence", "evidence_se", "profiles_by_k", "mom_ok")
+    sb = ("evidence", "evidence_se", "map_profiles", "mom_ok")
+    bars3 = (DATASET_FRAME_ACCURACY, DATASET_SWITCH_ACCURACY)
+    cases = []
+    for sel in ("sym", "dense"):
+        cases.append((
+            "config 3 lockstep", sel,
+            lambda: sample_dataset(m3, trajs3, **lock,
+                                   generator=torch.Generator().manual_seed(7)),
+            ds + ("marginals", "optimized"), score_list(truths3, k3), bars3))
+        cases.append((
+            "config 3 adaptive", sel,
+            lambda: sample_dataset(m3, trajs3, **adap,
+                                   generator=torch.Generator().manual_seed(7)),
+            ds + ("evals",), score_list(truths3, k3), bars3))
+    for sel in ("sym", "dense"):
+        cases.append((
+            "config 4", sel,
+            lambda: sample_batch(m4, batch4, **CONFIG4_KW,
+                                 generator=torch.Generator().manual_seed(4)),
+            sb, score(truths4, k4),
+            (CONFIG4_FRAME_ACCURACY, CONFIG4_SWITCH_ACCURACY)))
+    for number in (6, 7):
+        model, truths, true_k, _, batch = ggm_config(bt, number)
+        informed, bar_f, bar_s = GGM_CONFIGS[number][3:]
+        cases.append((
+            f"ggm config {number}", "sym",
+            lambda model=model, batch=batch, informed=informed, seed=number:
+            sample_batch(model, batch, **GGM_KW, informed_init=informed,
+                         generator=torch.Generator().manual_seed(seed)),
+            sb, score(truths, true_k), (bar_f, bar_s)))
+    return cases
+
+
+def graph_phase(bt):
+    """The dataset runners' step as one CUDA graph (`parallel.graphs`)
+    against their eager loop (``graphs._EAGER``), in one call: config 3's
+    lockstep `sample_dataset` (chunks of 64, marginals, the climb) and
+    adaptive schedule under both selectors, config 4 under both, GGM
+    configs 6 and 7. Per run and mode: the wall (graphed: the run after
+    the capturing one), the device-busy share and the host launch calls per
+    AMIS step of a traced run, captures and replays, the gamma sampler's
+    exhaustion counter, and the peak device memory allocated and reserved.
+    Checks: graphed equals eager bit for bit (evidences, MAP profiles,
+    mom_ok; marginals and climbed profiles, evaluations), the traced runs
+    too; every accuracy bar; the eager runs replay nothing, the graphed
+    ones replay and launch the selected kernel, csrc/cfc_solve.cu and
+    csrc/gamma_accept.cu, and no plain version runs. Returns ``{"launches":
+    {"cfc_solve": ..., "gamma_accept": ...}, "runs": ...}`` (the graphed
+    runs' launches)."""
+    from bild_tpu_torch.amis import cfc, dirichlet
+    from bild_tpu_torch.amis.dirichlet import standard_gamma
+    from bild_tpu_torch.parallel import graphs
+    from bild_tpu_torch.parallel.batch import run_steps
+
+    t_phase = time.perf_counter()
+    launches, runs = {"cfc_solve": 0, "gamma_accept": 0}, {}
+    for label, sel, run, fields, score, bars in graph_cases(bt):
+        bt.config.set_rouse_kernel(sel)
+        got = {}
+        for mode in ("eager", "graphed"):
+            graphs._EAGER = mode == "eager"
+            try:
+                graphs.clear()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                first = None
+                if mode == "graphed":
+                    caps = graphs.replay.captures
+                    t0 = time.perf_counter()
+                    first = run()
+                    torch.cuda.synchronize()
+                    first_wall = time.perf_counter() - t0
+                    caps = graphs.replay.captures - caps
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                cfc.solve_marginals.launches = cfc._solve_marginals.calls = 0
+                dirichlet.gamma_accept.launches = dirichlet._gamma_accept.calls = 0
+                run_steps.steps = 0
+                reps = graphs.replay.replays
+                exhausted = standard_gamma.exhausted
+                t0 = time.perf_counter()
+                res = run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                ran = read_counts()
+                info = {
+                    "wall_s": wall, "steps": run_steps.steps,
+                    "replays": graphs.replay.replays - reps,
+                    "cfc_launches": cfc.solve_marginals.launches,
+                    "cfc_plain_calls": cfc._solve_marginals.calls,
+                    "gamma_launches": dirichlet.gamma_accept.launches,
+                    "gamma_plain_calls": dirichlet._gamma_accept.calls,
+                    "gamma_exhausted": standard_gamma.exhausted - exhausted,
+                    "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
+                    "launches": ran}
+                if mode == "graphed":
+                    info.update(first_wall_s=first_wall, captures=caps)
+                steps0 = run_steps.steps
+                dev_ms, traced_wall, calls, traced = graph_profile(run)
+                info.update(
+                    device_ms=dev_ms, traced_wall_s=traced_wall,
+                    busy_share=dev_ms / 1e3 / traced_wall,
+                    busy_of_wall=dev_ms / 1e3 / wall,
+                    launch_calls_per_step=calls / max(run_steps.steps - steps0, 1))
+            finally:
+                graphs._EAGER = False
+            got[mode] = (res, first, traced, info)
+        res, first, traced, _ = got["graphed"]
+        eager = got["eager"][0]
+        acc, sw = score(res)
+        same = same_bits(res, eager, fields)
+        e, g = got["eager"][3], got["graphed"][3]
+        key = f"{label} {sel}"
+        runs[key] = {"eager": e, "graphed": g, "frame_accuracy": acc,
+                     "switch_accuracy": sw, "graphed_equals_eager": same}
+        def busy(i):
+            return (f"busy {i['busy_share']:.4f} ({i['device_ms']:.1f} ms of "
+                    f"{i['traced_wall_s']:.3f} s traced; {i['busy_of_wall']:.4f} "
+                    "of the untraced wall)" if i["device_ms"] > 0
+                    else "busy not measured (no device events in the trace)")
+
+        print(f"graph {key}: eager wall {e['wall_s']:.3f} s, {busy(e)}, "
+              f"{e['launch_calls_per_step']:.1f} host launch calls per step "
+              f"({e['steps']} steps), peak {e['peak_allocated_gib']:.2f} / "
+              f"{e['peak_reserved_gib']:.2f} GiB allocated / reserved | graphed "
+              f"wall {g['wall_s']:.3f} s (the capturing run {g['first_wall_s']:.3f} "
+              f"s, {g['captures']} captures), {busy(g)}, "
+              f"{g['launch_calls_per_step']:.1f} host launch calls per step "
+              f"({g['steps']} steps, {g['replays']} replayed), peak "
+              f"{g['peak_allocated_gib']:.2f} / {g['peak_reserved_gib']:.2f} GiB; "
+              f"gamma exhausted {e['gamma_exhausted'] + g['gamma_exhausted']}; "
+              f"launches {g['launches']}, cfc_solve {g['cfc_launches']}, "
+              f"gamma_accept {g['gamma_launches']}; frame "
+              f"accuracy {acc:.4f}, switch-count accuracy {sw:.4f}; graphed "
+              f"equals eager bit for bit: {same}", flush=True)
+        check(same, f"graph {key}: graphed equals eager bit for bit")
+        check(same_bits(first, res, fields) and same_bits(traced, res, fields)
+              and same_bits(got["eager"][2], eager, fields),
+              f"graph {key}: every run from the same seed gives the same bits")
+        check(acc >= bars[0] and sw >= bars[1],
+              f"graph {key}: accuracy {acc:.4f} / {sw:.4f} >= {bars}")
+        check(e["replays"] == 0 and g["replays"] > 0 and g["captures"] > 0,
+              f"graph {key}: eager replays nothing, graphed replays its captures")
+        check(all(i[f"{k}_plain_calls"] == 0 for i in (e, g) for k in ("cfc", "gamma"))
+              and g["cfc_launches"] > 0 and g["gamma_launches"] > 0,
+              f"graph {key}: the CFC and gamma kernels ran, their plain versions never")
+        check(all(v == 0 for k, v in g["launches"].items()
+                  if k.startswith("plain")),
+              f"graph {key}: no plain likelihood on the CUDA path")
+        check(label.startswith("ggm") or g["launches"][f"kalman_{sel}"] > 0,
+              f"graph {key}: the {sel} kernel launched")
+        check(e["gamma_exhausted"] == g["gamma_exhausted"] == 0,
+              f"graph {key}: every gamma draw accepted within its rounds")
+        if "adaptive" in label:
+            check(float(np.mean(res.evals)) < LOCKSTEP_EVALS,
+                  f"graph {key}: fewer evaluations than the lockstep schedule")
+        launches["cfc_solve"] += g["cfc_launches"]
+        launches["gamma_accept"] += g["gamma_launches"]
+    bt.config.set_rouse_kernel("sym")
+    print(f"graph phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"launches": launches, "runs": runs}
+
+
 # config 5 with post-processing: bild_tpu recorded 0.9926 / 0.8897, after
 # the boundary climb 0.9927, mean credibility 0.9937 (PERF_r04.json, 5p)
 CONFIG5_CHUNKS, CONFIG5_CHUNK = 10, 1024
@@ -1802,7 +2272,10 @@ def config5p_phase(bt):
     rng = np.random.default_rng(5)
     acc = sw = acc_post = cred = 0.0
     chunk_s, finite = [], True
+    from bild_tpu_torch.parallel import graphs
+
     reset_counts()
+    caps, reps = graphs.replay.captures, graphs.replay.replays
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1841,7 +2314,10 @@ def config5p_phase(bt):
           f"(each: {', '.join(f'{x:.2f}' for x in chunk_s)}), frame accuracy "
           f"{acc:.4f}, switch-count accuracy {sw:.4f}, after the boundary climb "
           f"{acc_post:.4f}, mean credibility {cred:.4f}, peak device memory "
-          f"{peak:.2f} GiB, launches {ran}", flush=True)
+          f"{peak:.2f} GiB allocated, "
+          f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved, "
+          f"launches {ran}; step graphs: {graphs.replay.captures - caps} "
+          f"captures, {graphs.replay.replays - reps} replayed steps", flush=True)
     check(ran["kalman_sym"] > 0, "sym kernel launched")
     check(all(ran[k] == 0 for k in ran if k.startswith("plain")),
           "no plain version ran on the CUDA path")
@@ -3031,7 +3507,9 @@ def main():
     bt.config.exact_fp32()
 
     names = ("kalman_sym", "kalman_dense")
-    builds = [(name, ()) for name in ("kalman_sym", "kalman_sym_split", "kalman_dense")]
+    builds = [(name, ()) for name in ("kalman_sym", "kalman_sym_split",
+                                      "kalman_dense", "cfc_solve",
+                                      "gamma_accept")]
     builds.append(("kalman_sym_split", (PROBE_DEFINE,)))   # split_phase's probe
     with ThreadPoolExecutor(len(builds)) as pool:           # one nvcc per build, at once
         list(pool.map(lambda b: _build.load(*b), builds))
@@ -3050,9 +3528,11 @@ def main():
     ladder = ladder_phase(bt)
     split = split_phase(bt, rng)
     tier_launches = tiers_phase(bt, ladder)
+    step_kernels = step_kernel_phase(bt)
     ds_launches = dataset_phase(bt)
     ad_launches = adaptive_phase(bt)
     c4_launches = config4_phase(bt)
+    graph = graph_phase(bt)
     c5_launches = config5p_phase(bt)
     with tempfile.TemporaryDirectory() as work:
         cli_counts = cli_phase(bt, work)
@@ -3150,9 +3630,28 @@ def main():
         "bench_split_cov_ms": bench["kernels"]["kalman_sym_split_cov"]["ms"],
         "default_tier": split["default"],
     })
+    # The step's kernels of PR 12, counterparts of device loops of XLA and
+    # not of Pallas kernels: the CFC fixed-point solve and the gamma
+    # sampler's rejection rounds. "ms", "plain_ms" and "bound_ms" at config
+    # 3's lockstep scout call (L=640) that iterates most, the bound from
+    # the iterations or rounds those inputs take; "max_abs_err" over every
+    # call of that run; "launches" over the graph phase's graphed runs
+    # (this slice's main path: the dataset runners replaying their step).
+    # No PyTorch call computes either: library_ms is null.
+    for name, replaces in (
+            ("cfc_solve", "bild_tpu/amis/cfc.py:166 (lax.while_loop, not a "
+                          "Pallas kernel)"),
+            ("gamma_accept", "bild_tpu/amis/dirichlet.py:27 (jax.random.gamma's "
+                             "rejection loop, not a Pallas kernel)")):
+        row = {"name": name, "route": "cuda",
+               "source": f"bild_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+               "launches": graph["launches"][name], "library_ms": None}
+        row.update(step_kernels[name])
+        kernels.append(row)
     print(json.dumps({"kernels": kernels,
                       "calibration_plain_calls": (cli_counts["calibration_plain"]
-                                                  + ex_counts["calibration_plain"])}),
+                                                  + ex_counts["calibration_plain"]),
+                      "graph_phase": graph["runs"]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
