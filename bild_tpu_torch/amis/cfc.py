@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..lanes import lane_logsumexp, lane_sum, uniform
-from ..ops import _build
+from ..ops import _build, counters
 
 __all__ = ["CFC", "SampleSpaceTooLarge", "cfc_sample", "cfc_logpmf",
            "cfc_estimate", "cfc_logp_from_marginals", "solve_marginals"]
@@ -160,11 +160,11 @@ def _solve_marginals(logf, logg, transitions, maxiter, precision, frozen=None,
     return torch.where(is_delta[..., None], logf, logp), done
 
 
-_solve_marginals.calls = 0
+counters.register("plain_cfc", _solve_marginals, "calls")
 
 
 def solve_marginals(logf, logg, transitions, maxiter, precision, frozen=None,
-                    exact=False, iters=None):
+                    exact=False):
     """
     `_solve_marginals` on the device of ``logf``: CUDA tensors launch the
     fixed-point kernel (``csrc/cfc_solve.cu``, one thread per slot, on the
@@ -172,8 +172,7 @@ def solve_marginals(logf, logg, transitions, maxiter, precision, frozen=None,
     The kernel sums in the lane-exact order, so it computes what
     ``_solve_marginals(..., exact=True)`` computes, whatever ``exact`` says;
     it takes float32 and float64 and up to `SOLVE_MAX_STATES` states.
-    ``iters`` (CUDA only): an int32 tensor of ``logf.shape[:-1]`` that
-    receives the iterations each slot ran. Counts its launches in
+    Counts its launches in
     ``solve_marginals.launches``.
     """
     if logf.device.type == "cpu":
@@ -198,27 +197,22 @@ def solve_marginals(logf, logg, transitions, maxiter, precision, frozen=None,
     tr = transitions.to(torch.bool).contiguous()
     if frozen is not None:
         frozen = frozen.to(device=dev, dtype=torch.bool).expand(lead).contiguous()
-    if iters is not None and (iters.shape != lead or iters.dtype != torch.int32
-                              or iters.device != dev
-                              or not iters.is_contiguous()):
-        raise ValueError(f"iters must be a contiguous int32 tensor of shape "
-                         f"{tuple(lead)} on {dev}")
     logp = torch.empty_like(logf)
     converged = torch.empty(lead, dtype=torch.bool, device=dev)
     if M > 0:
         sfx = "f32" if dtype == torch.float32 else "f64"
-        lib, fn = _build.entry("cfc_solve", f"bild_cfc_solve_{sfx}", 7, 4, 1)
+        lib, fn = _build.entry("cfc_solve", f"bild_cfc_solve_{sfx}", 6, 4, 1)
         rc = fn(logf.data_ptr(), logg.data_ptr(), tr.data_ptr(),
                 None if frozen is None else frozen.data_ptr(), logp.data_ptr(),
-                converged.data_ptr(), None if iters is None else iters.data_ptr(),
-                M, n, int(maxiter), dev.index or 0, float(precision),
+                converged.data_ptr(), M, n, int(maxiter), dev.index or 0,
+                float(precision),
                 torch.cuda.current_stream(dev).cuda_stream)
         solve_marginals.launches += 1
         _build.check(lib, rc, "cfc_solve launch")
     return logp, converged
 
 
-solve_marginals.launches = 0
+counters.register("cfc_solve", solve_marginals, "launches")
 
 
 def cfc_logp_from_marginals(log_marginals, transitions, maxiter=1000,

@@ -18,7 +18,7 @@ import math
 import torch
 
 from ..lanes import LaneRNG, lane_sum, normal, uniform
-from ..ops import _build
+from ..ops import _build, counters
 
 __all__ = ["Dirichlet", "standard_gamma", "dirichlet_logpdf",
            "dirichlet_estimate", "dirichlet_sample_masked", "gamma_accept",
@@ -63,9 +63,9 @@ def _gamma_accept(d, c, generator, max_rounds=None):
     The plain version of `gamma_accept` (and the sampler's loop for a
     `torch.Generator`): every round draws for all entries, an entry keeps
     its first acceptance, and the loop asks the device after each round
-    whether any entry is left. With ``max_rounds`` it stops there: entries
-    left set the streams' ``exhausted`` flag, or without one raise
-    (`check_exhausted`). Counts its calls in ``_gamma_accept.calls``.
+    whether any entry is left. With ``max_rounds`` it stops there, and
+    entries left set the streams' ``exhausted`` flag. Counts its calls in
+    ``_gamma_accept.calls``.
     """
     _gamma_accept.calls += 1
     out = torch.zeros_like(d)
@@ -77,17 +77,15 @@ def _gamma_accept(d, c, generator, max_rounds=None):
         if not bool(todo.any()):
             break
         if max_rounds is not None and rnd >= max_rounds:
-            if generator.exhausted is None:
-                check_exhausted(True)
             generator.exhausted.fill_(True)
             break
     return out
 
 
-_gamma_accept.calls = 0
+counters.register("plain_gamma", _gamma_accept, "calls")
 
 
-def gamma_accept(d, c, generator: LaneRNG, rounds=None):
+def gamma_accept(d, c, generator: LaneRNG):
     """
     ``(L, ...)`` accepted Marsaglia-Tsang draws ``d v`` for shapes ``d = a
     - 1/3``, ``c = 1/sqrt(9d)`` from the lane streams ``generator``. CUDA
@@ -95,11 +93,13 @@ def gamma_accept(d, c, generator: LaneRNG, rounds=None):
     drawing until its first acceptance, on the current stream, no
     synchronization), CPU tensors run `_gamma_accept`; both give an entry
     the draw of the first round that accepts it, and stop at
-    `GAMMA_MAX_ROUNDS`. An entry left there sets ``generator.exhausted``
-    (read by the caller after its steps), or without a flag raises here.
-    ``rounds`` (CUDA only): an int32 tensor of ``d``'s shape that receives
-    the rounds each entry drew. Counts launches in ``gamma_accept.launches``.
+    `GAMMA_MAX_ROUNDS`. An entry left there sets ``generator.exhausted``,
+    which the streams must carry and the caller reads after its steps
+    (`check_exhausted`). Counts launches in ``gamma_accept.launches``.
     """
+    flag = generator.exhausted
+    if flag is None:
+        raise ValueError("gamma_accept: the streams carry no exhaustion flag")
     if d.device.type == "cpu":
         return _gamma_accept(d, c, generator, GAMMA_MAX_ROUNDS)
     if d.device.type != "cuda":
@@ -112,31 +112,21 @@ def gamma_accept(d, c, generator: LaneRNG, rounds=None):
             or c.device != d.device or keys.device != d.device:
         raise ValueError(f"d and c must match, with {L} lanes first, on "
                          f"{keys.device}")
-    if rounds is not None and (rounds.shape != d.shape or rounds.dtype != torch.int32
-                               or rounds.device != d.device
-                               or not rounds.is_contiguous()):
-        raise ValueError("rounds must be a contiguous int32 tensor like d")
     d, c, keys = d.contiguous(), c.contiguous(), keys.contiguous()
-    flag = generator.exhausted
-    if flag is None:
-        flag = torch.zeros((), dtype=torch.bool, device=d.device)
     out = torch.empty_like(d)
     per_lane = d.numel() // L if L else 0
     if d.numel() > 0:
         sfx = "f32" if d.dtype == torch.float32 else "f64"
-        lib, fn = _build.entry("gamma_accept", f"bild_gamma_accept_{sfx}", 6, 4)
+        lib, fn = _build.entry("gamma_accept", f"bild_gamma_accept_{sfx}", 5, 4)
         rc = fn(d.data_ptr(), c.data_ptr(), keys.data_ptr(), out.data_ptr(),
-                flag.data_ptr(), None if rounds is None else rounds.data_ptr(),
-                L, per_lane, GAMMA_MAX_ROUNDS, d.device.index or 0,
-                torch.cuda.current_stream(d.device).cuda_stream)
+                flag.data_ptr(), L, per_lane, GAMMA_MAX_ROUNDS,
+                d.device.index or 0, torch.cuda.current_stream(d.device).cuda_stream)
         gamma_accept.launches += 1
         _build.check(lib, rc, "gamma_accept launch")
-    if generator.exhausted is None:
-        check_exhausted(flag)
     return out
 
 
-gamma_accept.launches = 0
+counters.register("gamma_accept", gamma_accept, "launches")
 
 
 def standard_gamma(alpha: torch.Tensor, generator=None) -> torch.Tensor:
@@ -149,7 +139,8 @@ def standard_gamma(alpha: torch.Tensor, generator=None) -> torch.Tensor:
     ``log u < x^2/2 + d - d v + d log v``; an entry keeps its first
     acceptance. From a `LaneRNG` the draws of round r are counter-based
     (tags 2r and 2r + 1) and `gamma_accept` runs the rounds: on CUDA one
-    kernel with no host read. From a `torch.Generator` the loop asks the
+    kernel with no host read. Streams that carry no exhaustion flag get one
+    here, read at once (`check_exhausted`). From a `torch.Generator` the loop asks the
     device once per round whether every entry is done. ``alpha < 1``
     samples Gamma(alpha + 1) and multiplies by ``u^(1/alpha)``; in float32
     that product underflows to exactly 0 for small ``alpha``, which
@@ -159,7 +150,11 @@ def standard_gamma(alpha: torch.Tensor, generator=None) -> torch.Tensor:
     a = torch.where(boost, alpha + 1, alpha)
     d = a - 1.0 / 3.0
     c = 1.0 / torch.sqrt(9.0 * d)
-    if isinstance(generator, LaneRNG):
+    if isinstance(generator, LaneRNG) and generator.exhausted is None:
+        flag = torch.zeros((), dtype=torch.bool, device=d.device)
+        out = gamma_accept(d, c, LaneRNG(generator.keys, flag))
+        check_exhausted(flag)
+    elif isinstance(generator, LaneRNG):
         out = gamma_accept(d, c, generator)
     else:
         out = _gamma_accept(d, c, generator)

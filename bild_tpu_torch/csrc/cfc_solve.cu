@@ -65,8 +65,8 @@ __global__ void __launch_bounds__(128)
 cfc_solve_kernel(const T* __restrict__ logf, const T* __restrict__ logg,
                  const unsigned char* __restrict__ transitions,
                  const unsigned char* __restrict__ frozen, T* __restrict__ logp,
-                 unsigned char* __restrict__ converged, int* __restrict__ iters,
-                 long long M, int n, int p2, int maxiter, T precision) {
+                 unsigned char* __restrict__ converged, long long M, int n,
+                 int p2, int maxiter, T precision) {
   __shared__ unsigned char allowed[NP * NP];
   for (int e = threadIdx.x; e < n * n; e += blockDim.x)
     allowed[(e / n) * NP + e % n] = transitions[e];
@@ -84,8 +84,7 @@ cfc_solve_kernel(const T* __restrict__ logf, const T* __restrict__ logg,
     is_delta = is_delta || f[j] == T(0) || g[j] == T(0);
   }
   bool done = is_delta || (frozen != nullptr && frozen[r]);
-  int it = 0;
-  for (; it < maxiter && !done; ++it) {
+  for (int it = 0; it < maxiter && !done; ++it) {
     for (int i = 0; i < n; ++i) {
       for (int j = 0; j < n; ++j) x[j] = allowed[i * NP + j] ? p[j] : ninf;
       const T v = exact_lse<T, NP>(x, n, p2);
@@ -109,13 +108,12 @@ cfc_solve_kernel(const T* __restrict__ logf, const T* __restrict__ logg,
   }
   for (int j = 0; j < n; ++j) logp[r * n + j] = is_delta ? f[j] : p[j];
   converged[r] = done;
-  if (iters != nullptr) iters[r] = it;
 }
 
 template <typename T, int NP>
 int launch_solve(const void* logf, const void* logg, const void* transitions,
-                 const void* frozen, void* logp, void* converged, void* iters,
-                 long long M, int n, int maxiter, double precision, int device,
+                 const void* frozen, void* logp, void* converged, long long M,
+                 int n, int maxiter, double precision, int device,
                  void* stream) {
   int p2 = 1;
   while (p2 < n) p2 <<= 1;
@@ -126,45 +124,44 @@ int launch_solve(const void* logf, const void* logg, const void* transitions,
                       static_cast<const unsigned char*>(transitions),
                       static_cast<const unsigned char*>(frozen),
                       static_cast<T*>(logp),
-                      static_cast<unsigned char*>(converged),
-                      static_cast<int*>(iters), M, n, p2, maxiter,
+                      static_cast<unsigned char*>(converged), M, n, p2, maxiter,
                       static_cast<T>(precision));
 }
 
 template <typename T>
 int solve(const void* logf, const void* logg, const void* transitions,
-          const void* frozen, void* logp, void* converged, void* iters, int M,
-          int n, int maxiter, double precision, int device, void* stream) {
+          const void* frozen, void* logp, void* converged, int M, int n,
+          int maxiter, double precision, int device, void* stream) {
   if (n < 1 || n > 64 || M < 0 || maxiter < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 4)
     return launch_solve<T, 4>(logf, logg, transitions, frozen, logp, converged,
-                              iters, M, n, maxiter, precision, device, stream);
+                              M, n, maxiter, precision, device, stream);
   if (n <= 8)
     return launch_solve<T, 8>(logf, logg, transitions, frozen, logp, converged,
-                              iters, M, n, maxiter, precision, device, stream);
+                              M, n, maxiter, precision, device, stream);
   if (n <= 16)
     return launch_solve<T, 16>(logf, logg, transitions, frozen, logp, converged,
-                               iters, M, n, maxiter, precision, device, stream);
+                               M, n, maxiter, precision, device, stream);
   if (n <= 32)
     return launch_solve<T, 32>(logf, logg, transitions, frozen, logp, converged,
-                               iters, M, n, maxiter, precision, device, stream);
+                               M, n, maxiter, precision, device, stream);
   return launch_solve<T, 64>(logf, logg, transitions, frozen, logp, converged,
-                             iters, M, n, maxiter, precision, device, stream);
+                             M, n, maxiter, precision, device, stream);
 }
 
 }  // namespace
 
 // logf, logg, logp (M, n) and converged (M,) contiguous; transitions (n,
 // n) and frozen (M,) one byte per entry (frozen may be null: nothing
-// pre-frozen); iters (M,) int32 or null: the iterations each row ran
+// pre-frozen)
 #define BILD_CFC_ENTRY(NAME, TYPE)                                              \
   extern "C" int NAME(const void* logf, const void* logg,                       \
                       const void* transitions, const void* frozen, void* logp,  \
-                      void* converged, void* iters, int M, int n, int maxiter,  \
-                      int device, double precision, void* stream) {             \
-    return solve<TYPE>(logf, logg, transitions, frozen, logp, converged, iters, \
-                       M, n, maxiter, precision, device, stream);               \
+                      void* converged, int M, int n, int maxiter, int device,   \
+                      double precision, void* stream) {                         \
+    return solve<TYPE>(logf, logg, transitions, frozen, logp, converged, M, n,  \
+                       maxiter, precision, device, stream);                     \
   }
 
 BILD_CFC_ENTRY(bild_cfc_solve_f32, float)

@@ -93,8 +93,7 @@ template <typename T>
 __global__ void __launch_bounds__(256)
 gamma_accept_kernel(const T* __restrict__ d, const T* __restrict__ c,
                     const long long* __restrict__ keys, T* __restrict__ out,
-                    unsigned char* __restrict__ exhausted,
-                    int* __restrict__ rounds, long long per_lane,
+                    unsigned char* __restrict__ exhausted, long long per_lane,
                     long long total, int max_rounds) {
   using D = Draw<T>;
   const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -104,9 +103,8 @@ gamma_accept_kernel(const T* __restrict__ d, const T* __restrict__ c,
   const u64 key = static_cast<u64>(keys[lane]);
   const T de = d[e], ce = c[e];
   T value = T(0);
-  int r = 0;
   bool done = false;
-  for (; r < max_rounds && !done; ++r) {
+  for (int r = 0; r < max_rounds && !done; ++r) {
     const u64 knorm = fold(key, 2LL * r);
     const T u1 = D::uniform(mix64(fold(knorm, 0) + step));
     const T u2 = D::uniform(mix64(fold(knorm, 1) + step));
@@ -126,12 +124,11 @@ gamma_accept_kernel(const T* __restrict__ d, const T* __restrict__ c,
   }
   out[e] = value;
   if (!done) *exhausted = 1;
-  if (rounds != nullptr) rounds[e] = r;
 }
 
 template <typename T>
 int launch_gamma(const void* d, const void* c, const void* keys, void* out,
-                 void* exhausted, void* rounds, long long per_lane,
+                 void* exhausted, long long per_lane,
                  long long total, int max_rounds, int device, void* stream) {
   if (per_lane < 1 || total < 0 || max_rounds < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -140,20 +137,19 @@ int launch_gamma(const void* d, const void* c, const void* keys, void* out,
                       threads, 0, device, stream, static_cast<const T*>(d),
                       static_cast<const T*>(c),
                       static_cast<const long long*>(keys), static_cast<T*>(out),
-                      static_cast<unsigned char*>(exhausted),
-                      static_cast<int*>(rounds), per_lane, total, max_rounds);
+                      static_cast<unsigned char*>(exhausted), per_lane, total,
+                      max_rounds);
 }
 
 }  // namespace
 
 // d, c, out (L, per_lane) contiguous; keys (L,) int64; exhausted one byte
-// (set to 1 where an entry is left, never cleared); rounds (L, per_lane)
-// int32 or null: the rounds each entry drew
+// (set to 1 where an entry is left, never cleared)
 #define BILD_GAMMA_ENTRY(NAME, TYPE)                                            \
   extern "C" int NAME(const void* d, const void* c, const void* keys,           \
-                      void* out, void* exhausted, void* rounds, int L,          \
-                      int per_lane, int max_rounds, int device, void* stream) { \
-    return launch_gamma<TYPE>(d, c, keys, out, exhausted, rounds, per_lane,     \
+                      void* out, void* exhausted, int L, int per_lane,          \
+                      int max_rounds, int device, void* stream) {               \
+    return launch_gamma<TYPE>(d, c, keys, out, exhausted, per_lane,             \
                               static_cast<long long>(L) * per_lane, max_rounds, \
                               device, stream);                                  \
   }

@@ -1,0 +1,36 @@
+"""
+The launch and plain-call counters of the port's kernels, in one registry.
+
+Every kernel wrapper counts its launches, and every plain version its
+calls, in an attribute of the function itself
+(``msrouse_logL_sym.launches``, ``_solve_marginals.calls``). `register`
+sets that attribute to 0 and enters it under a name, next to the
+function's definition. Whatever reads the counts takes the list from
+`COUNTERS`: `parallel.graphs`, which adds a captured step's counts to
+every replay of it, and the benchmark scripts. So a new kernel's counter
+is seen everywhere once its module registers it.
+"""
+from __future__ import annotations
+
+__all__ = ["COUNTERS", "register", "read", "reset"]
+
+# name -> (function, attribute)
+COUNTERS: dict = {}
+
+
+def register(name: str, fn, attr: str) -> None:
+    """Start ``fn.<attr>`` at 0 and enter it as counter ``name``."""
+    setattr(fn, attr, 0)
+    COUNTERS[name] = (fn, attr)
+
+
+def read(names=None) -> dict:
+    """``{name: count}`` of ``names`` (default: every counter)."""
+    return {k: getattr(*COUNTERS[k]) for k in (COUNTERS if names is None else names)}
+
+
+def reset(names=None) -> None:
+    """Set ``names`` (default: every counter) to 0."""
+    for k in (COUNTERS if names is None else names):
+        fn, attr = COUNTERS[k]
+        setattr(fn, attr, 0)

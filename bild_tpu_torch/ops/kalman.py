@@ -21,6 +21,8 @@ import math
 
 import torch
 
+from . import counters
+
 LOG_2PI = math.log(2.0 * math.pi)
 
 __all__ = ["msrouse_logL_batch", "msrouse_logL_single", "kalman_update_batch",
@@ -139,7 +141,7 @@ def msrouse_logL_batch(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind,
                            ydata, valid, symmetrize)
 
 
-msrouse_logL_batch.calls = 0
+counters.register("plain_torch", msrouse_logL_batch, "calls")
 
 
 def msrouse_logL_single(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind, profile, ydata,

@@ -29,7 +29,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, counters
 from .kalman import as_lanes, in_range_mask, logL_dense_loop
 
 __all__ = ["msrouse_logL_dense", "msrouse_logL_dense_torch",
@@ -127,7 +127,7 @@ def msrouse_logL_dense_torch(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind,
                            ydata, valid, symmetrize=False)
 
 
-msrouse_logL_dense_torch.calls = 0
+counters.register("plain_dense", msrouse_logL_dense_torch, "calls")
 
 
 # blocks of one launch: the grid's x dimension holds at most 2^31 - 1
@@ -218,4 +218,4 @@ def msrouse_logL_dense(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind,
     return out[0] if single else out
 
 
-msrouse_logL_dense.launches = 0
+counters.register("kalman_dense", msrouse_logL_dense, "launches")

@@ -51,7 +51,7 @@ import math
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, counters
 from .kalman import LOG_2PI, as_lanes, in_range_mask
 from .kalman_dense import (H100_SMS, SMEM_LIMIT, SMEM_PER_SM,
                            check_cuda_args, cind_tensor, msrouse_logL_dense,
@@ -515,7 +515,7 @@ def msrouse_logL_sym_torch(ops: SymOperators, s2, Cind, profiles, ydata,
     return out[0] if single else out
 
 
-msrouse_logL_sym_torch.calls = 0
+counters.register("plain_sym", msrouse_logL_sym_torch, "calls")
 
 
 def msrouse_logL_sym(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind, profiles, ydata,
@@ -592,5 +592,5 @@ def msrouse_logL_sym(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind, profiles, ydata,
     return out[0] if single else out
 
 
-msrouse_logL_sym.launches = 0
-msrouse_logL_sym.split_launches = 0
+counters.register("kalman_sym", msrouse_logL_sym, "launches")
+counters.register("kalman_sym_split", msrouse_logL_sym, "split_launches")

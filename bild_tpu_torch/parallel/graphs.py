@@ -17,6 +17,8 @@ are kernels that loop on the device. The capture runs under
 device anything fails to capture, and the runner raises: there is no
 quiet fallback to the eager loop. A replay launches what the eager step
 launches, kernel for kernel, so the two give the same bits.
+Each replay adds the captured step's counts to the launch and plain-call
+counters (`ops.counters`), so they read as after the eager loop.
 
 Graphs are cached per step shape (every tensor's shape, type and device),
 the runner's constants and the model's likelihood closure, at most
@@ -24,7 +26,10 @@ the runner's constants and the model's likelihood closure, at most
 kernel or tier) frees the others first, and `clear` frees all. A graph
 holds its own copies of the state and inputs (copied in before its
 replays, the state copied out after) and a private memory pool of one
-step's temporaries for its life.
+step's temporaries for its life. The graphs outlive the runner's call, so
+that the next call of the same shapes (a chunk, a round, a later
+`sample_batch` on the same model) replays at once; `clear` gives their
+memory back.
 
 The CPU runs the eager loop. So does CUDA while the private `_EAGER` is
 true: the tests and ``chip_smoke.py`` set it to compare the two modes.
@@ -32,9 +37,10 @@ true: the tests and ``chip_smoke.py`` set it to compare the two modes.
 from __future__ import annotations
 
 import collections
-import functools
 
 import torch
+
+from ..ops import counters
 
 __all__ = ["graphed", "cached", "replay", "clear"]
 
@@ -46,24 +52,6 @@ _GRAPHS: "collections.OrderedDict" = collections.OrderedDict()
 def graphed(device) -> bool:
     """Whether a runner on ``device`` replays a CUDA graph of its step."""
     return torch.device(device).type == "cuda" and not _EAGER
-
-
-@functools.cache
-def _counters():
-    """(function, attribute) of every launch and plain-call counter a
-    step may move: a replay adds what its capture counted."""
-    from ..amis import cfc, dirichlet
-    from ..ops import kalman, kalman_dense, kalman_sym
-    return ((kalman_sym.msrouse_logL_sym, "launches"),
-            (kalman_sym.msrouse_logL_sym, "split_launches"),
-            (kalman_dense.msrouse_logL_dense, "launches"),
-            (kalman_sym.msrouse_logL_sym_torch, "calls"),
-            (kalman_dense.msrouse_logL_dense_torch, "calls"),
-            (kalman.msrouse_logL_batch, "calls"),
-            (cfc.solve_marginals, "launches"),
-            (cfc._solve_marginals, "calls"),
-            (dirichlet.gamma_accept, "launches"),
-            (dirichlet._gamma_accept, "calls"))
 
 
 def _capture(fn):
@@ -119,24 +107,26 @@ class _StepGraph:
         self.inputs = [t.clone() for t in tensors]
         self.scratch = [torch.empty_like(t) for t in scratch]
         args = _unflatten(self.inputs, shape)
-        counters = _counters()
-        before = [getattr(f, a) for f, a in counters]
+        before = counters.read()
         self._replay = _capture(lambda: step(self.mutable, self.scratch, *args))
         # the capture launched nothing: its counts belong to each replay
-        self.counts = [getattr(f, a) - b for (f, a), b in zip(counters, before)]
-        for (f, a), b in zip(counters, before):
-            setattr(f, a, b)
+        after = counters.read()
+        self.counts = {k: v - before.get(k, 0) for k, v in after.items()
+                       if v != before.get(k, 0)}
+        for k in self.counts:
+            fn, attr = counters.COUNTERS[k]
+            setattr(fn, attr, before.get(k, 0))
 
     def run(self, mutable, tensors, n):
         for dst, src in zip(self.inputs, tensors):
             dst.copy_(src)
         for dst, src in zip(self.mutable, mutable):
             dst.copy_(src)
-        counters = _counters()
         for _ in range(n):
             self._replay()
-            for (f, a), k in zip(counters, self.counts):
-                setattr(f, a, getattr(f, a) + k)
+            for k, v in self.counts.items():
+                fn, attr = counters.COUNTERS[k]
+                setattr(fn, attr, getattr(fn, attr) + v)
         for dst, src in zip(mutable, self.mutable):
             dst.copy_(src)
 

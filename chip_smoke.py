@@ -95,16 +95,19 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    within 1e-6 of the oracle at T=100 and within 0.11 centered nats per
    family at T=1000.
 6d. Step kernel phase: the two kernels of the AMIS step that replace
-   device loops of bild_tpu (not Pallas kernels), on every input config
-   3's lockstep run gives them (128 trajectories, run eagerly so that each
-   step's calls are recorded): csrc/cfc_solve.cu (the CFC proposal's
-   fixed-point solve, one thread per slot; bild_tpu's `lax.while_loop`)
+   device loops of bild_tpu (not Pallas kernels), on every input the main
+   path gives them (config 3's lockstep `sample_batch` and each run of the
+   graph phase under 'sym', config 4's three states among them, run
+   eagerly so that each step's calls are recorded): csrc/cfc_solve.cu (the
+   CFC proposal's fixed-point solve, one thread per slot; bild_tpu's
+   `lax.while_loop`)
    against the plain solve, float32 within 4 ulp, the inputs in float64
    within 1e-12 relative, converged flags and non-finite entries equal;
    csrc/gamma_accept.cu (the gamma sampler's rejection rounds, one thread
    per entry; jax.random.gamma's loop) against its plain rounds within 4
-   ulp, no entry exhausted; each timed (CUDA events) at the scout call that
-   iterates most, beside the bound of the iterations or rounds it takes.
+   ulp, no entry exhausted; each timed (CUDA events) at config 3's scout
+   call that iterates most, beside the bound of the iterations or rounds
+   it takes.
 7. Dataset phase (bench_e2e.py config 3): 128 trajectories of T=100 made by
    the port's batched generator, `parallel.sample_dataset` with informed
    init, the scout/refine schedule, marginals, the boundary climb and chunk
@@ -1854,20 +1857,59 @@ def gamma_ops(rounds):
     return 26 * rounds
 
 
+def cfc_iterations(solve, logf, logg, tr, maxiter, precision, frozen):
+    """``(iterations summed over slots, most of one slot)`` that the CFC
+    solve of these inputs runs: a slot runs one iteration for every cut
+    ``m < maxiter`` of its loop at which it has not converged, so the sum
+    reads the converged flags of ``solve`` at maxiter = 0, 1, ... (the
+    flags no longer change once they equal the full solve's)."""
+    _, final = solve(logf, logg, tr, maxiter, precision, frozen=frozen)
+    left = int((~final).sum())
+    total = 0
+    for m in range(maxiter):
+        _, conv = solve(logf, logg, tr, m, precision, frozen=frozen)
+        if torch.equal(conv, final):
+            return total + left * (maxiter - m), maxiter if left else m
+        total += int((~conv).sum())
+    return total, maxiter
+
+
+def gamma_rounds(d, c, keys):
+    """``(rounds summed over entries, most of one entry)`` that the gamma
+    sampler draws on these inputs: every entry draws round 1, and one more
+    for every cut m >= 1 of the plain loop (``max_rounds=m``) at which it
+    is still unaccepted (its draw still 0)."""
+    from bild_tpu_torch.amis import dirichlet
+    from bild_tpu_torch.lanes import LaneRNG
+
+    total, m = d.numel(), 1
+    while True:
+        flag = torch.zeros((), dtype=torch.bool, device=d.device)
+        out = dirichlet._gamma_accept(d, c, LaneRNG(keys, flag), max_rounds=m)
+        if not bool(flag):
+            return total, m
+        total += int((out == 0).sum())
+        m += 1
+
+
 def step_kernel_phase(bt):
     """The step's two kernels of PR 12 against their plain versions on
-    every input config 3's lockstep run gives them: 128 trajectories
-    through `sample_batch(k_max=4, steps_per_k=12, N=128, informed_init,
-    scout_steps=4, refine_top=3)`, run eagerly so that each step's calls
-    are recorded (scout L=640, refine L=384). csrc/cfc_solve.cu (4 slots of
-    2 states) against `_solve_marginals` with lane-exact sums: float32
-    within `ULP_CFC_F32` ulp, the inputs in float64 within `RTOL_CFC_F64`,
-    converged flags and non-finite entries equal. csrc/gamma_accept.cu
-    (128 proposals x 5 slots per lane) against `_gamma_accept`: within
-    `GAMMA_ULP` ulp in float32 and float64, no exhaustion. Each timed
-    (CUDA events) at the scout call that iterates most, beside the bound of
-    the iterations and rounds it takes (`cfc_bound_ms`, `gamma_ops`).
-    Returns ``{name: numbers of the kernels line}``."""
+    every input the main path gives them, recorded by wrapping
+    `cfc.solve_marginals` and `dirichlet.gamma_accept` during eager runs:
+    config 3's lockstep `sample_batch(k_max=4, steps_per_k=12, N=128,
+    informed_init, scout_steps=4, refine_top=3)` over 128 trajectories
+    (scout L=640, refine L=384), and every run of the graph phase under
+    'sym' (`graph_cases`: config 3's lockstep and adaptive
+    `sample_dataset`, config 4 with three states, GGM configs 6 and 7).
+    csrc/cfc_solve.cu against `_solve_marginals` with lane-exact sums:
+    float32 within `ULP_CFC_F32` ulp, the inputs in float64 within
+    `RTOL_CFC_F64`, converged flags and non-finite entries equal.
+    csrc/gamma_accept.cu against `_gamma_accept`: within `GAMMA_ULP` ulp
+    in float32 and float64, no exhaustion. Each timed (CUDA events) at
+    config 3's scout call that iterates most, beside the bound of the
+    iterations and rounds it takes (`cfc_bound_ms`, `gamma_ops`); the
+    gamma kernel with one flag made beforehand, so that no timed call
+    reads the device. Returns ``{name: numbers of the kernels line}``."""
     from bild_tpu_torch.amis import cfc, dirichlet
     from bild_tpu_torch.lanes import LaneRNG
     from bild_tpu_torch.parallel import graphs, sample_batch
@@ -1876,99 +1918,115 @@ def step_kernel_phase(bt):
                                       localization_error=0.1,
                                       device=DEVICE, dtype=torch.float32)
     _, _, batch, _ = config3_data(model, 128, T)
-    solves, gammas = [], []
+    runs = [("config 3 lockstep sample_batch",
+             lambda: sample_batch(model, batch, k_max=4, steps_per_k=12, N=128,
+                                  informed_init=True, scout_steps=4,
+                                  refine_top=3,
+                                  generator=torch.Generator().manual_seed(7)))]
+    runs += [(label, run) for label, sel, run, *_ in graph_cases(bt)
+             if sel == "sym"]
+    solves, gammas = {}, {}
     solve, accept = cfc.solve_marginals, dirichlet.gamma_accept
 
     def record_solve(logf, logg, transitions, maxiter, precision, frozen=None,
-                     exact=False, iters=None):
-        solves.append((logf.clone(), logg.clone(), transitions, maxiter,
-                       precision, None if frozen is None
-                       else frozen.expand(logf.shape[:-1]).clone()))
+                     exact=False):
+        solves[label].append((logf.clone(), logg.clone(), transitions, maxiter,
+                              precision, None if frozen is None
+                              else frozen.expand(logf.shape[:-1]).clone()))
         return solve(logf, logg, transitions, maxiter, precision,
-                     frozen=frozen, exact=exact, iters=iters)
+                     frozen=frozen, exact=exact)
 
-    def record_gamma(d, c, generator, rounds=None):
-        gammas.append((d.clone(), c.clone(), generator.keys.clone()))
-        return accept(d, c, generator, rounds=rounds)
+    def record_gamma(d, c, generator):
+        gammas[label].append((d.clone(), c.clone(), generator.keys.clone()))
+        return accept(d, c, generator)
 
     # each wrapper counts its launches on the module's name: the recorder's
     # meanwhile
     record_solve.launches = record_gamma.launches = 0
     cfc.solve_marginals, dirichlet.gamma_accept = record_solve, record_gamma
     graphs._EAGER = True                  # every step's calls are recorded
+    bt.config.set_rouse_kernel("sym")
     try:
-        sample_batch(model, batch, k_max=4, steps_per_k=12, N=128,
-                     informed_init=True, scout_steps=4, refine_top=3,
-                     generator=torch.Generator().manual_seed(7))
+        for label, run in runs:
+            solves[label], gammas[label] = [], []
+            run()
     finally:
         cfc.solve_marginals, dirichlet.gamma_accept = solve, accept
         solve.launches += record_solve.launches
         accept.launches += record_gamma.launches
         graphs._EAGER = False
 
+    def shapes(recs):
+        return sorted({tuple(r[0].shape) for r in recs})
+
     # the CFC solve
     ulps, rels, max_abs, unconverged = [], [], 0.0, 0
-    for logf, logg, tr, maxiter, precision, frozen in solves:
-        for dtype in (torch.float32, torch.float64):
-            f, g = logf.to(dtype), logg.to(dtype)
-            got, conv = cfc.solve_marginals(f, g, tr, maxiter, precision,
-                                            frozen=frozen)
-            want, wconv = cfc._solve_marginals(f, g, tr, maxiter, precision,
-                                               frozen=frozen, exact=True)
-            check(torch.equal(conv, wconv), "cfc_solve: converged flags equal")
-            check(torch.equal(got.isfinite(), want.isfinite())
-                  and torch.equal(got[~want.isfinite()].nan_to_num(),
-                                  want[~want.isfinite()].nan_to_num()),
-                  "cfc_solve: non-finite entries where the plain solve has them")
-            fin = want.isfinite()
-            if dtype == torch.float32:
-                ulps.append(ulp_err(got, want))
-                max_abs = max(max_abs, float((got[fin] - want[fin]).abs().max()))
-                unconverged += int((~conv).sum())
-            else:
-                rels.append(float(((got[fin] - want[fin]).abs()
-                                   / want[fin].abs().clamp_min(1e-300)).max()))
-    shapes = sorted({tuple(r[0].shape) for r in solves})
-    line = (f"cfc_solve: {len(solves)} solves of config 3's lockstep run "
-            f"(shapes {shapes}), kernel against plain: float32 max "
-            f"{max(ulps):.1f} ulp (bar {ULP_CFC_F32}), max abs {max_abs:.3e}; "
-            f"float64 max rel {max(rels):.2e} (bar {RTOL_CFC_F64}); "
-            f"{unconverged} unconverged slots")
+    for recs in solves.values():
+        for logf, logg, tr, maxiter, precision, frozen in recs:
+            for dtype in (torch.float32, torch.float64):
+                f, g = logf.to(dtype), logg.to(dtype)
+                got, conv = cfc.solve_marginals(f, g, tr, maxiter, precision,
+                                                frozen=frozen)
+                want, wconv = cfc._solve_marginals(f, g, tr, maxiter, precision,
+                                                   frozen=frozen, exact=True)
+                check(torch.equal(conv, wconv), "cfc_solve: converged flags equal")
+                check(torch.equal(got.isfinite(), want.isfinite())
+                      and torch.equal(got[~want.isfinite()].nan_to_num(),
+                                      want[~want.isfinite()].nan_to_num()),
+                      "cfc_solve: non-finite entries where the plain solve has them")
+                fin = want.isfinite()
+                if dtype == torch.float32:
+                    ulps.append(ulp_err(got, want))
+                    max_abs = max(max_abs,
+                                  float((got[fin] - want[fin]).abs().max()))
+                    unconverged += int((~conv).sum())
+                else:
+                    rels.append(float(((got[fin] - want[fin]).abs()
+                                       / want[fin].abs().clamp_min(1e-300)).max()))
+    line = (f"cfc_solve: {sum(map(len, solves.values()))} solves of the main "
+            f"path's runs ("
+            + "; ".join(f"{k}: {len(v)}, shapes {shapes(v)}"
+                        for k, v in solves.items())
+            + f"), kernel against plain: float32 max {max(ulps):.1f} ulp (bar "
+            f"{ULP_CFC_F32}), max abs {max_abs:.3e}; float64 max rel "
+            f"{max(rels):.2e} (bar {RTOL_CFC_F64}); {unconverged} unconverged slots")
     print(line, flush=True)
     check(max(ulps) <= ULP_CFC_F32 and max(rels) <= RTOL_CFC_F64, line)
+    check(any(r[0].shape[-1] == 3 for r in solves["config 4"]),
+          "cfc_solve: config 4's three-state solves were held to the plain solve")
 
     # the gamma sampler's rounds
     g_ulps, g_abs, differ = [], 0.0, 0
-    for d, c, keys in gammas:
-        for dtype in (torch.float32, torch.float64):
-            dd, cc = d.to(dtype), c.to(dtype)
-            flag = torch.zeros((), dtype=torch.bool, device=DEVICE)
-            got = dirichlet.gamma_accept(dd, cc, LaneRNG(keys, flag))
-            want = dirichlet._gamma_accept(dd, cc, LaneRNG(keys))
-            check(not bool(flag), "gamma_accept: every entry accepted")
-            g_ulps.append(ulp_err(got, want))
-            differ += int((got != want).sum())
-            if dtype == torch.float32:
-                g_abs = max(g_abs, float((got - want).abs().max()))
-    line = (f"gamma_accept: {len(gammas)} calls of config 3's lockstep run "
-            f"(shapes {sorted({tuple(r[0].shape) for r in gammas})}), kernel "
-            f"against plain: max {max(g_ulps):.1f} ulp (bar {GAMMA_ULP}), max abs "
-            f"{g_abs:.3e} (float32), {differ} entries not bit-equal (both types)")
+    for recs in gammas.values():
+        for d, c, keys in recs:
+            for dtype in (torch.float32, torch.float64):
+                dd, cc = d.to(dtype), c.to(dtype)
+                flag = torch.zeros((), dtype=torch.bool, device=DEVICE)
+                got = dirichlet.gamma_accept(dd, cc, LaneRNG(keys, flag))
+                want = dirichlet._gamma_accept(dd, cc, LaneRNG(keys))
+                check(not bool(flag), "gamma_accept: every entry accepted")
+                g_ulps.append(ulp_err(got, want))
+                differ += int((got != want).sum())
+                if dtype == torch.float32:
+                    g_abs = max(g_abs, float((got - want).abs().max()))
+    line = (f"gamma_accept: {sum(map(len, gammas.values()))} calls of the main "
+            f"path's runs ("
+            + "; ".join(f"{k}: {len(v)}, shapes {shapes(v)}"
+                        for k, v in gammas.items())
+            + f"), kernel against plain: max {max(g_ulps):.1f} ulp (bar "
+            f"{GAMMA_ULP}), max abs {g_abs:.3e} (float32), {differ} entries not "
+            "bit-equal (both types)")
     print(line, flush=True)
     check(max(g_ulps) <= GAMMA_ULP, line)
 
     out = {}
-    # timed: the scout's call (L=640) that iterates most
-    best = None
-    for rec in solves:
-        if rec[0].shape == solves[0][0].shape:
-            iters = torch.zeros(rec[0].shape[:-1], dtype=torch.int32, device=DEVICE)
-            cfc.solve_marginals(*rec[:5], frozen=rec[5], iters=iters)
-            if best is None or int(iters.sum()) > int(best[1].sum()):
-                best = (rec, iters)
-    (logf, logg, tr, maxiter, precision, frozen), iters = best
+    # timed: config 3's scout call (L=640) that iterates most
+    scout = solves["config 3 lockstep sample_batch"]
+    best = max((rec for rec in scout if rec[0].shape == scout[0][0].shape),
+               key=lambda rec: cfc_iterations(solve, *rec[:5], rec[5])[0])
+    logf, logg, tr, maxiter, precision, frozen = best
     M, n = math.prod(logf.shape[:-1]), logf.shape[-1]
-    total = int(iters.sum())
+    total, most = cfc_iterations(solve, *best[:5], frozen)
     out["cfc_solve"] = time_kernel(
         "cfc_solve", tuple(logf.shape),
         lambda: cfc.solve_marginals(logf, logg, tr, maxiter, precision,
@@ -1976,24 +2034,21 @@ def step_kernel_phase(bt):
         lambda: cfc._solve_marginals(logf, logg, tr, maxiter, precision,
                                      frozen=frozen, exact=True),
         cfc_bound_ms(M, n, logf.element_size(), total),
-        f"{total} iterations over {M} slots, at most {int(iters.max())}")
+        f"{total} iterations over {M} slots, at most {most}")
     out["cfc_solve"].update(max_abs_err=max_abs, max_ulp_f32=max(ulps),
                             max_rel_f64=max(rels))
-    best = None
-    for d, c, keys in gammas:
-        if d.shape == gammas[0][0].shape:
-            rounds = torch.zeros(d.shape, dtype=torch.int32, device=DEVICE)
-            dirichlet.gamma_accept(d, c, LaneRNG(keys), rounds=rounds)
-            if best is None or int(rounds.sum()) > int(best[1].sum()):
-                best = ((d, c, keys), rounds)
-    (d, c, keys), rounds = best
-    total = int(rounds.sum())
+    scout = gammas["config 3 lockstep sample_batch"]
+    d, c, keys = max((rec for rec in scout if rec[0].shape == scout[0][0].shape),
+                     key=lambda rec: gamma_rounds(*rec)[0])
+    total, most = gamma_rounds(d, c, keys)
+    streams = LaneRNG(keys, torch.zeros((), dtype=torch.bool, device=DEVICE))
     out["gamma_accept"] = time_kernel(
         "gamma_accept", tuple(d.shape),
-        lambda: dirichlet.gamma_accept(d, c, LaneRNG(keys)),
+        lambda: dirichlet.gamma_accept(d, c, streams),
         lambda: dirichlet._gamma_accept(d, c, LaneRNG(keys)),
         bound_ms(gamma_ops(total), 3 * d.numel() * d.element_size() + 8 * keys.numel()),
-        f"{total} rounds over {d.numel()} entries, at most {int(rounds.max())}")
+        f"{total} rounds over {d.numel()} entries, at most {most}")
+    check(not bool(streams.exhausted), "gamma_accept: the timed calls accepted all")
     out["gamma_accept"].update(max_abs_err=g_abs, max_ulp=max(g_ulps),
                                not_bit_equal=differ)
     return out
@@ -2127,8 +2182,8 @@ def graph_phase(bt):
     csrc/gamma_accept.cu, and no plain version runs. Returns ``{"launches":
     {"cfc_solve": ..., "gamma_accept": ...}, "runs": ...}`` (the graphed
     runs' launches)."""
-    from bild_tpu_torch.amis import cfc, dirichlet
     from bild_tpu_torch.amis.dirichlet import standard_gamma
+    from bild_tpu_torch.ops import counters
     from bild_tpu_torch.parallel import graphs
     from bild_tpu_torch.parallel.batch import run_steps
 
@@ -2152,9 +2207,7 @@ def graph_phase(bt):
                     first_wall = time.perf_counter() - t0
                     caps = graphs.replay.captures - caps
                 torch.cuda.reset_peak_memory_stats()
-                reset_counts()
-                cfc.solve_marginals.launches = cfc._solve_marginals.calls = 0
-                dirichlet.gamma_accept.launches = dirichlet._gamma_accept.calls = 0
+                counters.reset()
                 run_steps.steps = 0
                 reps = graphs.replay.replays
                 exhausted = standard_gamma.exhausted
@@ -2162,14 +2215,10 @@ def graph_phase(bt):
                 res = run()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-                ran = read_counts()
+                ran = counters.read()
                 info = {
                     "wall_s": wall, "steps": run_steps.steps,
                     "replays": graphs.replay.replays - reps,
-                    "cfc_launches": cfc.solve_marginals.launches,
-                    "cfc_plain_calls": cfc._solve_marginals.calls,
-                    "gamma_launches": dirichlet.gamma_accept.launches,
-                    "gamma_plain_calls": dirichlet._gamma_accept.calls,
                     "gamma_exhausted": standard_gamma.exhausted - exhausted,
                     "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
                     "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
@@ -2210,8 +2259,7 @@ def graph_phase(bt):
               f"({g['steps']} steps, {g['replays']} replayed), peak "
               f"{g['peak_allocated_gib']:.2f} / {g['peak_reserved_gib']:.2f} GiB; "
               f"gamma exhausted {e['gamma_exhausted'] + g['gamma_exhausted']}; "
-              f"launches {g['launches']}, cfc_solve {g['cfc_launches']}, "
-              f"gamma_accept {g['gamma_launches']}; frame "
+              f"launches and plain calls {g['launches']}; frame "
               f"accuracy {acc:.4f}, switch-count accuracy {sw:.4f}; graphed "
               f"equals eager bit for bit: {same}", flush=True)
         check(same, f"graph {key}: graphed equals eager bit for bit")
@@ -2222,12 +2270,11 @@ def graph_phase(bt):
               f"graph {key}: accuracy {acc:.4f} / {sw:.4f} >= {bars}")
         check(e["replays"] == 0 and g["replays"] > 0 and g["captures"] > 0,
               f"graph {key}: eager replays nothing, graphed replays its captures")
-        check(all(i[f"{k}_plain_calls"] == 0 for i in (e, g) for k in ("cfc", "gamma"))
-              and g["cfc_launches"] > 0 and g["gamma_launches"] > 0,
-              f"graph {key}: the CFC and gamma kernels ran, their plain versions never")
-        check(all(v == 0 for k, v in g["launches"].items()
+        check(g["launches"]["cfc_solve"] > 0 and g["launches"]["gamma_accept"] > 0,
+              f"graph {key}: the CFC and gamma kernels ran")
+        check(all(v == 0 for i in (e, g) for k, v in i["launches"].items()
                   if k.startswith("plain")),
-              f"graph {key}: no plain likelihood on the CUDA path")
+              f"graph {key}: no plain version ran, eager or graphed")
         check(label.startswith("ggm") or g["launches"][f"kalman_{sel}"] > 0,
               f"graph {key}: the {sel} kernel launched")
         check(e["gamma_exhausted"] == g["gamma_exhausted"] == 0,
@@ -2235,8 +2282,8 @@ def graph_phase(bt):
         if "adaptive" in label:
             check(float(np.mean(res.evals)) < LOCKSTEP_EVALS,
                   f"graph {key}: fewer evaluations than the lockstep schedule")
-        launches["cfc_solve"] += g["cfc_launches"]
-        launches["gamma_accept"] += g["gamma_launches"]
+        launches["cfc_solve"] += g["launches"]["cfc_solve"]
+        launches["gamma_accept"] += g["launches"]["gamma_accept"]
     bt.config.set_rouse_kernel("sym")
     print(f"graph phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"launches": launches, "runs": runs}
@@ -3635,8 +3682,9 @@ def main():
     # sampler's rejection rounds. "ms", "plain_ms" and "bound_ms" at config
     # 3's lockstep scout call (L=640) that iterates most, the bound from
     # the iterations or rounds those inputs take; "max_abs_err" over every
-    # call of that run; "launches" over the graph phase's graphed runs
-    # (this slice's main path: the dataset runners replaying their step).
+    # call of the step kernel phase's runs; "launches" over the graph
+    # phase's graphed runs (this slice's main path: the dataset runners
+    # replaying their step).
     # No PyTorch call computes either: library_ms is null.
     for name, replaces in (
             ("cfc_solve", "bild_tpu/amis/cfc.py:166 (lax.while_loop, not a "

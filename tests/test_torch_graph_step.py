@@ -16,6 +16,7 @@ from bild_tpu_torch.amis import dirichlet as tdir
 from bild_tpu_torch.amis.sampler import amis_propose, amis_update
 from bild_tpu_torch.infer import adaptive
 from bild_tpu_torch.lanes import LaneRNG, normal, uniform
+from bild_tpu_torch.ops import counters
 from bild_tpu_torch.parallel import batch as tbatch
 from bild_tpu_torch.parallel import graphs
 from bild_tpu_torch.parallel import sample_batch
@@ -210,6 +211,22 @@ def test_gamma_flag_when_the_rounds_run_out(monkeypatch):
     with pytest.raises(RuntimeError):
         tdir.check_exhausted(flag)
     tdir.check_exhausted(torch.zeros((), dtype=torch.bool))
+
+
+def test_gamma_accept_needs_the_flag():
+    """`gamma_accept` takes only streams that carry an exhaustion flag (the
+    runners' do); `standard_gamma` gives flagless streams one and reads it
+    at once, with the same draws."""
+    a = torch.full((2, 300), 2.5, dtype=F64)
+    d = a - 1.0 / 3.0
+    c = 1.0 / torch.sqrt(9.0 * d)
+    rng = LaneRNG.from_seeds([4, 8], "cpu")
+    with pytest.raises(ValueError, match="exhaustion flag"):
+        tdir.gamma_accept(d, c, rng)
+    flag = torch.zeros((), dtype=torch.bool)
+    assert torch.equal(tdir.standard_gamma(a, rng),
+                       tdir.standard_gamma(a, LaneRNG(rng.keys, flag)))
+    assert not bool(flag)
 
 
 def test_generator_gamma_keeps_its_loop():
@@ -415,6 +432,53 @@ def test_graph_cache_is_bounded(monkeypatch):
         graphs.clear()
 
 
+def test_replay_counts_every_registered_counter(monkeypatch):
+    """A replay adds what its capture counted to every counter of
+    `ops.counters`, a counter registered after the graphs module too; the
+    capture's own counts are taken back."""
+    def kernel():
+        kernel.launches += 1
+
+    with monkeypatch.context() as m:
+        stand_in_graphs(m)
+        # a capture runs the step's Python once; its replays launch only
+        m.setattr(graphs, "_capture", lambda fn: (fn(), lambda: None)[1])
+        m.setattr(counters, "COUNTERS", dict(counters.COUNTERS))
+        counters.register("test_kernel", kernel, "launches")
+        before = counters.read()
+
+        def step(mutable, scratch, owner):
+            kernel()
+            kernel()
+
+        owner = object()
+        graphs.replay("t", owner, step, [torch.zeros(1)], (owner,), 5)
+        assert kernel.launches == 10 and graphs.replay.captures > 0
+        after = counters.read()
+        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+            == {"test_kernel": 10}
+        graphs.clear()
+
+
+def test_counter_registry_names_every_kernel():
+    """Every kernel wrapper and plain version registers its counter where it
+    is defined, and the benchmark script's counters are the registry's."""
+    import bench_torch
+    from bild_tpu_torch.ops import kalman, kalman_dense, kalman_sym
+
+    assert counters.COUNTERS["cfc_solve"] == (tcfc.solve_marginals, "launches")
+    assert counters.COUNTERS["plain_cfc"] == (tcfc._solve_marginals, "calls")
+    assert counters.COUNTERS["gamma_accept"] == (tdir.gamma_accept, "launches")
+    assert counters.COUNTERS["plain_gamma"] == (tdir._gamma_accept, "calls")
+    assert counters.COUNTERS["kalman_sym_split"] == (
+        kalman_sym.msrouse_logL_sym, "split_launches")
+    assert counters.COUNTERS["plain_dense"] == (
+        kalman_dense.msrouse_logL_dense_torch, "calls")
+    assert counters.COUNTERS["plain_torch"] == (kalman.msrouse_logL_batch, "calls")
+    for name, entry in bench_torch.counters().items():
+        assert counters.COUNTERS[name] == entry, name
+
+
 def test_eager_attribute_and_cpu():
     assert graphs._EAGER is False
     assert not graphs.graphed("cpu") and graphs.graphed("cuda")
@@ -492,7 +556,8 @@ def test_cuda_graphed_equals_eager(cuda, selector):
 def test_cuda_gamma_kernel_matches_plain(cuda, dtype, monkeypatch):
     """csrc/gamma_accept.cu against its plain rounds on the card, at shapes
     from 0.05 to 1e10 (float32 needs tens of rounds there): within 4 ulp,
-    ``rounds`` counts them; with the cap cut to one round the flag is set."""
+    with entries that the plain loop leaves after 4 rounds (float32) or 1
+    (float64); with the cap cut to one round the flag is set."""
     rng = np.random.default_rng(3)
     alpha = torch.as_tensor(np.concatenate(
         [rng.uniform(0.05, 8, (4, 3000)), 10 ** rng.uniform(5, 10, (4, 1000))],
@@ -502,15 +567,16 @@ def test_cuda_gamma_kernel_matches_plain(cuda, dtype, monkeypatch):
     c = 1.0 / torch.sqrt(9.0 * d)
     streams = LaneRNG.from_seeds([1, 2, 3, 4], cuda).fold(7)
     flag = torch.zeros((), dtype=torch.bool, device=cuda)
-    rounds = torch.zeros(d.shape, dtype=torch.int32, device=cuda)
     launches = tdir.gamma_accept.launches
-    got = tdir.gamma_accept(d, c, LaneRNG(streams.keys, flag), rounds=rounds)
+    got = tdir.gamma_accept(d, c, LaneRNG(streams.keys, flag))
     assert tdir.gamma_accept.launches == launches + 1 and not bool(flag)
     want = tdir._gamma_accept(d, c, LaneRNG(streams.keys))
     ulp = torch.nextafter(want.abs(), torch.full_like(want, float("inf"))) - want.abs()
     assert float(((got - want).abs() / ulp).max()) <= 4
-    assert int(rounds.min()) == 1
-    assert int(rounds.max()) >= (5 if dtype == torch.float32 else 2)
+    short = torch.zeros((), dtype=torch.bool, device=cuda)
+    tdir._gamma_accept(d, c, LaneRNG(streams.keys, short),
+                       max_rounds=4 if dtype == torch.float32 else 1)
+    assert bool(short)
     monkeypatch.setattr(tdir, "GAMMA_MAX_ROUNDS", 1)
     tdir.gamma_accept(d, c, LaneRNG(streams.keys, flag))
     assert bool(flag)
