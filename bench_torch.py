@@ -47,12 +47,14 @@ import json
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
 
 import bild_tpu_torch as bt
-from bild_tpu_torch.ops import kalman, kalman_dense, kalman_sym
+from bild_tpu_torch.ops import counters as ops_counters
+from bild_tpu_torch.ops import kalman_dense, kalman_sym
 from bild_tpu_torch.ops.oracle import msrouse_logL_numpy
 
 P_BENCH, T_BENCH = 8192, 100
@@ -127,24 +129,10 @@ def time_ms(fn, reps):
 
 def counters():
     """Every kernel's launch counter and every plain version's call
-    counter, as (function, attribute) by name."""
-    return {
-        "kalman_sym": (kalman_sym.msrouse_logL_sym, "launches"),
-        "kalman_sym_split": (kalman_sym.msrouse_logL_sym, "split_launches"),
-        "kalman_dense": (kalman_dense.msrouse_logL_dense, "launches"),
-        "plain_sym": (kalman_sym.msrouse_logL_sym_torch, "calls"),
-        "plain_dense": (kalman_dense.msrouse_logL_dense_torch, "calls"),
-        "plain_torch": (kalman.msrouse_logL_batch, "calls"),
-    }
-
-
-def reset_counts():
-    for fn, attr in counters().values():
-        setattr(fn, attr, 0)
-
-
-def read_counts():
-    return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+    counter, as (function, attribute) by name: a read-only view of the
+    port's registry (`bild_tpu_torch.ops.counters.COUNTERS`), so that no
+    list of names is kept here."""
+    return types.MappingProxyType(ops_counters.COUNTERS)
 
 
 def card():
@@ -216,10 +204,10 @@ def evaluate(model, traj, profiles):
     """One call of each kernel wrapper of `likelihoods`: ``({name: (P,)
     float64 logLs}, counts)``, where counts are the launches and plain calls
     (`counters`) that those calls made."""
-    before = read_counts()
+    before = ops_counters.read()
     out = {name: kern().cpu().numpy().astype(np.float64)
            for name, (kern, _) in likelihoods(model, traj, profiles).items()}
-    counts = {k: v - before[k] for k, v in read_counts().items()}
+    counts = {k: v - before[k] for k, v in ops_counters.read().items()}
     return out, counts
 
 

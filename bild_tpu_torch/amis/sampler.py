@@ -17,8 +17,10 @@ at different steps; the lockstep runner too, so that a captured step
 takes its random tags from the device). One step is
 `amis_propose`, the model's batched likelihood and `amis_update`, all on
 the state's device; with per-lane counts a step reads nothing back to
-the host. `FixedkSampler` runs one sampler (no lane axis) and
-fetches several steps' results to the host once, packed in one tensor.
+the host. `FixedkSampler` runs one sampler as the lockstep runner's step
+at one lane (`parallel.batch.lane_step`, on CUDA a replayed CUDA graph),
+on a counter-based stream of its own, and fetches several steps'
+results to the host once, packed in one tensor.
 """
 from __future__ import annotations
 
@@ -33,8 +35,8 @@ import torch
 from ..lanes import LaneRNG, lane_logsumexp, lane_sum
 from ..profiles import Loopingprofile, st2profile
 from .cfc import CFC, SampleSpaceTooLarge, cfc_sample, cfc_logpmf, cfc_estimate
-from .dirichlet import (dirichlet_logpdf, dirichlet_estimate,
-                        dirichlet_sample_masked)
+from .dirichlet import (check_exhausted, dirichlet_logpdf,
+                        dirichlet_estimate, dirichlet_sample_masked)
 
 __all__ = ["FixedkSampler", "AmisState", "amis_propose", "amis_update",
            "informed_proposal", "informed_proposal_batch"]
@@ -429,17 +431,39 @@ def spawn_generator(generator: torch.Generator) -> torch.Generator:
     return child
 
 
+def _sampler_step(mutable, scratch, *args):
+    """`parallel.batch.lane_step` on ``mutable[:-1]``, then each lane's
+    cumulative convergence after the step written at that step's column of
+    ``mutable[-1]`` (an ``(L, S)`` bool trace): `FixedkSampler.steps`
+    reads it to drop the evidences from a diverged step on, which a
+    replayed graph cannot tell between its steps."""
+    from ..parallel.batch import lane_step
+
+    lane_step(mutable[:-1], scratch, *args)
+    state = AmisState(*mutable[:9])
+    _put(mutable[-1], state.n_steps - 1, state.mom_ok)
+
+
 class FixedkSampler:
     """
     AMIS sampling at fixed switch count ``k`` for one (trajectory, model).
 
-    Parameters as `bild_tpu.amis.FixedkSampler`; ``generator`` is the
-    `torch.Generator` (on the trajectory's device) all draws come from,
-    seeded from numpy's global RNG if omitted.
+    Parameters as `bild_tpu.amis.FixedkSampler`; ``generator`` (a
+    `torch.Generator` on the trajectory's device, seeded from numpy's
+    global RNG if omitted) gives the sampler its key, one draw, as
+    `bild_tpu` takes ``key=``: step i draws from the sampler's
+    counter-based stream (`lanes.LaneRNG`) folded by i, so ``steps(n)``
+    equals n times ``step()`` bit for bit.
 
-    The sampler runs on the trajectory's device and in its dtype. A model
-    with ``lockstep_fns_single`` (every built-in) is scored through it;
-    any other model needs only ``nStates``, ``transitions`` and
+    The sampler runs on the trajectory's device and in its dtype. A step
+    is the lockstep runner's (`parallel.batch.lane_step`) at one lane: on
+    CUDA, after one eager step per step shape, a replay of one CUDA graph
+    (`parallel.graphs`) that every sampler of the model shares, with the
+    gamma rounds and the CFC solve as kernels and no host read. A model
+    with ``lockstep_fns`` (every built-in) is scored through
+    ``lockstep_fns_lane`` (for a GGM with the padded slot count as its
+    interval bound); any other model runs the same step eagerly and needs
+    only ``nStates``, ``transitions`` and
     ``logL_batch(profiles, traj)``, which receives an int tensor ``(P, T)``
     on the trajectory's device and may return anything `torch.as_tensor`
     takes (a tensor on any device, a numpy array, a list) of ``P``
@@ -480,7 +504,8 @@ class FixedkSampler:
         if generator is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(int(np.random.randint(2**31)))
-        self.generator = generator
+        # the sampler's stream (bild_tpu's ``self.key``), keyed by one draw
+        self._rng = LaneRNG.from_seeds([draw_seed(generator)], self.device)
         self.evidences = []          # host mirror: [(logev, dlogev, KL)]
         self._exhaustive = None      # dict if exhaustively enumerated
 
@@ -509,8 +534,9 @@ class FixedkSampler:
         logp0[:, : self.k + 1] = self.cfc.logp_uniform(self.k)
 
         # informed initialization: the guess becomes the SECOND mixture
-        # component, the first stays uniform
+        # component, the first stays uniform (injected inside the step)
         self._informed = None
+        self._lane_informed = None
         if informed_init:
             guess = model.segment_guess(traj, k)
             if guess is not None:
@@ -523,22 +549,46 @@ class FixedkSampler:
                 self._informed = (
                     torch.as_tensor(a_full, dtype=self.dtype, device=self.device),
                     torch.as_tensor(logp_full, dtype=self.dtype, device=self.device))
+            # lane form, the same with or without a guess (one step shape)
+            a_inf, logp_inf = self._informed or (
+                torch.as_tensor(a0, dtype=self.dtype, device=self.device),
+                torch.as_tensor(logp0, dtype=self.dtype, device=self.device))
+            self._lane_informed = (
+                a_inf[None], logp_inf[None],
+                torch.full((1,), self._informed is not None, device=self.device))
 
         self.S = max(1, -(-self.max_fev // self.N) - 1)  # max possible steps
-        # held as one lane: the steps call the lane functions directly, as
-        # lifting a lane-less state would cost views on every step
+        # held as one lane of the lockstep runner's step, its step count a
+        # device tensor (the random tags come from it)
         self._lane = AmisState.create(self.S, self.N, self.K1 - 1, self.n,
                                       a0[None], logp0[None], device=self.device,
                                       dtype=self.dtype, lanes=1)
+        self._lane.n_steps = torch.zeros((1,), dtype=torch.long,
+                                         device=self.device)
         self._lane_active = self.active[None]
+        # the gamma sampler's exhaustion flag and the convergence trace:
+        # both read in the packed fetch of `steps`
+        self._flag = torch.zeros((), dtype=torch.bool, device=self.device)
+        self._mom_trace = torch.ones((1, self.S), dtype=torch.bool,
+                                     device=self.device)
+        from ..parallel.batch import device_constants
 
-        if hasattr(model, "lockstep_fns_single"):
-            # every profile this sampler scores has k + 1 intervals
-            per_traj, logL_fn = model.lockstep_fns_single(
-                traj, max_intervals=self.k + 1)
-            self._logL = lambda profiles: logL_fn(profiles, per_traj)
+        # the step's per-sampler constants: inputs of the shared graph, not
+        # part of its key
+        self._consts = device_constants(self._lane, self.logprior,
+                                        self.N * self.brakes[0],
+                                        self.N * self.brakes[1])
+
+        self._fused = hasattr(model, "lockstep_fns")
+        if self._fused:
+            # every profile this sampler scores has at most K1 intervals:
+            # the same bound for every sampler of one `sample()`
+            self._lane_data, self._logL_fn = model.lockstep_fns_lane(
+                traj, max_intervals=self.K1)
         else:
-            self._logL = lambda profiles: model.logL_batch(profiles, traj)
+            self._lane_data = ()
+            self._logL_fn = lambda profiles, _: self._as_logLs(
+                model.logL_batch(profiles[0], traj))[None]
 
         try:
             self.fix_exhaustive()
@@ -547,8 +597,18 @@ class FixedkSampler:
 
     @property
     def state(self) -> AmisState:
-        """The sampler's `AmisState`, without the lane axis (views)."""
-        return self._lane._map(lambda x: x[0])
+        """The sampler's `AmisState`, without the lane axis (views), its
+        step count the host mirror `n_steps_host`."""
+        return AmisState(**{f: getattr(self._lane, f)[0] for f in _FIELDS},
+                         n_steps=self._steps_host, mom_ok=self._lane.mom_ok[0])
+
+    def _logL(self, profiles):
+        """The model's likelihoods of ``(P, T)`` profiles (exhaustive
+        enumeration): through the step's likelihood, or ``logL_batch`` as
+        the model returns it."""
+        if self._fused:
+            return self._logL_fn(profiles[None], self._lane_data)[0]
+        return self.model.logL_batch(profiles, self.traj)
 
     def _as_logLs(self, x):
         """A model's likelihoods as a ``(P,)`` tensor on the sampler's
@@ -656,7 +716,10 @@ class FixedkSampler:
 
     def steps(self, n: int) -> int:
         """Run up to ``n`` AMIS iterations with one host fetch for all their
-        outputs; returns the number actually run."""
+        outputs (the evidences, the convergence trace, the step count and
+        the gamma sampler's exhaustion flag); returns the number actually
+        run. On CUDA each step replays the model's step graph; a model
+        without ``lockstep_fns`` runs the same step eagerly."""
         if self.exhausted or n <= 0:
             return 0
         n_run = min(int(n), self.S - self._steps_host)
@@ -664,37 +727,36 @@ class FixedkSampler:
             self.exhausted = True
             return 0
 
-        cb = self.N * self.brakes[0]
-        pb = self.N * self.brakes[1]
-        ev_rows, mom_rows = [], []
-        for _ in range(n_run):
-            ss, thetas, profiles = _propose_lanes(
-                self._lane, self.generator, self._transitions, self.N, self.T,
-                self._lane_active, None, False)
-            logLs = self._as_logLs(self._logL(profiles[0]))
-            self._lane, out = _update_lanes(
-                self._lane, ss, thetas, logLs[None], self._transitions,
-                self.logprior, cb, pb, 1000, self._lane_active, False)
-            ev_rows.append(torch.stack(out))
-            # cumulative convergence after this step: the host drops
-            # evidences from a diverged step onward
-            mom_rows.append(self._lane.mom_ok)
-            if self._informed is not None and self._lane.n_steps == 1:
-                # second mixture component <- informed proposal
-                self._lane.a_params[0, 1], self._lane.logps[0, 1] = self._informed
+        from ..parallel.batch import run_steps
 
-        packed = torch.cat([torch.stack(ev_rows).reshape(-1),
-                            torch.stack(mom_rows).to(self.dtype).reshape(-1)])
+        mutable = self._lane.tensors() + [self._flag, self._mom_trace]
+        args = (self._logL_fn, self._lane_data, self._rng.keys,
+                self._transitions, self._lane_active, *self._consts, self.N,
+                self.T, 1000, self._lane_informed)
+        if self._fused:
+            run_steps("sampler", _sampler_step, mutable, args, n_run)
+        else:
+            for _ in range(n_run):
+                _sampler_step(mutable, (), *args)
+
+        start, stop = self._steps_host, self._steps_host + n_run
+        lane = self._lane
+        packed = torch.cat([
+            lane.evidences[0, start:stop].reshape(-1),
+            self._mom_trace[0, start:stop].to(self.dtype),
+            torch.stack([x.to(self.dtype) for x in
+                         (lane.mom_ok[0], lane.n_steps[0], self._flag)])])
         vals = packed.cpu().numpy()                  # ONE fetch for everything
         ev = vals[: 3 * n_run].reshape(n_run, 3)
-        mom = vals[3 * n_run:] != 0
-        mom_ok = bool(mom[-1])
+        mom = vals[3 * n_run: 4 * n_run] != 0
+        mom_ok = bool(vals[-3] != 0)
         if not mom_ok:
             # keep only evidences from steps before the divergence
             ev = ev[: int(np.argmin(mom))]
 
         self.evidences.extend((float(a), float(b), float(c)) for a, b, c in ev)
-        self._steps_host = self._lane.n_steps
+        self._steps_host = int(vals[-2])
+        check_exhausted(bool(vals[-1] != 0))
         if not mom_ok:
             raise RuntimeError(
                 "CFC method-of-marginals iteration did not converge")

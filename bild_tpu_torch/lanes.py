@@ -15,19 +15,21 @@ would break that in plain PyTorch:
   with a fixed order of elementwise additions instead (a pairwise tree;
   left to right for the cumulative sum): each slice's result depends on
   that slice alone, on any device. That costs a few kernel launches per
-  tree level, so the lockstep runner asks for it at its call sites and a
-  single sampler (no other lane exists) keeps the default, PyTorch's own
-  reductions. (Maxima, arg-maxima and integer sums are exact in any order
-  and always use PyTorch's kernels.)
+  tree level, so the lockstep runner asks for it at its call sites (and
+  so does `FixedkSampler`, which runs the same step at one lane); direct
+  calls keep the default, PyTorch's own reductions. (Maxima, arg-maxima
+  and integer sums are exact in any order and always use PyTorch's
+  kernels.)
 - Random numbers. A `torch.Generator` hands out one stream, so a lane's
   draws would depend on the lanes drawn before it. `LaneRNG` gives every
   lane its own counter-based stream: a value is a SplitMix64 hash of the
   lane's 64-bit key, a call tag and the element's index, computed for all
   lanes in a few integer tensor operations, with no host synchronization.
 
-`uniform` and `normal` draw from either kind of source, so the samplers
-take a `torch.Generator` (the single-trajectory `FixedkSampler`, whose
-draws stay those of the generator) or a `LaneRNG`.
+`uniform` and `normal` draw from either kind of source, so the public
+sampling functions take a `torch.Generator` or a `LaneRNG`; every AMIS
+step draws from a `LaneRNG` (the single-trajectory `FixedkSampler` from
+one lane keyed by a draw of its generator).
 """
 from __future__ import annotations
 

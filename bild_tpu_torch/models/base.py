@@ -132,26 +132,41 @@ class MultiStateModel(metaclass=abc.ABCMeta):
     def lockstep_fns_single(self, traj, max_intervals=None):
         """
         ``(per_traj, logL_fn)`` for ONE trajectory: ``logL_fn(profiles (P,
-        T), per_traj)`` gives the ``(P,)`` likelihoods the single-trajectory
-        sampler asks for. Default: `lockstep_fns` on a singleton batch, its
-        lane axis added and removed around each call; a model without
-        `lockstep_fns` falls back to `logL_batch`. ``max_intervals`` is the
-        caller's bound on the intervals of any profile it will pass (see
+        T), per_traj)`` gives the ``(P,)`` likelihoods (`bild_tpu`'s hook;
+        the sampler's step calls the lane form, `lockstep_fns_lane`).
+        Default: `lockstep_fns_lane`, its lane axis added and removed
+        around each call; a model without `lockstep_fns` falls back to
+        `logL_batch`. ``max_intervals`` is the caller's bound on the
+        intervals of any profile it will pass (see
         `GenericGaussianModel.lockstep_fns`).
         """
         if not hasattr(self, "lockstep_fns"):
             return traj, lambda profiles, t: self.logL_batch(profiles, t)
-        from ..parallel.batch import TrajectoryBatch
-
-        batch = TrajectoryBatch(data=traj.data[None], valid=traj.valid[None])
-        per_lane, logL_fn = self.lockstep_fns(batch,
-                                              max_intervals=max_intervals)
+        per_lane, logL_fn = self.lockstep_fns_lane(traj,
+                                                   max_intervals=max_intervals)
 
         def single(profiles, per_lane):
             profiles = torch.as_tensor(profiles, device=traj.data.device)
             return logL_fn(profiles[None], per_lane)[0]
 
         return per_lane, single
+
+    def lockstep_fns_lane(self, traj, max_intervals=None):
+        """
+        ``(lane_data, logL_fn)`` for ONE trajectory in lane form, what the
+        single-trajectory sampler's step calls: ``logL_fn(profiles (1, P,
+        T), lane_data)`` gives the ``(1, P)`` likelihoods, and
+        ``lane_data`` is a tuple of tensors with a leading lane axis of 1.
+        The trajectory travels in ``lane_data``, not in the closure, so
+        that one closure (a captured step's owner) serves every sampler of
+        the model. Default: `lockstep_fns` on a singleton batch.
+        """
+        from ..parallel.batch import TrajectoryBatch
+
+        batch = TrajectoryBatch(data=traj.data[None], valid=traj.valid[None])
+        per_lane, logL_fn = self.lockstep_fns(batch,
+                                              max_intervals=max_intervals)
+        return tuple(per_lane), logL_fn
 
     # -- generative-path preprocessing ---------------------------------------
     def _preproc_localization_error(self, localization_error):

@@ -126,6 +126,7 @@ class MultiStateRouse(MultiStateModel):
                                                 device=self.device))
         self._sym_ops = None
         self._single_fns = {}
+        self._lane_fns = {}
         self._lockstep_fns = {}
         self._factorized = None
 
@@ -252,6 +253,31 @@ class MultiStateRouse(MultiStateModel):
 
             self._single_fns[key] = logL_fn
         return (traj.data, traj.valid), self._single_fns[key]
+
+    def lockstep_fns_lane(self, traj, max_intervals=None):
+        """`MultiStateModel.lockstep_fns_lane`: the likelihood of the
+        ``'single'`` context (`sample()`'s tier, as `lockstep_fns_single`),
+        with the trajectory's own noise (`_noise_arrays`) travelling beside
+        it, ``lane_data = (data (1, T, d), valid (1, T), s2 (1, q), Cind
+        (1, d))``. One closure per kernel selection and matmul tier, the
+        same for every trajectory. The recursion visits every frame:
+        ``max_intervals`` changes nothing."""
+        tier = resolve_matmul("single")
+        key = (rouse_kernel(), tier)
+        if key not in self._lane_fns:
+            kern = self._kernel(tier)
+            args = (self.Bs, self.Gs, self.Sigs, self.M0s, self.C0s, self.w)
+
+            def logL_fn(profiles, per_lane):
+                ydata, valid, s2, Cind = per_lane
+                profiles = torch.as_tensor(profiles, dtype=torch.int32,
+                                           device=self.device).contiguous()
+                return kern(*args, s2[0], Cind[0], profiles, ydata, valid)
+
+            self._lane_fns[key] = logL_fn
+        s2, Cind = self._noise_arrays(traj)
+        return ((traj.data[None], traj.valid[None], s2[None], Cind[None]),
+                self._lane_fns[key])
 
     def lockstep_fns(self, batch, max_intervals=None):
         """

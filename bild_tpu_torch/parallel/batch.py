@@ -266,6 +266,14 @@ def lane_step(mutable, scratch, logL_fn, lane_data, keys, transitions,
                                         state.logps[:, 1])
 
 
+def device_constants(state: AmisState, *values):
+    """``values`` (floats) as 0-d tensors in ``state``'s dtype, on its
+    device: a step's constants travel among a graph's inputs (one graph
+    for every value) and compute as the floats would."""
+    return tuple(torch.as_tensor(v, dtype=state.ss.dtype, device=state.ss.device)
+                 for v in values)
+
+
 def run_steps(kind, step, mutable, args, steps, scratch=()) -> None:
     """``steps`` calls of ``step(mutable, scratch, *args)`` (``args[0]`` the
     likelihood closure): on CUDA replays of one CUDA graph of the step
@@ -312,6 +320,7 @@ def run_lanes(logL_fn, lane_data, state: AmisState, rng: LaneRNG,
     if flag is None:
         flag = torch.zeros((), dtype=torch.bool, device=device)
     steps = max(stop - start, 0)
+    cb, pb = device_constants(state, cb, pb)
     run_steps("lanes", lane_step, state.tensors() + [flag],
               (logL_fn, tuple(lane_data), rng.keys, transitions, active,
                logprior, cb, pb, N, T, mom_maxiter,

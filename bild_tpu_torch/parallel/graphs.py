@@ -5,8 +5,9 @@ steps, `bild_tpu.parallel.batch` l.305-352 and `bild_tpu.infer.adaptive`
 l.255-263).
 
 On CUDA a runner (`parallel.batch.run_lanes`, `infer.adaptive.run_slots`,
-through `parallel.batch.run_steps`) replays one graph of its step for
-every step. Where no graph of its shapes is cached it first runs one step
+and `amis.FixedkSampler.steps`, the lockstep step at one lane that
+`sample()` runs; all through `parallel.batch.run_steps`) replays one
+graph of its step for every step. Where no graph of its shapes is cached it first runs one step
 eagerly, which builds every kernel, table and plan the step needs; then
 `replay` captures one step on a side stream into a graph on fixed
 buffers (a capture launches nothing) and replays it. A step reads
@@ -22,7 +23,9 @@ counters (`ops.counters`), so they read as after the eager loop.
 
 Graphs are cached per step shape (every tensor's shape, type and device),
 the runner's constants and the model's likelihood closure, at most
-`_GRAPHS_MAX`; building a graph for another closure (another model,
+`_GRAPHS_MAX` (a step's per-k numbers, the log-prior, the brakes and the
+slot mask, are tensors among its inputs and not constants, so that every
+sampler of one `sample()` replays one graph); building a graph for another closure (another model,
 kernel or tier) frees the others first, and `clear` frees all. A graph
 holds its own copies of the state and inputs (copied in before its
 replays, the state copied out after) and a private memory pool of one

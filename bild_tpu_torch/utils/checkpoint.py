@@ -4,8 +4,9 @@ Checkpoints of `sample()` results (counterpart of
 
 A checkpoint is one ``.npz``: the trajectory (``traj_*``), the diagnostics
 log (``log_*``), each sampler's `AmisState` buffers (``s{i}_{field}``), its
-random generator's state (``s{i}_key``: `torch.Generator.get_state`), its
-exhaustive ensemble if it has one (``s{i}_ex_*``), and a JSON ``__meta__``
+stream key (``s{i}_key``: the int64 key of its `lanes.LaneRNG`, `bild_tpu`'s
+``key_data``), its exhaustive ensemble if it has one (``s{i}_ex_*``), and a
+JSON ``__meta__``
 with the samplers' settings and the model's likelihood fingerprint. The
 model itself is not stored: `load_results` takes it as an argument and
 refuses one with another fingerprint. A loaded sampler resumes with
@@ -20,6 +21,7 @@ import torch
 
 from ..amis.sampler import AmisState, FixedkSampler
 from ..infer.core import SamplingResults
+from ..lanes import LaneRNG
 from ..trajectory import Trajectory
 
 __all__ = ["save_results", "load_results"]
@@ -58,7 +60,7 @@ def save_results(path, results: SamplingResults):
         if not degenerate:
             for f, v in s.state.to_numpy().items():
                 arrays[f"s{i}_{f}"] = np.asarray(v)
-            arrays[f"s{i}_key"] = s.generator.get_state().numpy()
+            arrays[f"s{i}_key"] = s._rng.keys.cpu().numpy()
         if smeta["has_exhaustive"]:
             for kk, vv in s._exhaustive.items():
                 arrays[f"s{i}_ex_{kk}"] = np.asarray(vv)
@@ -74,9 +76,12 @@ def load_results(path, model) -> SamplingResults:
     Restore a `SamplingResults` written by `save_results`, on ``model``'s
     device and in its dtype. ``model`` must be the one used at save time:
     a model with another likelihood fingerprint raises. Each sampler is
-    rebuilt by `FixedkSampler`'s constructor, then its state, evidences,
-    exhaustive ensemble and generator state (on the model's device) are
-    restored.
+    rebuilt by `FixedkSampler`'s constructor, then its state (the device
+    step count from ``n_steps``), evidences, exhaustive ensemble and stream
+    key (on the model's device) are restored. A checkpoint whose key is no
+    int64 stream key (one written when the samplers drew from a
+    `torch.Generator`, whose state it holds) raises: it cannot resume on
+    the bits it was written with.
     """
     with np.load(path, allow_pickle=False) as zf:
         arrays = {k: zf[k] for k in zf.files}
@@ -115,14 +120,25 @@ def load_results(path, model) -> SamplingResults:
         s.evidences = [tuple(e) for e in smeta["evidences"]]
         s.exhausted = smeta["exhausted"]
         if not smeta["degenerate"]:
+            key = arrays[f"s{i}_key"]
+            if key.dtype != np.int64 or key.shape != (1,):
+                raise ValueError(
+                    f"{path}: sampler {i}'s key is not an int64 stream key "
+                    f"(dtype {key.dtype}, shape {key.shape}): the checkpoint "
+                    "holds a torch.Generator state from before the samplers "
+                    "drew from counter-based streams, and cannot resume on "
+                    "the bits it was written with")
             state = {f: arrays[f"s{i}_{f}"] for f in _STATE_FIELDS}
+            n_steps = int(state["n_steps"])
             s._lane = AmisState.from_numpy(
                 {**{f: state[f][None] for f in _STATE_FIELDS[:-2]},
-                 "n_steps": int(state["n_steps"]),
+                 "n_steps": n_steps,
                  "mom_ok": np.asarray(state["mom_ok"])[None]},
                 device=device, dtype=dtype)
-            s._steps_host = int(state["n_steps"])
-            s.generator.set_state(torch.as_tensor(arrays[f"s{i}_key"]))
+            s._lane.n_steps = torch.full((1,), n_steps, dtype=torch.long,
+                                         device=device)
+            s._steps_host = n_steps
+            s._rng = LaneRNG(torch.as_tensor(key, device=device))
         s._exhaustive = ({kk[len(f"s{i}_ex_"):]: v for kk, v in arrays.items()
                           if kk.startswith(f"s{i}_ex_")}
                          if smeta["has_exhaustive"] else None)

@@ -26,8 +26,14 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
 4. Slice phase: the README model, MultiStateRouse(N=20, D=1, k=5, d=3,
    localization_error=0.1), a T=100 trajectory with a loop at frames 30-60,
    and `bild_tpu_torch.sample()` with its defaults, once per kernel
-   selector. The launch counters must show that the run went through the
-   selected kernel and never through a plain version.
+   selector; every sampler's steps replay one CUDA graph of the lockstep
+   step at one lane. The whole counter registry (`ops.counters`) must show
+   that the run went through the selected kernel, csrc/gamma_accept.cu
+   and csrc/cfc_solve.cu and never through a plain version; the first
+   call captures one graph and a second from the same seed none, with the
+   same bits. Printed: both walls, the second split into steps, sampler
+   construction and the choice loop, and from a traced third call the busy
+   share, host launch calls per AMIS step and each kernel's device time.
 4b. Bench_e2e phase: bench_e2e_torch.py's config 2 (`sample()` on its
    two-loop trajectory, the float32 kernel against the float64 oracle on
    64 profiles), its dict printed: frame accuracy >= 0.90, kernel parity
@@ -97,8 +103,9 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
 6d. Step kernel phase: the two kernels of the AMIS step that replace
    device loops of bild_tpu (not Pallas kernels), on every input the main
    path gives them (config 3's lockstep `sample_batch` and each run of the
-   graph phase under 'sym', config 4's three states among them, run
-   eagerly so that each step's calls are recorded): csrc/cfc_solve.cu (the
+   graph phase under 'sym', config 4's three states and the README and GGM
+   `sample()` among them, run eagerly so that each step's calls are
+   recorded): csrc/cfc_solve.cu (the
    CFC proposal's fixed-point solve, one thread per slot; bild_tpu's
    `lax.while_loop`)
    against the plain solve, float32 within 4 ulp, the inputs in float64
@@ -107,7 +114,7 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    per entry; jax.random.gamma's loop) against its plain rounds within 4
    ulp, no entry exhausted; each timed (CUDA events) at config 3's scout
    call that iterates most, beside the bound of the iterations or rounds
-   it takes.
+   it takes, the gamma kernel also beside `torch._standard_gamma` there.
 7. Dataset phase (bench_e2e.py config 3): 128 trajectories of T=100 made by
    the port's batched generator, `parallel.sample_dataset` with informed
    init, the scout/refine schedule, marginals, the boundary climb and chunk
@@ -132,18 +139,23 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    frame / switch-count accuracy >= 0.97 / 0.50, the launch counters,
    wall, peak device memory and the device-busy share of a traced rerun
    (same bits).
-8b'. Graph phase: the dataset runners replay one CUDA graph of their AMIS
-   step (`parallel.graphs`; every run since the start does) and, through
-   the private `graphs._EAGER`, run their eager loop: config 3's lockstep
-   `sample_dataset` and adaptive schedule under both selectors, config 4
-   under both, GGM configs 6 and 7, each in both modes in one call. Per
+8b'. Graph phase: the dataset runners and `sample()` replay one CUDA graph
+   of their AMIS step (`parallel.graphs`; every run since the start does)
+   and, through the private `graphs._EAGER`, run their eager step: config
+   3's lockstep `sample_dataset` and adaptive schedule under both
+   selectors, config 4 under both, the README `sample()` under both, the
+   `ggm_model` example's `sample()`, GGM configs 6 and 7, each in both
+   modes in one call. Per
    mode: wall, device-busy share and host launch calls per AMIS step of a
    traced run, captures and replays, the gamma sampler's exhaustion
    counter, the peak device memory allocated and reserved. Graphed equals
    eager bit for bit (evidences, MAP profiles, mom_ok, and the marginals,
-   climbed profiles and evaluations where the run has them); every
-   accuracy bar; the graphed runs launch the selected kernel and the CFC
-   and gamma kernels through replays, and no plain version.
+   climbed profiles and evaluations where the run has them; for
+   `sample()` every sampler's evidences and state, the best profile and
+   the averaged marginals); every accuracy bar; the graphed runs launch
+   the selected kernel and the CFC and gamma kernels through replays, and
+   no plain version; a `sample()` captures one graph, a second none; a
+   sampler step that reads the host fails to capture and raises.
 8c. Config 5p phase (bench_e2e.py config5(postproc=True)): 10 chunks of
    1,024 trajectories (T=100, data made on the card per chunk) through
    `sample_batch(k_max=4, ..., marginals)`, the boundary climb and the
@@ -238,9 +250,9 @@ import torch
 import bench_e2e_torch
 import bench_torch
 from bench_e2e_torch import (THREE_STATES, config3_data, config4_data, ggm_data,
-                             ggm_model, truth_profiles)
-from bench_torch import (bound_ms, kernel_work, read_counts, reset_counts,
-                         split_bound_ms, time_ms)
+                             ggm_model, switch_counts, truth_profiles)
+from bench_torch import bound_ms, kernel_work, split_bound_ms, time_ms
+from bild_tpu_torch.ops import counters
 
 RTOL_F32 = 2e-5
 RTOL_F64 = 1e-9
@@ -254,6 +266,9 @@ DATASET_FRAME_ACCURACY = 0.97
 DATASET_SWITCH_ACCURACY = 0.75
 N, D, KSPRING, DIM, T = 20, 1.0, 5.0, 3, 100
 DEVICE = "cuda"
+# the counters of the Rouse likelihood (`ops.counters`): the GGM runs none
+ROUSE_COUNTERS = ("kalman_sym", "kalman_sym_split", "kalman_dense",
+                  "plain_sym", "plain_dense", "plain_torch")
 
 
 def algorithm_flops(name, L, P, T, N, d, q, observed):
@@ -1251,13 +1266,13 @@ def split_phase(bt, rng):
     walls, result, launches = {"exact": [], "auto": []}, {}, {}
     for mode in ("exact", "auto", "exact", "auto", "auto", "exact"):
         bt.config.set_rouse_matmul(mode)
-        reset_counts()
+        counters.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = run()
         torch.cuda.synchronize()
         walls[mode].append(time.perf_counter() - t0)
-        ran = read_counts()
+        ran = counters.read()
         if mode not in result:
             result[mode], launches[mode] = res, ran
     summary = {}
@@ -1382,7 +1397,7 @@ def tiers_phase(bt, ladder):
     models3, traj3, families, prof3, fam_of = ladder_case(bt, 1000, 3)
     b32, b64 = (args(models3, traj3, prof3, dt) for dt in (f32, f64))
 
-    reset_counts()
+    counters.reset()
     vals = {label: fn() for label, (fn, _) in tiers.items()}
     t0 = time.perf_counter()
     sq32 = msrouse_logL_sqrt(*b32)
@@ -1391,7 +1406,7 @@ def tiers_phase(bt, ladder):
     sq64 = msrouse_logL_sqrt(*b64)
     dense64 = msrouse_logL_dense(*b64)
     torch.cuda.synchronize()
-    launches = read_counts()
+    launches = counters.read()
 
     for label, (fn, reps) in tiers.items():
         got = vals[label].cpu().numpy().astype(float)
@@ -1537,7 +1552,7 @@ def dataset_phase(bt, B=128, chunk_size=64, sub_B=16):
                 return sample_dataset(model, trajs, **kw, checkpoint_dir=ck,
                                       generator=torch.Generator().manual_seed(7))
 
-            reset_counts()
+            counters.reset()
             run_lanes.steps = run_lanes.lane_steps = 0
             optimize_boundary_batch.evaluations = 0
             torch.cuda.synchronize()
@@ -1545,13 +1560,13 @@ def dataset_phase(bt, B=128, chunk_size=64, sub_B=16):
             res = run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            ran = read_counts()
+            ran = counters.read()
             evals = run_lanes.lane_steps * kw["N"] + optimize_boundary_batch.evaluations
             steps, lane_steps = run_lanes.steps, run_lanes.lane_steps
             check(len(os.listdir(ck)) == n_chunks, f"{n_chunks} chunk files written")
-            reset_counts()
+            counters.reset()
             again = run()
-            reloaded = read_counts()
+            reloaded = counters.read()
         acc = float(np.mean(np.concatenate(res.best_profile()) == truths.ravel()))
         sw = float(np.mean(res.best_k() == true_k))
         acc_opt = float(np.mean(np.concatenate(res.optimized) == truths.ravel()))
@@ -1659,17 +1674,17 @@ def adaptive_phase(bt, B=128):
                                       chunk_size=B, checkpoint_dir=ck,
                                       generator=torch.Generator().manual_seed(7))
 
-            reset_counts()
+            counters.reset()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            ran = read_counts()
+            ran = counters.read()
             check(len(os.listdir(ck)) == 1, "one chunk file written")
-            reset_counts()
+            counters.reset()
             again = run()
-            reloaded = read_counts()
+            reloaded = counters.read()
         acc = float(np.mean(np.concatenate(res.best_profile()) == truths.ravel()))
         sw = float(np.mean(res.best_k() == true_k))
         ev = res.evals
@@ -1753,7 +1768,7 @@ def config4_phase(bt):
             return sample_batch(model, batch, **CONFIG4_KW,
                                 generator=torch.Generator().manual_seed(4))
 
-        reset_counts()
+        counters.reset()
         run_lanes.steps = run_lanes.lane_steps = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1761,7 +1776,7 @@ def config4_phase(bt):
         res = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        ran = read_counts()
+        ran = counters.read()
         peak = torch.cuda.max_memory_allocated() / 2**30
         steps, lane_steps = run_lanes.steps, run_lanes.lane_steps
         share, top, traced = busy_share(run)
@@ -1900,7 +1915,9 @@ def step_kernel_phase(bt):
     informed_init, scout_steps=4, refine_top=3)` over 128 trajectories
     (scout L=640, refine L=384), and every run of the graph phase under
     'sym' (`graph_cases`: config 3's lockstep and adaptive
-    `sample_dataset`, config 4 with three states, GGM configs 6 and 7).
+    `sample_dataset`, config 4 with three states, the README `sample()`
+    (one lane, 100 x 21 gamma entries), the `ggm_model` example's
+    `sample()`, GGM configs 6 and 7).
     csrc/cfc_solve.cu against `_solve_marginals` with lane-exact sums:
     float32 within `ULP_CFC_F32` ulp, the inputs in float64 within
     `RTOL_CFC_F64`, converged flags and non-finite entries equal.
@@ -1909,7 +1926,9 @@ def step_kernel_phase(bt):
     config 3's scout call that iterates most, beside the bound of the
     iterations and rounds it takes (`cfc_bound_ms`, `gamma_ops`); the
     gamma kernel with one flag made beforehand, so that no timed call
-    reads the device. Returns ``{name: numbers of the kernels line}``."""
+    reads the device; beside it `torch._standard_gamma` at the same shape
+    (the library's gamma draws: time only, another stream). Returns
+    ``{name: numbers of the kernels line}``."""
     from bild_tpu_torch.amis import cfc, dirichlet
     from bild_tpu_torch.lanes import LaneRNG
     from bild_tpu_torch.parallel import graphs, sample_batch
@@ -2051,6 +2070,14 @@ def step_kernel_phase(bt):
     check(not bool(streams.exhausted), "gamma_accept: the timed calls accepted all")
     out["gamma_accept"].update(max_abs_err=g_abs, max_ulp=max(g_ulps),
                                not_bit_equal=differ)
+    # the one PyTorch call that draws gammas of these shapes (from another
+    # stream, so time only): torch._standard_gamma of the shapes a = d + 1/3
+    alpha = d + 1.0 / 3.0
+    library = [time_ms(lambda: torch._standard_gamma(alpha), 50) for _ in range(2)]
+    out["gamma_accept"]["library_ms"] = sum(library) / 2
+    print(f"time torch._standard_gamma {tuple(alpha.shape)} float32 (the "
+          f"library's gamma draws at the gamma kernel's timed shape): "
+          f"{library[0]:.4f} / {library[1]:.4f} ms", flush=True)
     return out
 
 
@@ -2073,11 +2100,17 @@ def time_kernel(name, shape, kern, plain, bound, work):
 LAUNCH_CALLS = ("LaunchKernel", "GraphLaunch", "MemcpyAsync", "MemsetAsync")
 
 
+# the hand kernels' names in a trace (csrc/*.cu)
+KERNEL_NAMES = ("kalman_sym_kernel", "kalman_sym_split_kernel",
+                "kalman_dense_kernel", "cfc_solve_kernel", "gamma_accept_kernel")
+
+
 def graph_profile(run):
     """One call of ``run`` traced by torch.profiler (CUDA activity only,
     read from its raw events: a fraction of the full trace's cost at
     thousands of launches per step): ``(device ms, profiled wall s, host
-    launch calls (`LAUNCH_CALLS`), its result)``."""
+    launch calls (`LAUNCH_CALLS`), its result, {kernel name: (launches,
+    device ms)} of the hand kernels (`KERNEL_NAMES`))``."""
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2085,22 +2118,85 @@ def graph_profile(run):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy_ns = calls = 0
+    kernels = {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA:
             busy_ns += e.duration_ns()
+            name = next((k for k in KERNEL_NAMES if k in e.name()), None)
+            if name is not None:
+                n, ns = kernels.get(name, (0, 0))
+                kernels[name] = (n + 1, ns + e.duration_ns())
         elif any(k in e.name() for k in LAUNCH_CALLS):
             calls += 1
-    return busy_ns / 1e6, wall, calls, out
+    return (busy_ns / 1e6, wall, calls, out,
+            {k: (n, ns / 1e6) for k, (n, ns) in kernels.items()})
 
 
 def same_bits(a, b, fields):
     """Whether results ``a`` and ``b`` hold the same bits in ``fields``
-    (arrays, or lists of arrays per trajectory)."""
+    (arrays, or lists of arrays per trajectory), or by ``fields(a, b)``
+    where it is a function (`same_sample`)."""
     def eq(x, y):
         if isinstance(x, list):
             return len(x) == len(y) and all(eq(u, v) for u, v in zip(x, y))
         return np.array_equal(x, y, equal_nan=np.asarray(x).dtype.kind == "f")
+    if callable(fields):
+        return fields(a, b)
     return all(eq(getattr(a, f), getattr(b, f)) for f in fields)
+
+
+def same_sample(a, b):
+    """Whether two `sample()` results hold the same bits: every sampler's
+    evidences and state (`AmisState.to_numpy`), the best profile and the
+    evidence-averaged log marginal posterior."""
+    def state(s):
+        return s.state.to_numpy() if hasattr(s, "_lane") else {}
+
+    if len(a.samplers) != len(b.samplers):
+        return False
+    for x, y in zip(a.samplers, b.samplers):
+        sx, sy = state(x), state(y)
+        if x.evidences != y.evidences or sx.keys() != sy.keys() or not all(
+                np.array_equal(sx[f], sy[f],
+                               equal_nan=np.asarray(sx[f]).dtype.kind == "f")
+                for f in sx):
+            return False
+    return (np.array_equal(np.asarray(a.best_profile()[:]),
+                           np.asarray(b.best_profile()[:]))
+            and np.array_equal(a.log_marginal_posterior(dE="average"),
+                               b.log_marginal_posterior(dE="average")))
+
+
+def readme_case(bt):
+    """The README's `sample()` case: ``(model, true profile, trajectory)``,
+    MultiStateRouse(N=20, D=1, k=5, d=3, localization_error=0.1) and a
+    T=100 trajectory with a loop at frames 30-60."""
+    model = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
+                                      localization_error=0.1,
+                                      device=DEVICE, dtype=torch.float32)
+    true = np.zeros(T, dtype=int)
+    true[30:60] = 1
+    traj = model.trajectory_from_loopingprofile(
+        true, generator=torch.Generator(device=DEVICE).manual_seed(42))
+    return model, true, traj
+
+
+def ggm_sample_case(bt):
+    """The `ggm_model` example's `sample()`: its model (`bench_e2e_torch.
+    ggm_model`), its first trajectory (T=100, a loop at frames 30-60, numpy
+    seed 0), k_max=20 with informed init, generator seed 1. Returns ``(run,
+    true profile)``."""
+    model = ggm_model(device=DEVICE)
+    true = np.zeros(T, dtype=int)
+    true[30:60] = 1
+    traj = model.trajectory_from_loopingprofile(true,
+                                                rng=np.random.default_rng(0))
+
+    def run():
+        return bt.sample(traj, model, k_max=20,
+                         generator=torch.Generator(device=DEVICE).manual_seed(1),
+                         sampler_kw={"informed_init": True})
+    return run, true
 
 
 def graph_cases(bt):
@@ -2154,6 +2250,23 @@ def graph_cases(bt):
                                  generator=torch.Generator().manual_seed(4)),
             sb, score(truths4, k4),
             (CONFIG4_FRAME_ACCURACY, CONFIG4_SWITCH_ACCURACY)))
+    # sample(): one trajectory, every sampler one lane of the same graph
+    mr, true_r, traj_r = readme_case(bt)
+
+    def score_sample(true):
+        return lambda r: (float(np.mean(np.asarray(r.best_profile()[:]) == true)),
+                          float(r.best_k() == switch_counts(true[None])[0]))
+
+    for sel in ("sym", "dense"):
+        cases.append((
+            "README sample()", sel,
+            lambda: bt.sample(traj_r, mr,
+                              generator=torch.Generator(device=DEVICE).manual_seed(7)),
+            same_sample, score_sample(true_r), (SLICE_ACCURACY, 0.0)))
+    run_g, true_g = ggm_sample_case(bt)
+    cases.append(("ggm sample()", "sym", run_g, same_sample, score_sample(true_g),
+                  (EXAMPLE_REFERENCE["ggm_model"]["single_accuracy"] - EXAMPLE_SLACK,
+                   0.0)))
     for number in (6, 7):
         model, truths, true_k, _, batch = ggm_config(bt, number)
         informed, bar_f, bar_s = GGM_CONFIGS[number][3:]
@@ -2167,23 +2280,26 @@ def graph_cases(bt):
 
 
 def graph_phase(bt):
-    """The dataset runners' step as one CUDA graph (`parallel.graphs`)
-    against their eager loop (``graphs._EAGER``), in one call: config 3's
-    lockstep `sample_dataset` (chunks of 64, marginals, the climb) and
-    adaptive schedule under both selectors, config 4 under both, GGM
+    """The AMIS step as one CUDA graph (`parallel.graphs`) against the
+    eager step (``graphs._EAGER``), in one call: config 3's lockstep
+    `sample_dataset` (chunks of 64, marginals, the climb) and adaptive
+    schedule under both selectors, config 4 under both, the README
+    `sample()` under both, the `ggm_model` example's `sample()`, GGM
     configs 6 and 7. Per run and mode: the wall (graphed: the run after
     the capturing one), the device-busy share and the host launch calls per
     AMIS step of a traced run, captures and replays, the gamma sampler's
     exhaustion counter, and the peak device memory allocated and reserved.
     Checks: graphed equals eager bit for bit (evidences, MAP profiles,
-    mom_ok; marginals and climbed profiles, evaluations), the traced runs
-    too; every accuracy bar; the eager runs replay nothing, the graphed
-    ones replay and launch the selected kernel, csrc/cfc_solve.cu and
-    csrc/gamma_accept.cu, and no plain version runs. Returns ``{"launches":
-    {"cfc_solve": ..., "gamma_accept": ...}, "runs": ...}`` (the graphed
-    runs' launches)."""
+    mom_ok; marginals and climbed profiles, evaluations; for `sample()`
+    every sampler's evidences and state, the best profile and the
+    averaged marginal posterior), the traced runs too; every accuracy bar;
+    the eager runs replay nothing, the graphed ones replay and launch the
+    selected kernel, csrc/cfc_solve.cu and csrc/gamma_accept.cu, and no
+    plain version runs; a `sample()` captures one graph, and a second one
+    of the same shapes none; a step that reads the host fails to capture
+    and raises. Returns ``{"launches": {"cfc_solve": ..., "gamma_accept":
+    ...}, "runs": ...}`` (the graphed runs' launches)."""
     from bild_tpu_torch.amis.dirichlet import standard_gamma
-    from bild_tpu_torch.ops import counters
     from bild_tpu_torch.parallel import graphs
     from bild_tpu_torch.parallel.batch import run_steps
 
@@ -2210,6 +2326,7 @@ def graph_phase(bt):
                 counters.reset()
                 run_steps.steps = 0
                 reps = graphs.replay.replays
+                caps_again = graphs.replay.captures
                 exhausted = standard_gamma.exhausted
                 t0 = time.perf_counter()
                 res = run()
@@ -2219,6 +2336,7 @@ def graph_phase(bt):
                 info = {
                     "wall_s": wall, "steps": run_steps.steps,
                     "replays": graphs.replay.replays - reps,
+                    "captures_again": graphs.replay.captures - caps_again,
                     "gamma_exhausted": standard_gamma.exhausted - exhausted,
                     "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
                     "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
@@ -2226,8 +2344,9 @@ def graph_phase(bt):
                 if mode == "graphed":
                     info.update(first_wall_s=first_wall, captures=caps)
                 steps0 = run_steps.steps
-                dev_ms, traced_wall, calls, traced = graph_profile(run)
+                dev_ms, traced_wall, calls, traced, kern = graph_profile(run)
                 info.update(
+                    kernel_device_us={k: ms * 1e3 / n for k, (n, ms) in kern.items()},
                     device_ms=dev_ms, traced_wall_s=traced_wall,
                     busy_share=dev_ms / 1e3 / traced_wall,
                     busy_of_wall=dev_ms / 1e3 / wall,
@@ -2259,7 +2378,10 @@ def graph_phase(bt):
               f"({g['steps']} steps, {g['replays']} replayed), peak "
               f"{g['peak_allocated_gib']:.2f} / {g['peak_reserved_gib']:.2f} GiB; "
               f"gamma exhausted {e['gamma_exhausted'] + g['gamma_exhausted']}; "
-              f"launches and plain calls {g['launches']}; frame "
+              f"launches and plain calls {g['launches']}; device us per "
+              f"launch (graphed, traced) " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in g["kernel_device_us"].items())
+              + f"; frame "
               f"accuracy {acc:.4f}, switch-count accuracy {sw:.4f}; graphed "
               f"equals eager bit for bit: {same}", flush=True)
         check(same, f"graph {key}: graphed equals eager bit for bit")
@@ -2282,11 +2404,48 @@ def graph_phase(bt):
         if "adaptive" in label:
             check(float(np.mean(res.evals)) < LOCKSTEP_EVALS,
                   f"graph {key}: fewer evaluations than the lockstep schedule")
+        if fields is same_sample:
+            check(g["captures"] == 1 and g["captures_again"] == 0,
+                  f"graph {key}: one sample() captures one graph, a second "
+                  f"none ({g['captures']}, {g['captures_again']})")
         launches["cfc_solve"] += g["launches"]["cfc_solve"]
         launches["gamma_accept"] += g["launches"]["gamma_accept"]
     bt.config.set_rouse_kernel("sym")
+    check(capture_refuses_host_reads(bt),
+          "graph: a sampler step that reads the host fails to capture and raises")
     print(f"graph phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"launches": launches, "runs": runs}
+
+
+def capture_refuses_host_reads(bt):
+    """Whether a `FixedkSampler` whose likelihood reads a value back to the
+    host (a ``float()`` of a device tensor) raises on its step's capture,
+    after its eager first step, with no quiet fallback to the eager loop."""
+    from bild_tpu_torch.amis.sampler import FixedkSampler
+    from bild_tpu_torch.parallel import graphs
+
+    model, _, traj = readme_case(bt)
+    s = FixedkSampler(traj, model, k=3,
+                      generator=torch.Generator(device=DEVICE).manual_seed(3))
+    real = s._logL_fn
+
+    def reading(profiles, lane_data):
+        float(profiles.sum())
+        return real(profiles, lane_data)
+
+    s._logL_fn = reading
+    graphs.clear()
+    replays = graphs.replay.replays
+    try:
+        s.steps(3)
+    except RuntimeError as e:
+        print(f"graph: a step that reads the host: {type(e).__name__}: "
+              f"{str(e).splitlines()[0][:120]}", flush=True)
+        return graphs.replay.replays == replays
+    finally:
+        graphs.clear()
+        torch.cuda.synchronize()
+    return False
 
 
 # config 5 with post-processing: bild_tpu recorded 0.9926 / 0.8897, after
@@ -2321,7 +2480,7 @@ def config5p_phase(bt):
     chunk_s, finite = [], True
     from bild_tpu_torch.parallel import graphs
 
-    reset_counts()
+    counters.reset()
     caps, reps = graphs.replay.captures, graphs.replay.replays
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2348,7 +2507,7 @@ def config5p_phase(bt):
         chunk_s.append(time.perf_counter() - tc)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    ran = read_counts()
+    ran = counters.read()
     peak = torch.cuda.max_memory_allocated() / 2**30
     n = CONFIG5_CHUNKS
     acc, sw, acc_post, cred = acc / n, sw / n, acc_post / n, cred / n
@@ -2483,14 +2642,14 @@ def examples_phase(bt):
     for name in ("single_trajectory", "infer_dataset", "calibrate_params",
                  "ggm_model"):
         mod = importlib.import_module(f"bild_tpu_torch.examples.{name}")
-        reset_counts()
+        counters.reset()
         fit.calibration_logL.calls = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = mod.main()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        ran = read_counts()
+        ran = counters.read()
         ran["calibration_plain"] = fit.calibration_logL.calls
         bars = example_bars(name, out)
         print(f"example {name}: wall {wall:.3f} s, bars "
@@ -2499,8 +2658,10 @@ def examples_phase(bt):
               + f", counters {ran}", flush=True)
         for w, v, b, ok in bars:
             check(ok, f"example {name}: {w} {v:.4f} against {b:.4f}")
+        check(ran["plain_gamma"] == ran["plain_cfc"] == 0,
+              f"example {name}: the gamma and CFC kernels, no plain version")
         if name == "ggm_model":
-            check(all(v == 0 for v in ran.values()),
+            check(all(ran[k] == 0 for k in ROUSE_COUNTERS),
                   f"the GGM example ran no Rouse recursion: {ran}")
         else:
             check(ran["kalman_sym"] > 0, f"example {name}: the sym kernel launched")
@@ -2543,8 +2704,9 @@ def examples_phase(bt):
 CLI_RUNNER = """
 import atexit, json, os, runpy, sys
 import torch
+import bild_tpu_torch
 from bild_tpu_torch import fit, io
-from bild_tpu_torch.ops import kalman, kalman_dense, kalman_sym
+from bild_tpu_torch.ops import counters
 out = sys.argv.pop(1)
 writes = []
 _replace = os.replace
@@ -2557,12 +2719,7 @@ atexit.register(lambda: json.dump({
     "checkpoint_writes": len(writes),
     "peak_device_gib": (torch.cuda.max_memory_allocated() / 2**30
                         if torch.cuda.is_available() else 0.0),
-    "kalman_sym": kalman_sym.msrouse_logL_sym.launches,
-    "kalman_sym_split": kalman_sym.msrouse_logL_sym.split_launches,
-    "kalman_dense": kalman_dense.msrouse_logL_dense.launches,
-    "plain_sym": kalman_sym.msrouse_logL_sym_torch.calls,
-    "plain_dense": kalman_dense.msrouse_logL_dense_torch.calls,
-    "plain_torch": kalman.msrouse_logL_batch.calls,
+    **counters.read(),
     "calibration_plain": fit.calibration_logL.calls,
     "native_parses": io.load_trajectories_csv.native_parses}, open(out, "w")))
 runpy.run_module("bild_tpu_torch", run_name="__main__", alter_sys=True)
@@ -2645,6 +2802,8 @@ def cli_phase(bt, work):
         check(ran["plain_sym"] == ran["plain_dense"] == 0
               and ran["plain_torch"] == ran["calibration_plain"],
               "plain likelihoods only in the calibration's M-step")
+        check(ran["plain_gamma"] == ran["plain_cfc"] == 0,
+              f"cli {label}: the gamma and CFC kernels, no plain version")
         if label != "rerun":
             check(ran["kalman_sym"] > 0, "the sym kernel launched")
         if label != "fit":
@@ -2679,7 +2838,7 @@ def checkpoint_phase(bt):
     true[30:60] = 1
     traj = model.trajectory_from_loopingprofile(
         true, generator=torch.Generator(device=DEVICE).manual_seed(42))
-    reset_counts()
+    counters.reset()
     res = bt.sample(traj, model, generator=torch.Generator(device=DEVICE).manual_seed(7))
     with tempfile.TemporaryDirectory() as d:
         save_results(os.path.join(d, "ck.npz"), res)
@@ -2693,7 +2852,7 @@ def checkpoint_phase(bt):
         s.steps(2)
     a, b = res.samplers[i].state.to_numpy(), loaded.samplers[i].state.to_numpy()
     same = all(np.array_equal(a[f], b[f]) for f in a)
-    ran = read_counts()
+    ran = counters.read()
     print(f"checkpoint: {len(res.samplers)} samplers saved and loaded, sampler "
           f"k={res.samplers[i].k} resumed 2 steps: "
           f"{'same bits' if same else 'DIFFER'}, launches {ran}", flush=True)
@@ -2911,7 +3070,7 @@ def ggm_phase(bt, rng):
     from bild_tpu_torch.parallel import sample_batch, sample_dataset
     from bild_tpu_torch.utils import load_results, save_results
 
-    reset_counts()
+    counters.reset()
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
     ggm_parity(bt, rng)
@@ -3023,11 +3182,12 @@ def ggm_phase(bt, rng):
           and res.samplers[i].evidences == loaded.samplers[i].evidences,
           "GGM: a loaded sampler's steps equal the uninterrupted ones bit for bit")
 
-    ran = read_counts()
+    ran = counters.read()
     print(f"ggm phase: {time.perf_counter() - t_phase:.1f} s, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, Rouse launches "
           f"and plain calls {ran}", flush=True)
-    check(all(v == 0 for v in ran.values()),
+    check(all(v == 0 for k, v in ran.items()
+              if k in ROUSE_COUNTERS or k.startswith("plain")),
           f"no Rouse kernel or plain version ran in the GGM phase: {ran}")
 
 
@@ -3079,13 +3239,13 @@ def mesh_phase(bt, work):
     try:
         one = torch.ones(1, device=mesh.device)
         dist.all_reduce(one)
-        reset_counts()
+        counters.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         got = runs(mesh)
         torch.cuda.synchronize()
         wall_a = time.perf_counter() - t0
-        ran = read_counts()
+        ran = counters.read()
         backend = mesh.backend
     finally:
         dist.destroy_process_group()
@@ -3260,10 +3420,10 @@ def assoc_phase(bt, work):
     def counted(fns):
         """Each function once, its kernels' launches summed into
         ``launches``; the results on the host."""
-        reset_counts()
+        counters.reset()
         out = {k: fn() for k, fn in fns.items()}
         torch.cuda.synchronize()
-        for k, v in read_counts().items():
+        for k, v in counters.read().items():
             launches[k] = launches.get(k, 0) + v
         return {k: v.cpu().numpy().astype(float) for k, v in out.items()}
 
@@ -3469,9 +3629,9 @@ def bench_e2e_phase(bt):
     printed. Bars: frame accuracy `SLICE_ACCURACY`, kernel parity
     `RTOL_F32` (PERF.md section 2), the kernel launched and no plain
     version. Returns the launch counts of the run."""
-    reset_counts()
+    counters.reset()
     r = bench_e2e_torch.run_configs(["2"], bt.config.rouse_matmul(), device=DEVICE)["2"]
-    ran = read_counts()
+    ran = counters.read()
     line = (f"bench_e2e config 2: frame accuracy {r['frame_accuracy']:.4f} (bar "
             f"{SLICE_ACCURACY}), kernel parity against the float64 oracle "
             f"{r['kernel_parity_rel_vs_f64_oracle']:.2e} (bar {RTOL_F32}), "
@@ -3485,57 +3645,126 @@ def bench_e2e_phase(bt):
     return ran
 
 
+def sample_time_split(run):
+    """One call of ``run`` (a `sample()`): ``(result, wall s, {"steps": s,
+    "samplers": s, "choice": s})``, the wall split into the samplers'
+    `steps` calls (the AMIS steps with their one fetch each, so every
+    step's device work ends inside them), the samplers' construction (the
+    exhaustive enumeration, the lane likelihood) and the rest: the choice
+    loop on the host (`ChoiceSampler`, numpy)."""
+    from bild_tpu_torch.amis.sampler import FixedkSampler
+
+    spent = {"steps": 0.0, "samplers": 0.0}
+    steps, init = FixedkSampler.steps, FixedkSampler.__init__
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return wrapper
+
+    FixedkSampler.steps, FixedkSampler.__init__ = (timed("steps", steps),
+                                                   timed("samplers", init))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        FixedkSampler.steps, FixedkSampler.__init__ = steps, init
+    spent["choice"] = wall - spent["steps"] - spent["samplers"]
+    return res, wall, spent
+
+
 def slice_phase(bt):
-    """`sample()` on the README trajectory under each kernel selector."""
-    model = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
-                                      localization_error=0.1,
-                                      device=DEVICE, dtype=torch.float32)
-    true = np.zeros(T, dtype=int)
-    true[30:60] = 1
-    traj = model.trajectory_from_loopingprofile(
-        true, generator=torch.Generator(device=DEVICE).manual_seed(42))
+    """`sample()` on the README trajectory under each kernel selector, its
+    samplers' steps replaying one CUDA graph (`parallel.graphs`). Reads
+    the whole counter registry (`ops.counters`): the selector's kernel,
+    csrc/gamma_accept.cu and csrc/cfc_solve.cu launched, no plain version
+    ran. Prints the wall of the first call (which captures the graph) and
+    of the second (which must capture none and give the same bits), that
+    wall split into steps, sampler construction and the choice loop
+    (`sample_time_split`), the captures and replays, and, from a traced
+    third call, the busy share, the host launch calls per AMIS step and
+    each hand kernel's launches and device time. Returns ``(counts summed
+    over both selectors, {selector: readings})``."""
+    from bild_tpu_torch.parallel import graphs
+
+    model, true, traj = readme_case(bt)
     lls = model.logL_batch(np.stack([true, 0 * true, 0 * true + 1]), traj)
     lls = lls.cpu().numpy()
     check(np.argmax(lls) == 0, f"true profile ranks first: {lls}")
 
-    totals = {}
-    reset_counts()
+    def run():
+        return bt.sample(traj, model,
+                         generator=torch.Generator(device=DEVICE).manual_seed(7))
+
+    totals, readings = {}, {}
     for selector in ("sym", "dense"):
-        before = read_counts()
         bt.config.set_rouse_kernel(selector)
+        graphs.clear()
+        caps, reps = graphs.replay.captures, graphs.replay.replays
+        counters.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = bt.sample(traj, model,
-                        generator=torch.Generator(device=DEVICE).manual_seed(7))
+        res = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        ran = {k: v - before[k] for k, v in read_counts().items()}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        bt.sample(traj, model, generator=torch.Generator(device=DEVICE).manual_seed(7))
-        torch.cuda.synchronize()
-        again = time.perf_counter() - t0
+        ran = counters.read()
+        caps, reps = graphs.replay.captures - caps, graphs.replay.replays - reps
+        caps2 = graphs.replay.captures
+        again, again_wall, split = sample_time_split(run)
+        caps2 = graphs.replay.captures - caps2
+        dev_ms, traced_wall, calls, _, kern = graph_profile(run)
         best = np.asarray(res.best_profile()[:])
         acc = float(np.mean(best == true))
         post = res.log_marginal_posterior(dE="average")
         steps = sum(s.n_steps_host for s in res.samplers)
         evals = sum(len(s._exhaustive["logLs"]) if s._exhaustive is not None
                     else s.n_steps_host * s.N for s in res.samplers)
-        print(f"slice selector={selector}: wall {wall:.3f} s (again: "
-              f"{again:.3f} s), AMIS steps "
-              f"{steps}, logL evaluations {evals}, best_k {res.best_k()}, "
-              f"frame accuracy {acc:.3f}, evidence {np.round(res.evidence, 3).tolist()}, "
-              f"launches {ran}", flush=True)
+        per_kernel = {k: {"launches": n, "device_ms": ms, "us_per_launch":
+                          ms * 1e3 / n} for k, (n, ms) in kern.items()}
+        readings[selector] = {
+            "wall_s": wall, "again_wall_s": again_wall,
+            "split_s": split, "captures": caps, "replays": reps,
+            "captures_again": caps2, "steps": steps, "evals": evals,
+            "device_ms": dev_ms, "traced_wall_s": traced_wall,
+            "busy_share": dev_ms / 1e3 / traced_wall,
+            "launch_calls_per_step": calls / max(steps, 1),
+            "kernels": per_kernel, "launches": ran, "frame_accuracy": acc}
+        print(f"slice selector={selector}: wall {wall:.3f} s (captures "
+              f"{caps}, replays {reps}); again {again_wall:.3f} s (captures "
+              f"{caps2}; steps {split['steps']:.3f} s, sampler construction "
+              f"{split['samplers']:.3f} s, choice loop {split['choice']:.3f} s); "
+              f"traced: busy {dev_ms / 1e3 / traced_wall:.4f} ({dev_ms:.1f} ms "
+              f"of {traced_wall:.3f} s), {calls / max(steps, 1):.1f} host launch "
+              f"calls per AMIS step; kernels "
+              + ", ".join(f"{k} {v['launches']} x {v['us_per_launch']:.1f} us"
+                          for k, v in per_kernel.items())
+              + f"; AMIS steps {steps}, logL evaluations {evals}, best_k "
+              f"{res.best_k()}, frame accuracy {acc:.3f}, evidence "
+              f"{np.round(res.evidence, 3).tolist()}, launches {ran}", flush=True)
         check(acc >= SLICE_ACCURACY, f"MAP profile >= {SLICE_ACCURACY} frame-correct")
         check(post.shape == (2, T) and np.all(np.isfinite(np.exp(post))),
               "marginal posterior finite, (2, T)")
         check(np.all(np.isfinite(res.evidence)), "finite evidences")
+        check(same_sample(res, again), "a second sample() from the same seed "
+              "gives the same bits")
         check(ran[f"kalman_{selector}"] > 0, f"{selector} kernel launched")
+        check(ran["gamma_accept"] > 0 and ran["cfc_solve"] > 0,
+              "the gamma and CFC kernels launched")
         check(all(ran[k] == 0 for k in ran if k.startswith("plain")),
-              "no plain version ran on the CUDA path")
+              f"no plain version ran on the CUDA path: {ran}")
+        check(caps == 1 and caps2 == 0 and reps == steps - 1,
+              f"sample() replays one graph: {caps} captures, {reps} replays of "
+              f"{steps} steps, {caps2} captures again")
         totals = {k: totals.get(k, 0) + v for k, v in ran.items()}
     bt.config.set_rouse_kernel("sym")
-    return totals
+    return totals, readings
 
 
 def main():
@@ -3568,7 +3797,7 @@ def main():
     max_abs = kernel_phase(bt, rng)
     times = timing_phase(bt, rng)
     bench = bench_phase(bt)
-    launches = slice_phase(bt)
+    launches, slice_readings = slice_phase(bt)
     e2e_launches = bench_e2e_phase(bt)
     lane_kernel_phase(bt, rng, max_abs)
     lock_times = lockstep_phase(bt, rng, max_abs)
@@ -3683,9 +3912,12 @@ def main():
     # 3's lockstep scout call (L=640) that iterates most, the bound from
     # the iterations or rounds those inputs take; "max_abs_err" over every
     # call of the step kernel phase's runs; "launches" over the graph
-    # phase's graphed runs (this slice's main path: the dataset runners
-    # replaying their step).
-    # No PyTorch call computes either: library_ms is null.
+    # phase's graphed runs and the slice phase's sample() (the main path:
+    # the dataset runners and sample() replaying their step), of which
+    # "sample_launches" the slice phase's; "sample_device_us" the device
+    # time per launch in the traced README sample() ('sym'). No PyTorch
+    # call computes the CFC solve: its library_ms is null; the gamma row's
+    # is torch._standard_gamma at the timed shape (time only).
     for name, replaces in (
             ("cfc_solve", "bild_tpu/amis/cfc.py:166 (lax.while_loop, not a "
                           "Pallas kernel)"),
@@ -3693,12 +3925,21 @@ def main():
                              "rejection loop, not a Pallas kernel)")):
         row = {"name": name, "route": "cuda",
                "source": f"bild_tpu_torch/csrc/{name}.cu", "replaces": replaces,
-               "launches": graph["launches"][name], "library_ms": None}
+               "launches": graph["launches"][name] + launches[name],
+               "library_ms": None, "sample_launches": launches[name],
+               "sample_device_us": slice_readings["sym"]["kernels"].get(
+                   f"{name}_kernel", {}).get("us_per_launch")}
         row.update(step_kernels[name])
         kernels.append(row)
+    for row in kernels:
+        if row["name"] in names:        # the likelihood kernels in sample()
+            sel = row["name"][len("kalman_"):]
+            row["sample_device_us"] = slice_readings[sel]["kernels"].get(
+                f"{row['name']}_kernel", {}).get("us_per_launch")
     print(json.dumps({"kernels": kernels,
                       "calibration_plain_calls": (cli_counts["calibration_plain"]
                                                   + ex_counts["calibration_plain"]),
+                      "slice_phase": slice_readings,
                       "graph_phase": graph["runs"]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -82,9 +82,12 @@ def test_likelihoods_match_bild_tpu(small):
     for name in KERNELS:
         assert got[name].shape == (32,)
         np.testing.assert_allclose(got[name], want, rtol=1e-9, err_msg=name)
-    # on CPU tensors every wrapper ran its plain version and launched nothing
+    # on CPU tensors every wrapper ran its plain version and launched
+    # nothing; the counts are the whole registry's
     assert counts == {"kalman_sym": 0, "kalman_sym_split": 0, "kalman_dense": 0,
-                      "plain_sym": 3, "plain_dense": 1, "plain_torch": 0}
+                      "plain_sym": 3, "plain_dense": 1, "plain_torch": 0,
+                      "cfc_solve": 0, "plain_cfc": 0, "gamma_accept": 0,
+                      "plain_gamma": 0}
 
 
 def test_baseline_is_bild_tpu_oracle(small):

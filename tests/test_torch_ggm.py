@@ -599,7 +599,10 @@ def test_sample_end_to_end_and_checkpoint(tmp_path):
 @pytest.mark.parametrize("kind", ["factorized", "ggm"])
 def test_sample_goes_through_lockstep_fns_single(kind, rng, monkeypatch):
     """The single-trajectory sampler scores through the model's lockstep
-    function (for a GGM the sparse sum), never through `logL_batch`."""
+    function (for a GGM the sparse sum), never through `logL_batch`: its
+    lane form (`lockstep_fns_lane`), with the padded slot count K1 = k_max
+    + 1 as every sampler's interval bound and one closure for all of
+    them; `lockstep_fns_single` gives the same likelihoods."""
     if kind == "ggm":
         tm = TG(two_state_spec(TG), **CPU)
         traj = tm.trajectory_from_loopingprofile(np.zeros(14, int), rng=rng)
@@ -608,28 +611,36 @@ def test_sample_goes_through_lockstep_fns_single(kind, rng, monkeypatch):
             [scipy.stats.maxwell(scale=0.3), scipy.stats.maxwell(scale=1.0)],
             d=3, **CPU)
         traj = bt.Trajectory.create(rng.normal(size=(14, 3)), dtype=F64)
-    seen = []
-    real = type(tm).lockstep_fns_single
+    seen, fns = [], []
+    real = type(tm).lockstep_fns_lane
 
     def spy(self, traj, max_intervals=None):
         seen.append(max_intervals)
-        return real(self, traj, max_intervals=max_intervals)
+        out = real(self, traj, max_intervals=max_intervals)
+        fns.append(out[1])
+        return out
 
     def forbidden(*a, **k):
         raise AssertionError("sample() must not call logL_batch")
 
-    monkeypatch.setattr(type(tm), "lockstep_fns_single", spy)
-    single = real(tm, traj, max_intervals=4)
+    monkeypatch.setattr(type(tm), "lockstep_fns_lane", spy)
+    single = tm.lockstep_fns_single(traj, max_intervals=4)
+    lane = real(tm, traj, max_intervals=4)
     profiles = rng.integers(0, 2, size=(5, 14))
     profiles[:, 6:] = profiles[:, 6:7]            # at most 4 intervals each
     profiles[:, 1:5] = profiles[:, 1:2]
     want = tm.logL_batch(profiles, traj).numpy()
     np.testing.assert_allclose(single[1](profiles, single[0]).numpy(), want,
                                rtol=1e-12)
+    np.testing.assert_allclose(
+        lane[1](torch.as_tensor(profiles)[None], lane[0])[0].numpy(), want,
+        rtol=1e-12)
     monkeypatch.setattr(type(tm), "logL_batch", forbidden)
     seen.clear()
+    fns.clear()
     res = bt.sample(traj, tm, k_max=2, init_runs=2,
                     sampler_kw={"N": 8, "max_fev": 64, "max_fcomplete": 20},
                     generator=gen(0))
-    assert seen == [k + 1 for k in range(len(res.samplers))]
+    assert seen == [3] * len(res.samplers)
+    assert all(fn is fns[0] for fn in fns)
     assert np.isfinite(res.evidence).all()

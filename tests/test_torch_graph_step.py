@@ -477,6 +477,17 @@ def test_counter_registry_names_every_kernel():
     assert counters.COUNTERS["plain_torch"] == (kalman.msrouse_logL_batch, "calls")
     for name, entry in bench_torch.counters().items():
         assert counters.COUNTERS[name] == entry, name
+    # the benchmark script and the smoke script read the whole registry:
+    # no list of their own that could miss a kernel
+    assert dict(bench_torch.counters()) == counters.COUNTERS
+    assert set(counters.COUNTERS) >= {"gamma_accept", "plain_gamma",
+                                      "cfc_solve", "plain_cfc"}
+    import chip_smoke
+    assert chip_smoke.counters is counters
+    assert "**counters.read()" in chip_smoke.CLI_RUNNER
+    with open(chip_smoke.__file__) as fh:
+        src = fh.read()
+    assert "read_counts" not in src and "reset_counts" not in src
 
 
 def test_eager_attribute_and_cpu():
