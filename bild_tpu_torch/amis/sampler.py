@@ -462,7 +462,8 @@ class FixedkSampler:
     gamma rounds and the CFC solve as kernels and no host read. A model
     with ``lockstep_fns`` (every built-in) is scored through
     ``lockstep_fns_lane`` (for a GGM with the padded slot count as its
-    interval bound); any other model runs the same step eagerly and needs
+    interval bound); any other model runs the same step eagerly, with
+    PyTorch's own reductions in place of the lane-exact ones, and needs
     only ``nStates``, ``transitions`` and
     ``logL_batch(profiles, traj)``, which receives an int tensor ``(P, T)``
     on the trajectory's device and may return anything `torch.as_tensor`
@@ -571,13 +572,10 @@ class FixedkSampler:
         self._flag = torch.zeros((), dtype=torch.bool, device=self.device)
         self._mom_trace = torch.ones((1, self.S), dtype=torch.bool,
                                      device=self.device)
-        from ..parallel.batch import device_constants
-
-        # the step's per-sampler constants: inputs of the shared graph, not
-        # part of its key
-        self._consts = device_constants(self._lane, self.logprior,
-                                        self.N * self.brakes[0],
-                                        self.N * self.brakes[1])
+        # the log-prior differs per k: an input of the graph that every
+        # sampler shares, not part of its key
+        self._logprior = torch.full((1,), self.logprior, dtype=self.dtype,
+                                    device=self.device)
 
         self._fused = hasattr(model, "lockstep_fns")
         if self._fused:
@@ -719,7 +717,8 @@ class FixedkSampler:
         outputs (the evidences, the convergence trace, the step count and
         the gamma sampler's exhaustion flag); returns the number actually
         run. On CUDA each step replays the model's step graph; a model
-        without ``lockstep_fns`` runs the same step eagerly."""
+        without ``lockstep_fns`` runs the same step eagerly (``exact``
+        false)."""
         if self.exhausted or n <= 0:
             return 0
         n_run = min(int(n), self.S - self._steps_host)
@@ -731,13 +730,15 @@ class FixedkSampler:
 
         mutable = self._lane.tensors() + [self._flag, self._mom_trace]
         args = (self._logL_fn, self._lane_data, self._rng.keys,
-                self._transitions, self._lane_active, *self._consts, self.N,
+                self._transitions, self._lane_active, self._logprior,
+                self.N * self.brakes[0], self.N * self.brakes[1], self.N,
                 self.T, 1000, self._lane_informed)
         if self._fused:
             run_steps("sampler", _sampler_step, mutable, args, n_run)
         else:
+            # eager and alone: PyTorch's own reductions
             for _ in range(n_run):
-                _sampler_step(mutable, (), *args)
+                _sampler_step(mutable, (), *args, False)
 
         start, stop = self._steps_host, self._steps_host + n_run
         lane = self._lane

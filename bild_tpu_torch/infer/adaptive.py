@@ -47,7 +47,7 @@ from ..amis.sampler import AmisState, _marginal_posterior, draw_seed
 from ..lanes import LaneRNG, normal
 from ..parallel.batch import (BatchResults, TrajectoryBatch, _informed_proposals_all_k,
                               _Lanes, _per_k_params, _prepare_batch, lane_step,
-                              device_constants, run_lanes, run_steps)
+                              run_lanes, run_steps)
 from ..profiles import st2profile
 
 __all__ = ["sample_batch_adaptive", "decide_batch", "run_slots"]
@@ -215,7 +215,6 @@ def run_slots(logL_fn, lane_data, state: AmisState, rng: LaneRNG,
     if flag is None:
         flag = torch.zeros((), dtype=torch.bool, device=state.ss.device)
     mutable = state.tensors() + [flag]
-    cb, pb = device_constants(state, cb, pb)
     run_steps("slots", slot_step, mutable,
               (logL_fn, tuple(lane_data), rng.keys, transitions, active,
                logprior, cb, pb, N, T, mom_maxiter, informed, live),

@@ -198,8 +198,8 @@ class MultiStateRouse(MultiStateModel):
         ``(P,)`` log-likelihoods for a ``(P, T)`` profile batch. States must
         lie in ``[0, nStates)``; out-of-range states give NaN.
         """
-        _, fn = self.lockstep_fns_single(traj)
-        return fn(profiles, (traj.data, traj.valid))
+        lane_data, fn = self.lockstep_fns_single(traj)
+        return fn(profiles, lane_data)
 
     def logL_batch_assoc(self, profiles, traj, mesh=None, time_axis="time"):
         """
@@ -228,35 +228,19 @@ class MultiStateRouse(MultiStateModel):
             traj.valid.to(self.device), mesh=mesh, time_axis=time_axis)
 
     def lockstep_fns_single(self, traj, max_intervals=None):
-        """``(per_traj, logL_fn)`` for the AMIS loop: ``logL_fn(profiles,
-        per_traj)`` with ``per_traj = (data, valid)``. The noise tensors are
-        made once per noise configuration, kernel selection and matmul
-        tier (the ``'single'`` context). The recursion visits every frame:
-        ``max_intervals`` changes nothing."""
-        tier = resolve_matmul("single")
-        key = (tuple(self._get_noise(traj).tolist()), rouse_kernel(), tier)
-        if key not in self._single_fns:
-            # bounded: per-trajectory noise would otherwise add one entry
-            # per distinct value
-            while len(self._single_fns) >= 16:
-                self._single_fns.pop(next(iter(self._single_fns)))
-            s2, Cind = self._noise_arrays(traj)
-            kern = self._kernel(tier)
-            args = (self.Bs, self.Gs, self.Sigs, self.M0s, self.C0s, self.w,
-                    s2, Cind)
-
-            def logL_fn(profiles, per_traj):
-                ydata, valid = per_traj
-                profiles = torch.as_tensor(profiles, dtype=torch.int32,
-                                           device=self.device).contiguous()
-                return kern(*args, profiles, ydata, valid)
-
-            self._single_fns[key] = logL_fn
-        return (traj.data, traj.valid), self._single_fns[key]
+        """`MultiStateModel.lockstep_fns_single`: `lockstep_fns_lane`'s
+        closure, its lane axis added and removed around each call, with
+        ``per_traj`` its ``lane_data``; one wrapper per lane closure, so
+        the same while the kernel selection and matmul tier hold."""
+        lane_data, lane_fn = self.lockstep_fns_lane(traj)
+        if lane_fn not in self._single_fns:
+            self._single_fns[lane_fn] = lambda profiles, per_lane: lane_fn(
+                torch.as_tensor(profiles)[None], per_lane)[0]
+        return lane_data, self._single_fns[lane_fn]
 
     def lockstep_fns_lane(self, traj, max_intervals=None):
         """`MultiStateModel.lockstep_fns_lane`: the likelihood of the
-        ``'single'`` context (`sample()`'s tier, as `lockstep_fns_single`),
+        ``'single'`` context (`sample()`'s and `logL_batch`'s tier),
         with the trajectory's own noise (`_noise_arrays`) travelling beside
         it, ``lane_data = (data (1, T, d), valid (1, T), s2 (1, q), Cind
         (1, d))``. One closure per kernel selection and matmul tier, the

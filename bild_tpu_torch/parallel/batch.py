@@ -236,7 +236,8 @@ class BatchResults:
 
 
 def lane_step(mutable, scratch, logL_fn, lane_data, keys, transitions,
-              active, logprior, cb, pb, N, T, mom_maxiter, informed):
+              active, logprior, cb, pb, N, T, mom_maxiter, informed,
+              exact=True):
     """
     One AMIS step of every lane, in place on ``mutable`` (`AmisState.tensors`
     with per-lane step counts, then the gamma sampler's exhaustion flag):
@@ -245,17 +246,19 @@ def lane_step(mutable, scratch, logL_fn, lane_data, keys, transitions,
     lane_data)`` and one ensemble update written back into the same
     tensors; ``informed = (a (L, K), logp (L, n, K), use (L,))`` becomes the
     second mixture component of a lane in ``use`` after its first step.
-    Lane-exact reductions and no host read: the step `run_lanes` runs
-    eagerly and replays as a CUDA graph (``scratch`` unused).
+    No host read: the step `run_lanes` runs eagerly and replays as a CUDA
+    graph (``scratch`` unused). ``exact``: lane-exact reductions
+    (`lanes.lane_sum`), which a lane needs beside others; a lone sampler
+    that never shares its step may use PyTorch's own.
     """
     state = AmisState(*mutable[:-1])
     rng = LaneRNG(keys, mutable[-1])
     ss, th, profiles = amis_propose(state, rng.fold(state.n_steps), transitions,
-                                    N=N, T=T, active=active, exact=True)
+                                    N=N, T=T, active=active, exact=exact)
     logLs = logL_fn(profiles, lane_data).to(state.logLs.dtype)
     new, _ = amis_update(dataclasses.replace(state), ss, th, logLs,
                          transitions, logprior, cb, pb, maxiter=mom_maxiter,
-                         active=active, exact=True)
+                         active=active, exact=exact)
     state.assign(new)
     if informed is not None:
         a_inf, logp_inf, use = informed
@@ -264,14 +267,6 @@ def lane_step(mutable, scratch, logL_fn, lane_data, keys, transitions,
                                            state.a_params[:, 1])
         state.logps[:, 1] = torch.where(seed[:, None, None], logp_inf,
                                         state.logps[:, 1])
-
-
-def device_constants(state: AmisState, *values):
-    """``values`` (floats) as 0-d tensors in ``state``'s dtype, on its
-    device: a step's constants travel among a graph's inputs (one graph
-    for every value) and compute as the floats would."""
-    return tuple(torch.as_tensor(v, dtype=state.ss.dtype, device=state.ss.device)
-                 for v in values)
 
 
 def run_steps(kind, step, mutable, args, steps, scratch=()) -> None:
@@ -320,7 +315,6 @@ def run_lanes(logL_fn, lane_data, state: AmisState, rng: LaneRNG,
     if flag is None:
         flag = torch.zeros((), dtype=torch.bool, device=device)
     steps = max(stop - start, 0)
-    cb, pb = device_constants(state, cb, pb)
     run_steps("lanes", lane_step, state.tensors() + [flag],
               (logL_fn, tuple(lane_data), rng.keys, transitions, active,
                logprior, cb, pb, N, T, mom_maxiter,

@@ -23,8 +23,8 @@ counters (`ops.counters`), so they read as after the eager loop.
 
 Graphs are cached per step shape (every tensor's shape, type and device),
 the runner's constants and the model's likelihood closure, at most
-`_GRAPHS_MAX` (a step's per-k numbers, the log-prior, the brakes and the
-slot mask, are tensors among its inputs and not constants, so that every
+`_GRAPHS_MAX` (a sampler's per-k numbers, the log-prior and the slot
+mask, are tensors among its inputs and not constants, so that every
 sampler of one `sample()` replays one graph); building a graph for another closure (another model,
 kernel or tier) frees the others first, and `clear` frees all. A graph
 holds its own copies of the state and inputs (copied in before its
@@ -155,8 +155,9 @@ def replay(kind, owner, step, mutable, args, n, scratch=()) -> None:
     other values (part of the cache key, with ``kind`` and ``owner``, the
     model's likelihood closure); ``scratch``: tensors whose shapes the step
     uses as work buffers. The caller has run the step eagerly at least once
-    on these shapes. Counts captures in ``replay.captures`` and replayed
-    steps in ``replay.replays``.
+    on these shapes. Counts captures in ``replay.captures``, replayed
+    steps in ``replay.replays`` and the tensor copies into and out of the
+    graph's buffers in ``replay.copies``.
     """
     tensors, shape, key = _key(kind, owner, mutable, args, scratch)
     graph = _GRAPHS.pop(key, None)
@@ -170,10 +171,12 @@ def replay(kind, owner, step, mutable, args, n, scratch=()) -> None:
     _GRAPHS[key] = graph                 # most recently used last
     graph.run(mutable, tensors, n)
     replay.replays += n
+    replay.copies += len(graph.inputs) + 2 * len(graph.mutable)
 
 
 replay.captures = 0
 replay.replays = 0
+replay.copies = 0
 
 
 def clear() -> None:

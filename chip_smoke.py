@@ -155,7 +155,9 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    the averaged marginals); every accuracy bar; the graphed runs launch
    the selected kernel and the CFC and gamma kernels through replays, and
    no plain version; a `sample()` captures one graph, a second none; a
-   sampler step that reads the host fails to capture and raises.
+   sampler step that reads the host fails to capture and raises. Then the
+   copies into and out of the README `sample()`'s graph per `steps(n)`
+   call (`copy_cost`): tensors, bytes, host and device microseconds.
 8c. Config 5p phase (bench_e2e.py config5(postproc=True)): 10 chunks of
    1,024 trajectories (T=100, data made on the card per chunk) through
    `sample_batch(k_max=4, ..., marginals)`, the boundary climb and the
@@ -2134,14 +2136,11 @@ def graph_profile(run):
 
 def same_bits(a, b, fields):
     """Whether results ``a`` and ``b`` hold the same bits in ``fields``
-    (arrays, or lists of arrays per trajectory), or by ``fields(a, b)``
-    where it is a function (`same_sample`)."""
+    (arrays, or lists of arrays per trajectory)."""
     def eq(x, y):
         if isinstance(x, list):
             return len(x) == len(y) and all(eq(u, v) for u, v in zip(x, y))
         return np.array_equal(x, y, equal_nan=np.asarray(x).dtype.kind == "f")
-    if callable(fields):
-        return fields(a, b)
     return all(eq(getattr(a, f), getattr(b, f)) for f in fields)
 
 
@@ -2200,8 +2199,9 @@ def ggm_sample_case(bt):
 
 
 def graph_cases(bt):
-    """The runs of the graph phase: ``(label, selector, run, fields to
-    compare, score(result) -> (frame, switch-count accuracy), bars)``."""
+    """The runs of the graph phase: ``(label, selector, run, same(a, b) ->
+    whether two results hold the same bits, score(result) -> (frame,
+    switch-count accuracy), bars)``."""
     from bild_tpu_torch.parallel import sample_batch, sample_dataset
 
     m3 = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM, localization_error=0.1,
@@ -2228,8 +2228,11 @@ def graph_cases(bt):
         return lambda r: (float(np.mean(r.best_profile() == truths)),
                           float(np.mean(r.best_k() == true_k)))
 
+    def fields(*names):
+        return lambda a, b: same_bits(a, b, names)
+
     ds = ("evidence", "evidence_se", "profiles_by_k", "mom_ok")
-    sb = ("evidence", "evidence_se", "map_profiles", "mom_ok")
+    sb = fields("evidence", "evidence_se", "map_profiles", "mom_ok")
     bars3 = (DATASET_FRAME_ACCURACY, DATASET_SWITCH_ACCURACY)
     cases = []
     for sel in ("sym", "dense"):
@@ -2237,12 +2240,12 @@ def graph_cases(bt):
             "config 3 lockstep", sel,
             lambda: sample_dataset(m3, trajs3, **lock,
                                    generator=torch.Generator().manual_seed(7)),
-            ds + ("marginals", "optimized"), score_list(truths3, k3), bars3))
+            fields(*ds, "marginals", "optimized"), score_list(truths3, k3), bars3))
         cases.append((
             "config 3 adaptive", sel,
             lambda: sample_dataset(m3, trajs3, **adap,
                                    generator=torch.Generator().manual_seed(7)),
-            ds + ("evals",), score_list(truths3, k3), bars3))
+            fields(*ds, "evals"), score_list(truths3, k3), bars3))
     for sel in ("sym", "dense"):
         cases.append((
             "config 4", sel,
@@ -2305,7 +2308,7 @@ def graph_phase(bt):
 
     t_phase = time.perf_counter()
     launches, runs = {"cfc_solve": 0, "gamma_accept": 0}, {}
-    for label, sel, run, fields, score, bars in graph_cases(bt):
+    for label, sel, run, same_run, score, bars in graph_cases(bt):
         bt.config.set_rouse_kernel(sel)
         got = {}
         for mode in ("eager", "graphed"):
@@ -2325,7 +2328,7 @@ def graph_phase(bt):
                 torch.cuda.reset_peak_memory_stats()
                 counters.reset()
                 run_steps.steps = 0
-                reps = graphs.replay.replays
+                reps, copies = graphs.replay.replays, graphs.replay.copies
                 caps_again = graphs.replay.captures
                 exhausted = standard_gamma.exhausted
                 t0 = time.perf_counter()
@@ -2336,6 +2339,8 @@ def graph_phase(bt):
                 info = {
                     "wall_s": wall, "steps": run_steps.steps,
                     "replays": graphs.replay.replays - reps,
+                    "copies_per_step": ((graphs.replay.copies - copies)
+                                        / max(run_steps.steps, 1)),
                     "captures_again": graphs.replay.captures - caps_again,
                     "gamma_exhausted": standard_gamma.exhausted - exhausted,
                     "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -2357,7 +2362,7 @@ def graph_phase(bt):
         res, first, traced, _ = got["graphed"]
         eager = got["eager"][0]
         acc, sw = score(res)
-        same = same_bits(res, eager, fields)
+        same = same_run(res, eager)
         e, g = got["eager"][3], got["graphed"][3]
         key = f"{label} {sel}"
         runs[key] = {"eager": e, "graphed": g, "frame_accuracy": acc,
@@ -2375,7 +2380,9 @@ def graph_phase(bt):
               f"wall {g['wall_s']:.3f} s (the capturing run {g['first_wall_s']:.3f} "
               f"s, {g['captures']} captures), {busy(g)}, "
               f"{g['launch_calls_per_step']:.1f} host launch calls per step "
-              f"({g['steps']} steps, {g['replays']} replayed), peak "
+              f"({g['steps']} steps, {g['replays']} replayed; "
+              f"{g['copies_per_step']:.1f} tensors copied into and out of the "
+              f"graph's buffers per step, among those calls), peak "
               f"{g['peak_allocated_gib']:.2f} / {g['peak_reserved_gib']:.2f} GiB; "
               f"gamma exhausted {e['gamma_exhausted'] + g['gamma_exhausted']}; "
               f"launches and plain calls {g['launches']}; device us per "
@@ -2385,8 +2392,8 @@ def graph_phase(bt):
               f"accuracy {acc:.4f}, switch-count accuracy {sw:.4f}; graphed "
               f"equals eager bit for bit: {same}", flush=True)
         check(same, f"graph {key}: graphed equals eager bit for bit")
-        check(same_bits(first, res, fields) and same_bits(traced, res, fields)
-              and same_bits(got["eager"][2], eager, fields),
+        check(same_run(first, res) and same_run(traced, res)
+              and same_run(got["eager"][2], eager),
               f"graph {key}: every run from the same seed gives the same bits")
         check(acc >= bars[0] and sw >= bars[1],
               f"graph {key}: accuracy {acc:.4f} / {sw:.4f} >= {bars}")
@@ -2404,17 +2411,64 @@ def graph_phase(bt):
         if "adaptive" in label:
             check(float(np.mean(res.evals)) < LOCKSTEP_EVALS,
                   f"graph {key}: fewer evaluations than the lockstep schedule")
-        if fields is same_sample:
+        if label.endswith("sample()"):
             check(g["captures"] == 1 and g["captures_again"] == 0,
                   f"graph {key}: one sample() captures one graph, a second "
                   f"none ({g['captures']}, {g['captures_again']})")
         launches["cfc_solve"] += g["launches"]["cfc_solve"]
         launches["gamma_accept"] += g["launches"]["gamma_accept"]
+    cost = copy_cost(bt)
+    runs["README sample() copies"] = cost
+    print(f"graph copies: the README sample()'s step graph ('sym'), per "
+          f"steps(n) call: {cost['copies']} tensors ({cost['bytes']} bytes) "
+          f"copied in and out, {cost['host_us']:.1f} us on the host to issue "
+          f"them, {cost['wall_us']:.1f} us with the device, "
+          f"{cost['device_us']:.1f} us of device time, "
+          f"{cost['traced_calls']:.1f} host launch calls in their trace",
+          flush=True)
     bt.config.set_rouse_kernel("sym")
     check(capture_refuses_host_reads(bt),
           "graph: a sampler step that reads the host fails to capture and raises")
     print(f"graph phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"launches": launches, "runs": runs}
+
+
+def copy_cost(bt, reps=100):
+    """The copies into and out of the buffers of the README `sample()`'s
+    step graph ('sym') that `parallel.graphs` makes on every `steps(n)`
+    call of a sampler, per call: the tensors and bytes copied, the host's
+    microseconds to issue them, the wall with the device's, the device's
+    microseconds and the host launch calls a trace of them counts
+    (`graph_profile`). Timed as ``run(..., 0)`` of the cached graph: the
+    copies of a call without its replay."""
+    from bild_tpu_torch.parallel import graphs
+
+    model, _, traj = readme_case(bt)
+    bt.config.set_rouse_kernel("sym")
+    graphs.clear()
+    bt.sample(traj, model, generator=torch.Generator(device=DEVICE).manual_seed(7))
+    (graph,) = graphs._GRAPHS.values()
+    mutable = [t.clone() for t in graph.mutable]
+    inputs = [t.clone() for t in graph.inputs]
+
+    def copies():
+        for _ in range(reps):
+            graph.run(mutable, inputs, 0)
+
+    copies()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    copies()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dev_ms, _, calls, _, _ = graph_profile(copies)
+    graphs.clear()
+    tensors = [*graph.inputs, *graph.mutable, *graph.mutable]
+    return {"copies": len(tensors),
+            "bytes": sum(t.numel() * t.element_size() for t in tensors),
+            "host_us": host / reps * 1e6, "wall_us": wall / reps * 1e6,
+            "device_us": dev_ms * 1e3 / reps, "traced_calls": calls / reps}
 
 
 def capture_refuses_host_reads(bt):
@@ -3689,8 +3743,9 @@ def slice_phase(bt):
     of the second (which must capture none and give the same bits), that
     wall split into steps, sampler construction and the choice loop
     (`sample_time_split`), the captures and replays, and, from a traced
-    third call, the busy share, the host launch calls per AMIS step and
-    each hand kernel's launches and device time. Returns ``(counts summed
+    third call, the busy share, the host launch calls per AMIS step (the
+    graph's copies among them) and each hand kernel's launches and device
+    time. Returns ``(counts summed
     over both selectors, {selector: readings})``."""
     from bild_tpu_torch.parallel import graphs
 
@@ -3719,7 +3774,9 @@ def slice_phase(bt):
         caps2 = graphs.replay.captures
         again, again_wall, split = sample_time_split(run)
         caps2 = graphs.replay.captures - caps2
+        copies = graphs.replay.copies
         dev_ms, traced_wall, calls, _, kern = graph_profile(run)
+        copies = graphs.replay.copies - copies
         best = np.asarray(res.best_profile()[:])
         acc = float(np.mean(best == true))
         post = res.log_marginal_posterior(dE="average")
@@ -3735,6 +3792,7 @@ def slice_phase(bt):
             "device_ms": dev_ms, "traced_wall_s": traced_wall,
             "busy_share": dev_ms / 1e3 / traced_wall,
             "launch_calls_per_step": calls / max(steps, 1),
+            "copies_per_step": copies / max(steps, 1),
             "kernels": per_kernel, "launches": ran, "frame_accuracy": acc}
         print(f"slice selector={selector}: wall {wall:.3f} s (captures "
               f"{caps}, replays {reps}); again {again_wall:.3f} s (captures "
@@ -3742,7 +3800,8 @@ def slice_phase(bt):
               f"{split['samplers']:.3f} s, choice loop {split['choice']:.3f} s); "
               f"traced: busy {dev_ms / 1e3 / traced_wall:.4f} ({dev_ms:.1f} ms "
               f"of {traced_wall:.3f} s), {calls / max(steps, 1):.1f} host launch "
-              f"calls per AMIS step; kernels "
+              f"calls per AMIS step (of them {copies / max(steps, 1):.1f} copies "
+              f"into and out of the graph's buffers); kernels "
               + ", ".join(f"{k} {v['launches']} x {v['us_per_launch']:.1f} us"
                           for k, v in per_kernel.items())
               + f"; AMIS steps {steps}, logL evaluations {evals}, best_k "

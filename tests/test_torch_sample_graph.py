@@ -157,6 +157,14 @@ def test_sample_replays_one_graph(kind, monkeypatch):
     monkeypatch.setattr(graphs, "_capture", lambda fn: fn)
     try:
         c0, r0, s0 = graphs.replay.captures, graphs.replay.replays, run_steps.steps
+        k0, calls, real = graphs.replay.copies, [], FixedkSampler.steps
+
+        def counting(self, n):
+            ran = real(self, n)
+            calls.append(ran > 0)
+            return ran
+
+        monkeypatch.setattr(FixedkSampler, "steps", counting)
         graphed = sample_results(model, traj, 7)
         c1, r1 = graphs.replay.captures, graphs.replay.replays
         assert c1 - c0 == 1
@@ -164,6 +172,10 @@ def test_sample_replays_one_graph(kind, monkeypatch):
         assert run_steps.steps - s0 == amis_steps
         assert r1 - r0 == amis_steps - 1        # the first step ran eagerly
         assert len(graphs._GRAPHS) == 1
+        # every steps(n) call copies the inputs in and the state in and out
+        (graph,) = graphs._GRAPHS.values()
+        assert graphs.replay.copies - k0 == sum(calls) * (
+            len(graph.inputs) + 2 * len(graph.mutable))
         again = sample_results(model, other, 8)
         assert graphs.replay.captures == c1
         assert graphs.replay.replays - r1 == sum(s.n_steps_host
@@ -260,6 +272,55 @@ def test_user_model_steps_eagerly_on_the_stream(monkeypatch):
     assert sources and set(sources) == {LaneRNG}
     assert a.state.logLs.dtype == F64
     assert np.all(np.isfinite(np.array(a.evidences)[:, :2]))
+
+
+@pytest.mark.parametrize("kind", ["user", "rouse"])
+def test_only_a_lone_eager_step_drops_lane_exact_sums(kind, monkeypatch):
+    """The step of a model without ``lockstep_fns`` (eager, never shared
+    with another lane) asks `lane_step` for PyTorch's own reductions; a
+    built-in model's step, which the graph shares, for the lane-exact
+    ones."""
+    from bild_tpu_torch.parallel import batch
+
+    if kind == "user":
+        model = NumpyModel()
+        traj = bt.Trajectory.create(np.zeros((20, 1)), dtype=F64)
+    else:
+        model, traj = model_and_traj("rouse")
+    seen, real = [], batch.lane_step
+
+    def spy(*args):
+        seen.append(args[14] if len(args) > 14 else True)
+        return real(*args)
+
+    monkeypatch.setattr(batch, "lane_step", spy)
+    s = FixedkSampler(traj, model, k=2, N=16, max_fev=400, max_fcomplete=0,
+                      generator=gen(5))
+    assert s.steps(2) == 2
+    assert seen == [kind == "rouse"] * 2
+
+
+def test_rouse_single_is_the_lane_closure():
+    """`MultiStateRouse.logL_batch` goes through `lockstep_fns_single`, a
+    wrapper of the lane closure that the sampler's step calls: the same
+    bits as that closure on a lane of one, one wrapper for trajectories of
+    other noise (which travels in ``lane_data``)."""
+    _, noisy = model_and_traj("rouse")
+    model = bt.models.MultiStateRouse(6, 1.0, 5.0, d=3, **CPU)
+    traj, other = (bt.Trajectory(noisy.data, noisy.valid,
+                                 localization_error=np.full(3, err))
+                   for err in (0.1, 0.3))
+    profiles = np.random.default_rng(3).integers(0, 2, size=(5, len(traj)))
+    lane_data, lane_fn = model.lockstep_fns_lane(traj)
+    want = lane_fn(torch.as_tensor(profiles)[None], lane_data)[0]
+    assert torch.equal(model.logL_batch(profiles, traj), want)
+    per_traj, single = model.lockstep_fns_single(traj)
+    per_other, single_other = model.lockstep_fns_single(other)
+    assert single is single_other
+    assert torch.equal(single(profiles, per_traj), want)
+    assert not torch.equal(single(profiles, per_other), want)
+    assert torch.equal(single(profiles, per_other),
+                       model.logL_batch(profiles, other))
 
 
 def test_checkpoint_resumes_on_the_stream_key(tmp_path):
