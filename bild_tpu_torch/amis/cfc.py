@@ -46,6 +46,21 @@ __all__ = ["CFC", "SampleSpaceTooLarge", "cfc_sample", "cfc_logpmf",
 SOLVE_CHECK_EVERY = 4
 # the largest state count the kernel takes (csrc/cfc_solve.cu)
 SOLVE_MAX_STATES = 64
+# State counts up to `SOLVE_GROUP_STATES` have a kernel of their own in
+# which a group of threads (the power of two >= n) serves a row; larger
+# ones take one thread per row. Blocks of `SOLVE_THREADS` threads.
+SOLVE_GROUP_STATES = 8
+SOLVE_THREADS = 64
+
+
+def solve_plan(M: int, n: int):
+    """``(group, threads, blocks)`` of the CFC kernel for ``M`` rows of
+    ``n`` states: the threads serving one row (the power of two >= n up to
+    `SOLVE_GROUP_STATES` states, else 1; a warp holds 32 // group rows),
+    the threads of a block and the blocks covering ``M`` rows (the kernel
+    refuses a plan that is not its own)."""
+    group = 1 << (n - 1).bit_length() if n <= SOLVE_GROUP_STATES else 1
+    return group, SOLVE_THREADS, -(-M * group // SOLVE_THREADS)
 
 
 class SampleSpaceTooLarge(ValueError):
@@ -167,7 +182,8 @@ def solve_marginals(logf, logg, transitions, maxiter, precision, frozen=None,
                     exact=False):
     """
     `_solve_marginals` on the device of ``logf``: CUDA tensors launch the
-    fixed-point kernel (``csrc/cfc_solve.cu``, one thread per slot, on the
+    fixed-point kernel (``csrc/cfc_solve.cu``, a group of threads per slot
+    up to `SOLVE_GROUP_STATES` states, else one, `solve_plan`; on the
     current stream, no synchronization), CPU tensors run the plain loop.
     The kernel sums in the lane-exact order, so it computes what
     ``_solve_marginals(..., exact=True)`` computes, whatever ``exact`` says;
@@ -201,11 +217,12 @@ def solve_marginals(logf, logg, transitions, maxiter, precision, frozen=None,
     converged = torch.empty(lead, dtype=torch.bool, device=dev)
     if M > 0:
         sfx = "f32" if dtype == torch.float32 else "f64"
-        lib, fn = _build.entry("cfc_solve", f"bild_cfc_solve_{sfx}", 6, 4, 1)
+        lib, fn = _build.entry("cfc_solve", f"bild_cfc_solve_{sfx}", 6, 6, 1)
+        group, threads, _ = solve_plan(M, n)
         rc = fn(logf.data_ptr(), logg.data_ptr(), tr.data_ptr(),
                 None if frozen is None else frozen.data_ptr(), logp.data_ptr(),
-                converged.data_ptr(), M, n, int(maxiter), dev.index or 0,
-                float(precision),
+                converged.data_ptr(), M, n, int(maxiter), group, threads,
+                dev.index or 0, float(precision),
                 torch.cuda.current_stream(dev).cuda_stream)
         solve_marginals.launches += 1
         _build.check(lib, rc, "cfc_solve launch")

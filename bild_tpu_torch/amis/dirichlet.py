@@ -22,7 +22,7 @@ from ..ops import _build, counters
 
 __all__ = ["Dirichlet", "standard_gamma", "dirichlet_logpdf",
            "dirichlet_estimate", "dirichlet_sample_masked", "gamma_accept",
-           "check_exhausted", "GAMMA_MAX_ROUNDS"]
+           "check_exhausted", "gamma_plan", "GAMMA_MAX_ROUNDS"]
 
 # The most rounds an entry of the sampler on `LaneRNG` streams draws. A
 # round accepts with probability >= 0.95 for a >= 1 in float64, but in
@@ -31,6 +31,31 @@ __all__ = ["Dirichlet", "standard_gamma", "dirichlet_logpdf",
 # entry then needs tens of rounds. Short of a NaN shape, 1000 is never
 # reached.
 GAMMA_MAX_ROUNDS = 1000
+
+# The gamma kernel's grid (csrc/gamma_accept.cu, `gamma_plan`): a block of
+# `GAMMA_THREADS` threads serves one contiguous range of one lane's
+# entries, at most `GAMMA_MAX_SPAN` of them; a lane is cut into more ranges
+# where that brings the launch to `GAMMA_MIN_BLOCKS` blocks (two per SM of
+# the H100) without leaving a thread less than one entry. The block
+# computes its lane's stream words of the first `GAMMA_HOISTED_ROUNDS`
+# rounds once (the kernel's kHoisted). 128 threads measured faster than 64
+# or 256 at config 3's scout shape on the H100.
+GAMMA_THREADS = 128
+GAMMA_MAX_SPAN = 1024
+GAMMA_MIN_BLOCKS = 264
+GAMMA_HOISTED_ROUNDS = 8
+
+
+def gamma_plan(L: int, per_lane: int):
+    """``(blocks_per_lane, span, threads)`` of the gamma kernel for ``L``
+    lanes of ``per_lane`` entries: block ``b`` serves entries ``[k span,
+    min((k + 1) span, per_lane))`` of lane ``b // blocks_per_lane``, ``k =
+    b % blocks_per_lane``; no range is empty, and together they cover each
+    lane once (the kernel refuses a plan that does not)."""
+    blocks = max(-(-per_lane // GAMMA_MAX_SPAN),
+                 min(-(-per_lane // GAMMA_THREADS), -(-GAMMA_MIN_BLOCKS // L)))
+    span = -(-per_lane // blocks)
+    return -(-per_lane // span), span, GAMMA_THREADS
 
 
 def check_exhausted(flag) -> None:
@@ -89,9 +114,10 @@ def gamma_accept(d, c, generator: LaneRNG):
     """
     ``(L, ...)`` accepted Marsaglia-Tsang draws ``d v`` for shapes ``d = a
     - 1/3``, ``c = 1/sqrt(9d)`` from the lane streams ``generator``. CUDA
-    tensors launch ``csrc/gamma_accept.cu`` (one thread per entry, each
-    drawing until its first acceptance, on the current stream, no
-    synchronization), CPU tensors run `_gamma_accept`; both give an entry
+    tensors launch ``csrc/gamma_accept.cu`` (a block per range of a lane's
+    entries, `gamma_plan`; each entry drawing until its first acceptance,
+    on the current stream, no synchronization), CPU tensors run
+    `_gamma_accept`; both give an entry
     the draw of the first round that accepts it, and stop at
     `GAMMA_MAX_ROUNDS`. An entry left there sets ``generator.exhausted``,
     which the streams must carry and the caller reads after its steps
@@ -112,15 +138,19 @@ def gamma_accept(d, c, generator: LaneRNG):
             or c.device != d.device or keys.device != d.device:
         raise ValueError(f"d and c must match, with {L} lanes first, on "
                          f"{keys.device}")
+    per_lane = d.numel() // L if L else 0
+    if per_lane >= 2**31 - GAMMA_THREADS:
+        raise ValueError(f"the gamma kernel takes fewer than 2^31 - "
+                         f"{GAMMA_THREADS} entries per lane, not {per_lane}")
     d, c, keys = d.contiguous(), c.contiguous(), keys.contiguous()
     out = torch.empty_like(d)
-    per_lane = d.numel() // L if L else 0
     if d.numel() > 0:
         sfx = "f32" if d.dtype == torch.float32 else "f64"
-        lib, fn = _build.entry("gamma_accept", f"bild_gamma_accept_{sfx}", 5, 4)
+        lib, fn = _build.entry("gamma_accept", f"bild_gamma_accept_{sfx}", 5, 7)
         rc = fn(d.data_ptr(), c.data_ptr(), keys.data_ptr(), out.data_ptr(),
-                flag.data_ptr(), L, per_lane, GAMMA_MAX_ROUNDS,
-                d.device.index or 0, torch.cuda.current_stream(d.device).cuda_stream)
+                flag.data_ptr(), L, per_lane, *gamma_plan(L, per_lane),
+                GAMMA_MAX_ROUNDS, d.device.index or 0,
+                torch.cuda.current_stream(d.device).cuda_stream)
         gamma_accept.launches += 1
         _build.check(lib, rc, "gamma_accept launch")
     return out

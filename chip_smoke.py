@@ -2,7 +2,7 @@
 """
 Drive bild_tpu_torch on one NVIDIA GPU, end to end.
 
-    python3 chip_smoke.py          (from the repository root)
+    python3 chip_smoke.py [--parent DIR]     (from the repository root)
 
 1. Builds the CUDA kernels of ``bild_tpu_torch/csrc/`` (into
    ``bild_tpu_torch/_build/``), one nvcc per source, and the split
@@ -105,16 +105,22 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    path gives them (config 3's lockstep `sample_batch` and each run of the
    graph phase under 'sym', config 4's three states and the README and GGM
    `sample()` among them, run eagerly so that each step's calls are
-   recorded): csrc/cfc_solve.cu (the
-   CFC proposal's fixed-point solve, one thread per slot; bild_tpu's
-   `lax.while_loop`)
-   against the plain solve, float32 within 4 ulp, the inputs in float64
-   within 1e-12 relative, converged flags and non-finite entries equal;
-   csrc/gamma_accept.cu (the gamma sampler's rejection rounds, one thread
-   per entry; jax.random.gamma's loop) against its plain rounds within 4
-   ulp, no entry exhausted; each timed (CUDA events) at config 3's scout
-   call that iterates most, beside the bound of the iterations or rounds
-   it takes, the gamma kernel also beside `torch._standard_gamma` there.
+   recorded): csrc/cfc_solve.cu (the CFC proposal's fixed-point solve, a
+   group of threads per slot; bild_tpu's `lax.while_loop`) against the
+   plain solve, float32 within 4 ulp, the inputs in float64 within 1e-12
+   relative, converged flags and non-finite entries equal;
+   csrc/gamma_accept.cu (the gamma sampler's rejection rounds, a block per
+   range of a lane's entries; jax.random.gamma's loop) against its plain
+   rounds within 4 ulp, no entry exhausted, also on float32 shapes
+   1e5-1e10 (tens of rounds). Each timed by its device time (launches
+   replayed in one CUDA graph) at config 3's scout call, `sample()`'s and
+   config 4's three-state call (CFC) or the degenerate case (gamma), beside
+   the bound of the iterations or rounds it takes, the gamma kernel also
+   beside `torch._standard_gamma`'s device time there; with a checkout of
+   the parent commit at _chip/parent (or ``--parent DIR``), the parent's
+   two kernels on the same inputs, in turns. `nvcc -Xptxas -v` of both
+   sources is printed; the CFC kernel's group instantiations must use no
+   stack frame.
 7. Dataset phase (bench_e2e.py config 3): 128 trajectories of T=100 made by
    the port's batched generator, `parallel.sample_dataset` with informed
    init, the scout/refine schedule, marginals, the boundary climb and chunk
@@ -245,6 +251,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1863,15 +1870,57 @@ def ulp_err(got, want):
 
 
 GAMMA_ULP = 4
+# 32-bit integer instructions of one SplitMix64 finalizer (`mix64`) on the
+# card: two 64-bit products (three 32-bit multiply-adds each), three
+# 64-bit shifts and three 64-bit xors (two 32-bit instructions each)
+MIX64_INT_OPS = 18
+# The H100's 32-bit integer rate: 64 integer lanes per SM beside 128
+# float32 lanes (NVIDIA's Hopper white paper), and bench_torch.py's float32
+# peak counts an FMA as two operations: a quarter of that peak
+PEAK_INT_OPS = bench_torch.PEAK_FLOPS_F32 / 4
+# the float32 gamma case a degenerate proposal gives (`step_kernel_phase`):
+# shapes 10^U(5, 10) at config 3's scout shape, where the Marsaglia-Tsang
+# test cancels and an entry needs up to tens of rounds
+DEGENERATE_SHAPES = (5.0, 10.0)
+# device time (`device_ms`): launches captured in one CUDA graph, and its
+# replays timed
+GRAPH_LAUNCHES, GRAPH_REPLAYS = 20, 10
 
 
 def gamma_ops(rounds):
-    """Floating-point operations of ``rounds`` rounds of the gamma kernel
-    (the integer hashing of the streams not counted): three uniforms (an
-    addition and a product each), the normal (two products, a log, a sqrt,
-    a cos, a product), v (a product, an addition, two products), log v, the
-    test (a log and seven operations) and the accepted value."""
+    """Floating-point operations of ``rounds`` rounds of the gamma kernel:
+    three uniforms (an addition and a product each), the normal (two
+    products, a log, a sqrt, a cos, a product), v (a product, an addition,
+    two products), log v, the test (a log and seven operations) and the
+    accepted value."""
     return 26 * rounds
+
+
+def gamma_int_ops(entries, rounds, lane_rounds):
+    """32-bit integer instructions of the streams' hashing that ``rounds``
+    entry-rounds over ``entries`` entries and ``lane_rounds`` lane-rounds
+    need: per entry-round three element hashes (a `mix64` and a 64-bit
+    addition each), per entry its element offset (a 64-bit product), per
+    lane and round its three stream words (four folds of two `mix64`, a
+    64-bit addition and a xor each)."""
+    return (rounds * 3 * (MIX64_INT_OPS + 2) + entries * 3
+            + lane_rounds * 4 * (2 * MIX64_INT_OPS + 4))
+
+
+def gamma_bound_ms(d, keys, rounds, lane_rounds):
+    """``(ms, what bounds it, (float ms, integer ms, bytes ms))``: the least
+    time of these inputs' rounds on the card, the larger of their float
+    operations (`gamma_ops`) at the float32 peak, their integer hashing
+    (`gamma_int_ops`) at `PEAK_INT_OPS`, and the bytes (d, c, the result,
+    the keys, each once) at the HBM rate."""
+    t_float = gamma_ops(rounds) / bench_torch.PEAK_FLOPS_F32 * 1e3
+    t_int = (gamma_int_ops(d.numel(), rounds, lane_rounds) / PEAK_INT_OPS
+             * 1e3)
+    t_bytes = ((3 * d.numel() * d.element_size() + 8 * keys.numel())
+               / bench_torch.PEAK_BYTES * 1e3)
+    ms = max(t_float, t_int, t_bytes)
+    return ms, ("bytes" if ms == t_bytes else "operations"), (t_float, t_int,
+                                                             t_bytes)
 
 
 def cfc_iterations(solve, logf, logg, tr, maxiter, precision, frozen):
@@ -1892,48 +1941,231 @@ def cfc_iterations(solve, logf, logg, tr, maxiter, precision, frozen):
 
 
 def gamma_rounds(d, c, keys):
-    """``(rounds summed over entries, most of one entry)`` that the gamma
-    sampler draws on these inputs: every entry draws round 1, and one more
-    for every cut m >= 1 of the plain loop (``max_rounds=m``) at which it
-    is still unaccepted (its draw still 0)."""
+    """``(entry-rounds, most rounds of one entry, lane-rounds)`` that the
+    gamma sampler draws on these inputs: every entry draws round 1, and one
+    more for every cut m >= 1 of the plain loop (``max_rounds=m``) at which
+    it is still unaccepted (its draw still 0); a lane draws as many rounds
+    as its last entry."""
     from bild_tpu_torch.amis import dirichlet
     from bild_tpu_torch.lanes import LaneRNG
 
-    total, m = d.numel(), 1
+    total, lanes, m = d.numel(), keys.numel(), 1
     while True:
         flag = torch.zeros((), dtype=torch.bool, device=d.device)
         out = dirichlet._gamma_accept(d, c, LaneRNG(keys, flag), max_rounds=m)
         if not bool(flag):
-            return total, m
-        total += int((out == 0).sum())
+            return total, m, lanes
+        left = (out == 0).reshape(keys.numel(), -1)
+        total += int(left.sum())
+        lanes += int(left.any(dim=1).sum())
         m += 1
 
 
-def step_kernel_phase(bt):
-    """The step's two kernels of PR 12 against their plain versions on
-    every input the main path gives them, recorded by wrapping
-    `cfc.solve_marginals` and `dirichlet.gamma_accept` during eager runs:
-    config 3's lockstep `sample_batch(k_max=4, steps_per_k=12, N=128,
-    informed_init, scout_steps=4, refine_top=3)` over 128 trajectories
-    (scout L=640, refine L=384), and every run of the graph phase under
-    'sym' (`graph_cases`: config 3's lockstep and adaptive
-    `sample_dataset`, config 4 with three states, the README `sample()`
-    (one lane, 100 x 21 gamma entries), the `ggm_model` example's
-    `sample()`, GGM configs 6 and 7).
+def card():
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+def device_ms(fn):
+    """Device milliseconds of one call of ``fn``: `GRAPH_LAUNCHES` calls
+    captured in one CUDA graph (no host work left between its kernels),
+    the graph replayed `GRAPH_REPLAYS` times between two CUDA events after
+    one warm replay, over the launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_LAUNCHES):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / (GRAPH_REPLAYS * GRAPH_LAUNCHES)
+    del graph
+    return ms
+
+
+# The parent commit's step kernels, timed beside this checkout's when a
+# checkout of the parent lies at `PARENT_TREE` (a `git archive` unpacked
+# under the git-ignored _chip/) or at ``--parent DIR``: its
+# csrc/cfc_solve.cu and csrc/gamma_accept.cu (a thread per slot, a thread
+# per entry) with their C entry points, (pointers, ints, doubles).
+PARENT_TREE = Path(__file__).resolve().parent / "_chip" / "parent"
+PARENT_ENTRIES = {"cfc_solve": ("bild_cfc_solve", 6, 4, 1),
+                  "gamma_accept": ("bild_gamma_accept", 5, 4, 0)}
+
+
+def build_parent(tree, name):
+    """``tree``'s bild_tpu_torch/csrc/<name>.cu built with this checkout's
+    nvcc flags into _build/parent-<name>.so, loaded."""
+    import ctypes
+
+    from bild_tpu_torch.ops import _build
+
+    src = Path(tree) / "bild_tpu_torch" / "csrc" / f"{name}.cu"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _build.BUILD_DIR / f"parent-{name}.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                           str(src.parent), "-o", str(out), str(src)],
+                          capture_output=True, text=True)
+    check(proc.returncode == 0, f"the parent's {name} builds: {proc.stderr}")
+    return ctypes.CDLL(str(out))
+
+
+def parent_entry(lib, name, dtype):
+    """The parent's C entry point of ``name`` for ``dtype``, typed."""
+    import ctypes
+
+    symbol, n_ptr, n_int, n_double = PARENT_ENTRIES[name]
+    fn = getattr(lib, f"{symbol}_{'f32' if dtype == torch.float32 else 'f64'}")
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                   + [ctypes.c_double] * n_double + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def parent_gamma(lib, d, c, keys):
+    """A call of the parent's gamma kernel on ``(d, c, keys)``: ``run() ->
+    (out, exhausted flag)``."""
+    from bild_tpu_torch.amis import dirichlet
+
+    fn = parent_entry(lib, "gamma_accept", d.dtype)
+    L = keys.numel()
+    d, c, keys = d.contiguous(), c.contiguous(), keys.contiguous()
+
+    def run():
+        out = torch.empty_like(d)
+        flag = torch.zeros((), dtype=torch.bool, device=d.device)
+        rc = fn(d.data_ptr(), c.data_ptr(), keys.data_ptr(), out.data_ptr(),
+                flag.data_ptr(), L, d.numel() // L, dirichlet.GAMMA_MAX_ROUNDS,
+                d.device.index or 0, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"the parent's gamma kernel launches (error {rc})")
+        return out, flag
+    return run
+
+
+def parent_cfc(lib, logf, logg, tr, maxiter, precision, frozen):
+    """A call of the parent's CFC kernel: ``run() -> (logp, converged)``."""
+    fn = parent_entry(lib, "cfc_solve", logf.dtype)
+    lead = logf.shape[:-1]
+    # the kernel reads rows of n contiguous entries, as the wrapper hands it
+    logf, logg = logf.contiguous(), logg.contiguous()
+    frozen = None if frozen is None else frozen.contiguous()
+    tr = tr.to(torch.bool).contiguous()
+
+    def run():
+        logp = torch.empty_like(logf)
+        conv = torch.empty(lead, dtype=torch.bool, device=logf.device)
+        rc = fn(logf.data_ptr(), logg.data_ptr(), tr.data_ptr(),
+                None if frozen is None else frozen.data_ptr(), logp.data_ptr(),
+                conv.data_ptr(), math.prod(lead), logf.shape[-1], int(maxiter),
+                logf.device.index or 0, float(precision),
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"the parent's CFC kernel launches (error {rc})")
+        return logp, conv
+    return run
+
+
+def ptxas_report(name):
+    """``nvcc -Xptxas -v`` of csrc/<name>.cu with the build's flags:
+    ``{kernel (demangled where it is a template of this repository):
+    (registers, stack frame bytes, spill store bytes, spill load
+    bytes)}``."""
+    import re
+
+    from bild_tpu_torch.ops import _build
+
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared",)]
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run([_build._nvcc(), *flags, "-c", "-Xptxas", "-v",
+                               "-I", str(_build.CSRC), "-o",
+                               os.path.join(tmp, f"{name}.o"),
+                               str(_build.CSRC / f"{name}.cu")],
+                              capture_output=True, text=True)
+    check(proc.returncode == 0, f"nvcc -Xptxas -v {name}: {proc.stderr}")
+    out, kernel, frame = {}, None, None
+    for ln in proc.stderr.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            raw, kernel = m.group(1), m.group(1)
+            for known in ("cfc_solve_kernel_wide", "cfc_solve_kernel",
+                          "gamma_accept_kernel"):
+                t = re.search(known + r"I([fd])(?:Li(\d+)E)?E", raw)
+                if t:
+                    kernel = (f"{known}<{'float' if t.group(1) == 'f' else 'double'}"
+                              + (f", {t.group(2)}>" if t.group(2) else ">"))
+                    break
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            frame = tuple(int(x) for x in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and kernel is not None:
+            out[kernel] = (int(m.group(1)), *(frame or (0, 0, 0)))
+            kernel, frame = None, None
+    return out
+
+
+def step_kernel_phase(bt, parent=None, ptxas=None):
+    """The step's two kernels against their plain versions on every input
+    the main path gives them, recorded by wrapping `cfc.solve_marginals`
+    and `dirichlet.gamma_accept` during eager runs: config 3's lockstep
+    `sample_batch(k_max=4, steps_per_k=12, N=128, informed_init,
+    scout_steps=4, refine_top=3)` over 128 trajectories (scout L=640,
+    refine L=384), and every run of the graph phase under 'sym'
+    (`graph_cases`: config 3's lockstep and adaptive `sample_dataset`,
+    config 4 with three states, the README `sample()` (one lane, 100 x 21
+    gamma entries, 20 slots), the `ggm_model` example's `sample()`, GGM
+    configs 6 and 7).
     csrc/cfc_solve.cu against `_solve_marginals` with lane-exact sums:
     float32 within `ULP_CFC_F32` ulp, the inputs in float64 within
     `RTOL_CFC_F64`, converged flags and non-finite entries equal.
     csrc/gamma_accept.cu against `_gamma_accept`: within `GAMMA_ULP` ulp
-    in float32 and float64, no exhaustion. Each timed (CUDA events) at
-    config 3's scout call that iterates most, beside the bound of the
-    iterations and rounds it takes (`cfc_bound_ms`, `gamma_ops`); the
-    gamma kernel with one flag made beforehand, so that no timed call
-    reads the device; beside it `torch._standard_gamma` at the same shape
-    (the library's gamma draws: time only, another stream). Returns
-    ``{name: numbers of the kernels line}``."""
+    in float32 and float64, no exhaustion; also a float32 case of
+    degenerate shapes (`DEGENERATE_SHAPES`) at config 3's scout shape.
+    Timed, by device time (`device_ms`), host time of back-to-back
+    wrapper calls beside it (the kernel's and the plain version's at
+    config 3's scout only): the CFC solve at config 3's scout call that
+    iterates most, `sample()`'s and config 4's (three states) call whose
+    longest row iterates most, beside `cfc_bound_ms` and the longest row's
+    device time per iteration; the gamma kernel at config 3's scout call
+    that draws most, `sample()`'s, and the degenerate case, beside
+    `gamma_bound_ms` and `torch._standard_gamma` at the same shapes (the
+    library's gamma draws, another stream: time only). With ``parent``
+    (``{name: ctypes library}`` of `build_parent`) the parent's kernels on
+    the same inputs, timed in turns with this checkout's (parent, change,
+    change, parent) and held to the same bits. ``ptxas``: `ptxas_report`
+    of both sources; every group instantiation of the CFC kernel must use
+    no stack frame and spill nothing. Returns ``{name: numbers of the
+    kernels line}``."""
     from bild_tpu_torch.amis import cfc, dirichlet
     from bild_tpu_torch.lanes import LaneRNG
     from bild_tpu_torch.parallel import graphs, sample_batch
+
+    parent = parent or {}
+    for name, report in (ptxas or {}).items():
+        for kernel, (regs, stack, spill_st, spill_ld) in sorted(report.items()):
+            print(f"ptxas {name} {kernel}: {regs} registers, {stack} bytes "
+                  f"stack frame, {spill_st} / {spill_ld} bytes spill stores / "
+                  f"loads", flush=True)
+    groups = {k: v for k, v in (ptxas or {}).get("cfc_solve", {}).items()
+              if k.startswith("cfc_solve_kernel<")}
+    if ptxas:
+        check(len(groups) == 16 and all(v[1:] == (0, 0, 0)
+                                        for v in groups.values()),
+              "cfc_solve: every group instantiation (n = 1..8, both types) "
+              "has no stack frame and no spills")
 
     model = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
                                       localization_error=0.1,
@@ -2016,11 +2248,20 @@ def step_kernel_phase(bt):
     check(any(r[0].shape[-1] == 3 for r in solves["config 4"]),
           "cfc_solve: config 4's three-state solves were held to the plain solve")
 
-    # the gamma sampler's rounds
-    g_ulps, g_abs, differ = [], 0.0, 0
-    for recs in gammas.values():
+    # the gamma sampler's rounds, and the degenerate float32 case
+    scout = gammas["config 3 lockstep sample_batch"]
+    d0, _, keys0 = scout[0]
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    lo, hi = DEGENERATE_SHAPES
+    alpha = 10.0 ** (lo + (hi - lo) * torch.rand(d0.shape, generator=gen,
+                                                 device=DEVICE))
+    degenerate = (alpha - 1.0 / 3.0, 1.0 / torch.sqrt(9.0 * (alpha - 1.0 / 3.0)),
+                  keys0)
+    g_ulps, g_abs, differ, held = [], 0.0, 0, 0
+    for label, recs in (*gammas.items(), ("degenerate float32", [degenerate])):
         for d, c, keys in recs:
-            for dtype in (torch.float32, torch.float64):
+            for dtype in ((torch.float32,) if label == "degenerate float32"
+                          else (torch.float32, torch.float64)):
                 dd, cc = d.to(dtype), c.to(dtype)
                 flag = torch.zeros((), dtype=torch.bool, device=DEVICE)
                 got = dirichlet.gamma_accept(dd, cc, LaneRNG(keys, flag))
@@ -2028,74 +2269,161 @@ def step_kernel_phase(bt):
                 check(not bool(flag), "gamma_accept: every entry accepted")
                 g_ulps.append(ulp_err(got, want))
                 differ += int((got != want).sum())
+                held += got.numel()
                 if dtype == torch.float32:
                     g_abs = max(g_abs, float((got - want).abs().max()))
     line = (f"gamma_accept: {sum(map(len, gammas.values()))} calls of the main "
             f"path's runs ("
             + "; ".join(f"{k}: {len(v)}, shapes {shapes(v)}"
                         for k, v in gammas.items())
-            + f"), kernel against plain: max {max(g_ulps):.1f} ulp (bar "
-            f"{GAMMA_ULP}), max abs {g_abs:.3e} (float32), {differ} entries not "
+            + f") and the degenerate float32 case {tuple(d0.shape)}, kernel "
+            f"against plain: max {max(g_ulps):.1f} ulp (bar {GAMMA_ULP}), max "
+            f"abs {g_abs:.3e} (float32), {differ} of {held} entries not "
             "bit-equal (both types)")
     print(line, flush=True)
     check(max(g_ulps) <= GAMMA_ULP, line)
 
-    out = {}
-    # timed: config 3's scout call (L=640) that iterates most
-    scout = solves["config 3 lockstep sample_batch"]
-    best = max((rec for rec in scout if rec[0].shape == scout[0][0].shape),
-               key=lambda rec: cfc_iterations(solve, *rec[:5], rec[5])[0])
-    logf, logg, tr, maxiter, precision, frozen = best
-    M, n = math.prod(logf.shape[:-1]), logf.shape[-1]
-    total, most = cfc_iterations(solve, *best[:5], frozen)
-    out["cfc_solve"] = time_kernel(
-        "cfc_solve", tuple(logf.shape),
-        lambda: cfc.solve_marginals(logf, logg, tr, maxiter, precision,
-                                    frozen=frozen),
-        lambda: cfc._solve_marginals(logf, logg, tr, maxiter, precision,
-                                     frozen=frozen, exact=True),
-        cfc_bound_ms(M, n, logf.element_size(), total),
-        f"{total} iterations over {M} slots, at most {most}")
+    def in_turns(new, old):
+        """Device ms of ``new`` and ``old`` (None: not timed), timed old,
+        new, new, old: ``(new ms, old ms or None)``."""
+        if old is None:
+            return (device_ms(new) + device_ms(new)) / 2, None
+        o1, n1, n2, o2 = (device_ms(fn) for fn in (old, new, new, old))
+        return (n1 + n2) / 2, (o1 + o2) / 2
+
+    def nums(x, digits=4):
+        return "not measured" if x is None else f"{x * 1e3:.{digits}f} us"
+
+    name_limit = card()
+    out = {"cfc_solve": {}, "gamma_accept": {}}
+
+    # the CFC solve: config 3's scout call that iterates most, sample()'s
+    # and config 4's call whose longest row iterates most
+    c3 = solves["config 3 lockstep sample_batch"]
+    its = {}
+
+    def iterations(rec):
+        key = id(rec)
+        if key not in its:
+            its[key] = cfc_iterations(solve, *rec[:5], rec[5])
+        return its[key]
+
+    cases = {
+        "config3": max((r for r in c3 if r[0].shape == c3[0][0].shape),
+                       key=lambda r: iterations(r)[0]),
+        "sample": max(solves["README sample()"], key=iterations),
+        "config4": max((r for r in solves["config 4"] if r[0].shape[-1] == 3),
+                       key=lambda r: iterations(r)[1]),
+    }
+    for key, rec in cases.items():
+        logf, logg, tr, maxiter, precision, frozen = rec
+        # the main path hands the wrapper transposed views, which it copies:
+        # timed on rows of n contiguous entries, a launch is the kernel's
+        logf, logg = logf.contiguous(), logg.contiguous()
+        M, n = math.prod(logf.shape[:-1]), logf.shape[-1]
+        total, most = iterations(rec)
+
+        def kern():
+            return cfc.solve_marginals(logf, logg, tr, maxiter, precision,
+                                       frozen=frozen)
+        old = None
+        if "cfc_solve" in parent:
+            old = parent_cfc(parent["cfc_solve"], logf, logg, tr, maxiter,
+                             precision, frozen)
+            got, want = old(), kern()
+            check(torch.equal(got[1], want[1])
+                  and torch.equal(got[0].nan_to_num(), want[0].nan_to_num()),
+                  f"cfc_solve {key}: the parent's kernel gives the same bits")
+        ms, parent_ms = in_turns(kern, old)
+        bnd, by = cfc_bound_ms(M, n, logf.element_size(), total)
+        prefix = "" if key == "config3" else f"{key}_"
+        row = {f"{prefix}ms": ms, f"{prefix}parent_ms": parent_ms,
+               f"{prefix}bound_ms": bnd, f"{prefix}iterations": total,
+               f"{prefix}most": most,
+               f"{prefix}us_per_iteration": ms * 1e3 / most if most else None}
+        if key == "config3":
+            host = (time_ms(kern, 50) + time_ms(kern, 50)) / 2
+            plain = [time_ms(lambda: cfc._solve_marginals(
+                logf, logg, tr, maxiter, precision, frozen=frozen, exact=True), 3)
+                for _ in range(2)]
+            row.update(host_ms=host, plain_ms=sum(plain) / 2, bound_by=by,
+                       shape=list(logf.shape))
+        out["cfc_solve"].update(row)
+        print(f"time cfc_solve {key} {tuple(logf.shape)} float32 ({name_limit}): "
+              f"device {nums(ms)} [parent {nums(parent_ms)}], bound "
+              f"{nums(bnd, 6)} ({by}; {total} iterations over {M} slots), "
+              f"{bnd / ms:.2%} of bound; longest row {most} iterations"
+              + (f", {ms * 1e3 / most:.4f} us of device time per iteration"
+                 if most else "")
+              + (f"; host {row['host_ms'] * 1e3:.2f} us per wrapper call, "
+                 f"plain {row['plain_ms']:.3f} ms" if key == "config3" else ""),
+              flush=True)
     out["cfc_solve"].update(max_abs_err=max_abs, max_ulp_f32=max(ulps),
                             max_rel_f64=max(rels))
-    scout = gammas["config 3 lockstep sample_batch"]
-    d, c, keys = max((rec for rec in scout if rec[0].shape == scout[0][0].shape),
-                     key=lambda rec: gamma_rounds(*rec)[0])
-    total, most = gamma_rounds(d, c, keys)
-    streams = LaneRNG(keys, torch.zeros((), dtype=torch.bool, device=DEVICE))
-    out["gamma_accept"] = time_kernel(
-        "gamma_accept", tuple(d.shape),
-        lambda: dirichlet.gamma_accept(d, c, streams),
-        lambda: dirichlet._gamma_accept(d, c, LaneRNG(keys)),
-        bound_ms(gamma_ops(total), 3 * d.numel() * d.element_size() + 8 * keys.numel()),
-        f"{total} rounds over {d.numel()} entries, at most {most}")
-    check(not bool(streams.exhausted), "gamma_accept: the timed calls accepted all")
+
+    # the gamma kernel: config 3's scout call that draws most, sample()'s,
+    # the degenerate case; beside each torch._standard_gamma
+    rounds = {}
+
+    def drawn(rec):
+        key = id(rec)
+        if key not in rounds:
+            rounds[key] = gamma_rounds(*rec)
+        return rounds[key]
+
+    cases = {
+        "config3": max((r for r in scout if r[0].shape == d0.shape),
+                       key=lambda r: drawn(r)[0]),
+        "sample": max(gammas["README sample()"], key=lambda r: drawn(r)[0]),
+        "degenerate": degenerate,
+    }
+    for key, rec in cases.items():
+        d, c, keys = rec
+        total, most, lane_rounds = drawn(rec)
+        streams = LaneRNG(keys, torch.zeros((), dtype=torch.bool, device=DEVICE))
+
+        def kern():
+            return dirichlet.gamma_accept(d, c, streams)
+        old = None
+        if "gamma_accept" in parent:
+            old = parent_gamma(parent["gamma_accept"], d, c, keys)
+            got, flag = old()
+            check(torch.equal(got, kern()) and not bool(flag),
+                  f"gamma_accept {key}: the parent's kernel gives the same bits")
+        ms, parent_ms = in_turns(kern, old)
+        check(not bool(streams.exhausted),
+              "gamma_accept: the timed calls accepted all")
+        a = d + 1.0 / 3.0
+        library = device_ms(lambda: torch._standard_gamma(a))
+        bnd, by, parts = gamma_bound_ms(d, keys, total, lane_rounds)
+        prefix = "" if key == "config3" else f"{key}_"
+        row = {f"{prefix}ms": ms, f"{prefix}parent_ms": parent_ms,
+               f"{prefix}bound_ms": bnd, f"{prefix}library_ms": library,
+               f"{prefix}rounds": total, f"{prefix}most": most,
+               f"{prefix}bound_float_int_bytes_ms": list(parts)}
+        if key == "config3":
+            host = (time_ms(kern, 50) + time_ms(kern, 50)) / 2
+            plain = [time_ms(lambda: dirichlet._gamma_accept(d, c, LaneRNG(keys)), 3)
+                     for _ in range(2)]
+            lib_host = (time_ms(lambda: torch._standard_gamma(a), 50)
+                        + time_ms(lambda: torch._standard_gamma(a), 50)) / 2
+            row.update(host_ms=host, plain_ms=sum(plain) / 2, bound_by=by,
+                       library_host_ms=lib_host, shape=list(d.shape))
+        out["gamma_accept"].update(row)
+        print(f"time gamma_accept {key} {tuple(d.shape)} float32 ({name_limit}): "
+              f"device {nums(ms)} [parent {nums(parent_ms)}], "
+              f"torch._standard_gamma {nums(library)}, bound {nums(bnd, 6)} "
+              f"({by}; float {nums(parts[0], 6)}, integer hashing "
+              f"{nums(parts[1], 6)}, bytes {nums(parts[2], 6)}; {total} rounds "
+              f"over {d.numel()} entries, at most {most}, {lane_rounds} "
+              f"lane-rounds), {bnd / ms:.2%} of bound"
+              + (f"; host {row['host_ms'] * 1e3:.2f} us per wrapper call "
+                 f"(torch._standard_gamma {lib_host * 1e3:.2f} us), plain "
+                 f"{row['plain_ms']:.3f} ms" if key == "config3" else ""),
+              flush=True)
     out["gamma_accept"].update(max_abs_err=g_abs, max_ulp=max(g_ulps),
                                not_bit_equal=differ)
-    # the one PyTorch call that draws gammas of these shapes (from another
-    # stream, so time only): torch._standard_gamma of the shapes a = d + 1/3
-    alpha = d + 1.0 / 3.0
-    library = [time_ms(lambda: torch._standard_gamma(alpha), 50) for _ in range(2)]
-    out["gamma_accept"]["library_ms"] = sum(library) / 2
-    print(f"time torch._standard_gamma {tuple(alpha.shape)} float32 (the "
-          f"library's gamma draws at the gamma kernel's timed shape): "
-          f"{library[0]:.4f} / {library[1]:.4f} ms", flush=True)
     return out
-
-
-def time_kernel(name, shape, kern, plain, bound, work):
-    """CUDA-event times of ``kern`` and ``plain`` (plain, kernel, kernel,
-    plain) beside ``bound = (ms, what bounds it)``; printed and returned as
-    the kernels line's numbers."""
-    p1, k1, k2, p2 = (time_ms(fn, reps) for fn, reps in
-                      ((plain, 3), (kern, 50), (kern, 50), (plain, 3)))
-    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    bnd, by = bound
-    print(f"time {name} {shape} float32: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {bnd:.6f} ms ({by}; {work}), "
-          f"{bnd / ms:.2%} of bound", flush=True)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-            "shape": list(shape)}
 
 
 # host-side calls that put work on the device, as torch.profiler names them
@@ -3826,31 +4154,62 @@ def slice_phase(bt):
     return totals, readings
 
 
+def build_all(parent_tree):
+    """Build every kernel of csrc/ (and the split kernel's probe copy), one
+    nvcc per source, all at once; beside them ``nvcc -Xptxas -v`` of the
+    step kernels (`ptxas_report`) and the step kernels of the parent
+    checkout at ``parent_tree`` where it has them (`build_parent`). Prints
+    the build seconds; returns ``(parent, ptxas)`` as `step_kernel_phase`
+    takes them."""
+    from bild_tpu_torch.ops import _build
+
+    builds = [(name, ()) for name in ("kalman_sym", "kalman_sym_split",
+                                      "kalman_dense", "cfc_solve",
+                                      "gamma_accept")]
+    builds.append(("kalman_sym_split", (PROBE_DEFINE,)))   # split_phase's probe
+    step_names = ("cfc_solve", "gamma_accept")
+    parent_names = [name for name in step_names
+                    if (Path(parent_tree) / "bild_tpu_torch" / "csrc"
+                        / f"{name}.cu").exists()]
+    with ThreadPoolExecutor(len(builds) + 2 * len(step_names)) as pool:
+        loads = pool.map(lambda b: _build.load(*b), builds)
+        reports = {name: pool.submit(ptxas_report, name) for name in step_names}
+        parents = {name: pool.submit(build_parent, parent_tree, name)
+                   for name in parent_names}
+        list(loads)
+        ptxas = {name: f.result() for name, f in reports.items()}
+        parent = {name: f.result() for name, f in parents.items()}
+    for name, defines in builds:
+        key = name + "".join(f"-{x.lower()}" for x in defines)
+        print(f"build {key}: {_build.build_seconds[key]:.2f} s", flush=True)
+    print(f"parent step kernels: {sorted(parent) or 'none'} (from "
+          f"{parent_tree})", flush=True)
+    return parent, ptxas
+
+
 def main():
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Drive bild_tpu_torch on one "
+                                                 "NVIDIA GPU, end to end.")
+    parser.add_argument("--parent", default=str(PARENT_TREE),
+                        help="a checkout of the parent commit whose step "
+                             "kernels the step kernel phase times beside "
+                             "this checkout's, where it exists (default: "
+                             "_chip/parent)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device "
                          "(torch.cuda.is_available() is false)")
     import bild_tpu_torch as bt
-    from bild_tpu_torch.ops import _build
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True)
-    print(smi.stdout.strip(), flush=True)
+    print(card(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     bt.config.exact_fp32()
 
     names = ("kalman_sym", "kalman_dense")
-    builds = [(name, ()) for name in ("kalman_sym", "kalman_sym_split",
-                                      "kalman_dense", "cfc_solve",
-                                      "gamma_accept")]
-    builds.append(("kalman_sym_split", (PROBE_DEFINE,)))   # split_phase's probe
-    with ThreadPoolExecutor(len(builds)) as pool:           # one nvcc per build, at once
-        list(pool.map(lambda b: _build.load(*b), builds))
-    for name, defines in builds:
-        key = name + "".join(f"-{x.lower()}" for x in defines)
-        print(f"build {key}: {_build.build_seconds[key]:.2f} s", flush=True)
+    parent, ptxas = build_all(args.parent)
 
     rng = np.random.default_rng(20261016)
     max_abs = kernel_phase(bt, rng)
@@ -3863,7 +4222,7 @@ def main():
     ladder = ladder_phase(bt)
     split = split_phase(bt, rng)
     tier_launches = tiers_phase(bt, ladder)
-    step_kernels = step_kernel_phase(bt)
+    step_kernels = step_kernel_phase(bt, parent, ptxas)
     ds_launches = dataset_phase(bt)
     ad_launches = adaptive_phase(bt)
     c4_launches = config4_phase(bt)
@@ -3965,18 +4324,25 @@ def main():
         "bench_split_cov_ms": bench["kernels"]["kalman_sym_split_cov"]["ms"],
         "default_tier": split["default"],
     })
-    # The step's kernels of PR 12, counterparts of device loops of XLA and
-    # not of Pallas kernels: the CFC fixed-point solve and the gamma
-    # sampler's rejection rounds. "ms", "plain_ms" and "bound_ms" at config
-    # 3's lockstep scout call (L=640) that iterates most, the bound from
-    # the iterations or rounds those inputs take; "max_abs_err" over every
-    # call of the step kernel phase's runs; "launches" over the graph
-    # phase's graphed runs and the slice phase's sample() (the main path:
-    # the dataset runners and sample() replaying their step), of which
-    # "sample_launches" the slice phase's; "sample_device_us" the device
-    # time per launch in the traced README sample() ('sym'). No PyTorch
-    # call computes the CFC solve: its library_ms is null; the gamma row's
-    # is torch._standard_gamma at the timed shape (time only).
+    # The step's kernels, counterparts of device loops of XLA and not of
+    # Pallas kernels: the CFC fixed-point solve and the gamma sampler's
+    # rejection rounds. "ms" (device time: launches replayed in a CUDA
+    # graph), "parent_ms" (the parent commit's kernel on the same inputs,
+    # in turns; null without a parent checkout), "host_ms" (back-to-back
+    # wrapper calls), "plain_ms" and "bound_ms" at config 3's lockstep scout
+    # call (L=640) that iterates or draws most, the bound from the
+    # iterations or rounds those inputs take; "sample_*" at sample()'s
+    # call, "config4_*" (CFC) at config 4's three-state call whose longest
+    # row iterates most, "degenerate_*" (gamma) at shapes 1e5-1e10 in
+    # float32; "most" the longest row's iterations or an entry's rounds;
+    # "max_abs_err" over every call of the step kernel phase's runs;
+    # "launches" over the graph phase's graphed runs and the slice phase's
+    # sample() (the main path: the dataset runners and sample() replaying
+    # their step), of which "sample_launches" the slice phase's;
+    # "sample_device_us" the device time per launch in the traced README
+    # sample() ('sym'). No PyTorch call computes the CFC solve: its
+    # library_ms is null; the gamma row's is torch._standard_gamma's
+    # device time at each timed shape (time only).
     for name, replaces in (
             ("cfc_solve", "bild_tpu/amis/cfc.py:166 (lax.while_loop, not a "
                           "Pallas kernel)"),

@@ -2,8 +2,9 @@
 loop `_solve_marginals` against bild_tpu's `lax.while_loop` (float64), a
 loop over one slot at a time written as csrc/cfc_solve.cu computes it
 (each slot stopping on its own) against the batched loop bit for bit, the
-dispatch of `solve_marginals` (the CPU runs the plain loop), and on the
-card the kernel against the plain loop (marked `cuda`)."""
+dispatch of `solve_marginals` (the CPU runs the plain loop), the kernel's
+grid planner `solve_plan`, and on the card the kernel against the plain
+loop at every state count with a kernel of its own (marked `cuda`)."""
 import math
 
 import numpy as np
@@ -161,20 +162,56 @@ def cuda():
     return torch.device("cuda")
 
 
+def test_solve_plan_at_every_state_count():
+    """`solve_plan`: up to `SOLVE_GROUP_STATES` states a group of threads
+    per row, the power of two >= n, so that a warp holds whole rows; above,
+    a thread per row; blocks of `SOLVE_THREADS` covering every row's
+    threads, the last block not empty."""
+    assert tcfc.SOLVE_GROUP_STATES == 8
+    for n in range(1, tcfc.SOLVE_MAX_STATES + 1):
+        for M in (1, 7, 20, 33, 1961, 2560):
+            group, threads, blocks = tcfc.solve_plan(M, n)
+            if n <= tcfc.SOLVE_GROUP_STATES:
+                assert group >= n > group // 2 and group & (group - 1) == 0
+                assert 32 % group == 0 and threads % group == 0
+            else:
+                assert group == 1
+            assert threads == tcfc.SOLVE_THREADS and threads % 32 == 0
+            assert blocks * threads >= M * group > (blocks - 1) * threads
+    assert tcfc.solve_plan(2560, 2) == (2, 64, 80)      # config 3's scout
+    assert tcfc.solve_plan(672, 3) == (4, 64, 42)       # config 4's scout
+    assert tcfc.solve_plan(20, 2) == (2, 64, 1)         # sample()'s step
+
+
+def transitions(rng, n):
+    """A random ``(n, n)`` transition matrix in which every state may move
+    on to the next (so no row is empty)."""
+    tr = rng.random((n, n)) < 0.6
+    tr[np.arange(n), (np.arange(n) + 1) % n] = True
+    return tr
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, F64])
-def test_cuda_kernel_matches_plain(cuda, dtype):
+@pytest.mark.parametrize("rows", [(40, 50), (37, 53)])
+def test_cuda_kernel_matches_plain(cuda, dtype, rows):
     """The kernel against the plain loop on the card: float64 within 1e-12
     relative, float32 within 4 ulp, the same converged flags, NaN and
     infinities where the plain loop has them; cut to one iteration, the
-    plain loop's converged flags at that cut."""
+    plain loop's converged flags at that cut. `TRANSITIONS`, then a random
+    matrix at each state count with a kernel of its own (1 to 8) and at 9,
+    33 and 64 (the general path), on 2,000 rows and on 1,961 (a count that
+    is not a multiple of a warp's rows at any group size)."""
     rng = np.random.default_rng(7)
-    for tname, tr in TRANSITIONS.items():
-        logf, logg, frozen = case(rng, 2000, tr.shape[0])
-        args = [torch.as_tensor(x, dtype=dtype, device=cuda).reshape(40, 50, -1)
+    cases = list(TRANSITIONS.items())
+    cases += [(f"n={n} random", transitions(rng, n))
+              for n in (*range(1, tcfc.SOLVE_GROUP_STATES + 1), 9, 33, 64)]
+    for tname, tr in cases:
+        logf, logg, frozen = case(rng, math.prod(rows), tr.shape[0])
+        args = [torch.as_tensor(x, dtype=dtype, device=cuda).reshape(*rows, -1)
                 for x in (logf, logg)]
         tr_c = torch.as_tensor(tr, device=cuda)
-        fz = torch.as_tensor(frozen, device=cuda).reshape(40, 50)
+        fz = torch.as_tensor(frozen, device=cuda).reshape(rows)
         launches = tcfc.solve_marginals.launches
         got, conv = tcfc.solve_marginals(*args, tr_c, 1000, 1e-2, frozen=fz)
         assert tcfc.solve_marginals.launches == launches + 1
@@ -182,14 +219,17 @@ def test_cuda_kernel_matches_plain(cuda, dtype):
                                             frozen=fz, exact=True)
         got, want = got.cpu().double().numpy(), want.cpu().double().numpy()
         assert torch.equal(conv.cpu(), wconv.cpu()), tname
-        assert np.array_equal(np.isfinite(got), np.isfinite(want))
+        assert np.array_equal(np.isfinite(got), np.isfinite(want)), tname
+        assert np.array_equal(got[~np.isfinite(want)], want[~np.isfinite(want)],
+                              equal_nan=True), tname
         fin = np.isfinite(want)
         if dtype == F64:
-            np.testing.assert_allclose(got[fin], want[fin], rtol=1e-12)
+            np.testing.assert_allclose(got[fin], want[fin], rtol=1e-12,
+                                       err_msg=tname)
         else:
             ulp = np.spacing(np.abs(want[fin]).astype(np.float32))
-            assert np.max(np.abs(got[fin] - want[fin]) / ulp) <= 4
+            assert np.max(np.abs(got[fin] - want[fin]) / ulp, initial=0) <= 4, tname
         _, cut = tcfc.solve_marginals(*args, tr_c, 1, 1e-2, frozen=fz)
         _, wcut = tcfc._solve_marginals(*args, tr_c, 1, 1e-2, frozen=fz,
                                         exact=True)
-        assert torch.equal(cut.cpu(), wcut.cpu())
+        assert torch.equal(cut.cpu(), wcut.cpu()), tname

@@ -1,6 +1,7 @@
 """The dataset runners' step as a capturable program (bild_tpu_torch.
-parallel.graphs): the gamma sampler's capped rounds against its loop and
-the gamma kernel's stream derivation against `LaneRNG`,
+parallel.graphs): the gamma sampler's capped rounds against its loop,
+the gamma kernel's stream derivation (its hoisted table of round words)
+against `LaneRNG` and its grid planner `gamma_plan`,
 the fold by a device step tensor against the host int, the in-place step
 of `run_lanes` / `run_slots` against copies of their previous eager loops
 (kept below) through `sample_batch` and the adaptive runner, and the graph
@@ -249,30 +250,62 @@ def mix(x):
     return x ^ (x >> 31)
 
 
+def fold(k, t):
+    """`LaneRNG.fold` of one key, as csrc/gamma_accept.cu computes it."""
+    return mix(k ^ mix(t + 0x632BE59BD9B4E019))
+
+
+def round_words(key, rnd):
+    """The three stream words of round ``rnd`` of the lane keyed ``key``:
+    the normal's two and the test's."""
+    knorm = fold(key & M64, 2 * rnd)
+    return fold(knorm, 0), fold(knorm, 1), fold(key & M64, 2 * rnd + 1)
+
+
+def round_table(key):
+    """The table a block of the gamma kernel computes once for its lane:
+    the stream words of rounds 0 .. `GAMMA_HOISTED_ROUNDS` - 1."""
+    return [round_words(key, rnd) for rnd in range(tdir.GAMMA_HOISTED_ROUNDS)]
+
+
 def kernel_uniforms(key, rnd, i, bits):
     """The three uniforms entry ``i`` draws in round ``rnd`` in the gamma
-    kernel (two for the normal, one for the test), from its lane's key,
-    with the kernel's fold chain and element offset, rounded in the
-    draw's type (``(b + 0.5) 2^-bits``; in float32 the sum rounds)."""
-    def fold(k, t):
-        return mix(k ^ mix(t + 0x632BE59BD9B4E019))
-
+    kernel (two for the normal, one for the test), from its lane's key:
+    the words from the block's table below `GAMMA_HOISTED_ROUNDS`, from the
+    entry's own fold chain past it, hashed with the entry's element offset
+    and rounded in the draw's type (``(b + 0.5) 2^-bits``; in float32 the
+    sum rounds)."""
     F = np.float32 if bits == 24 else float
     step = ((i + 1) * 0x9E3779B97F4A7C15) & M64
-    knorm = fold(key & M64, 2 * rnd)
-    words = (fold(knorm, 0), fold(knorm, 1), fold(key & M64, 2 * rnd + 1))
+    words = (round_table(key)[rnd] if rnd < tdir.GAMMA_HOISTED_ROUNDS
+             else round_words(key, rnd))
     return [float(F(F(F(mix(w + step) >> (64 - bits)) + F(0.5)) * F(2.0 ** -bits)))
             for w in words]
 
 
+def test_gamma_round_table_is_the_lane_streams():
+    """The hoisted table's words are the keys of `LaneRNG`'s folded streams
+    of each round: ``fold(2r).fold(0)``, ``fold(2r).fold(1)`` (the normal)
+    and ``fold(2r + 1)`` (the test)."""
+    rng = LaneRNG.from_seeds([5, -9, 2**40, 0], "cpu").fold(11)
+    for lane in range(rng.lanes):
+        table = round_table(int(rng.keys[lane]))
+        assert len(table) == tdir.GAMMA_HOISTED_ROUNDS == 8
+        for rnd, words in enumerate(table):
+            sub = rng.fold(2 * rnd)
+            want = (sub.fold(0).keys, sub.fold(1).keys, rng.fold(2 * rnd + 1).keys)
+            assert [w & M64 for w in map(int, (k[lane] for k in want))] == list(words)
+
+
 @pytest.mark.parametrize("dtype,bits", [(torch.float32, 24), (F64, 53)])
 def test_gamma_kernel_streams_are_the_lane_streams(dtype, bits):
-    """The draws csrc/gamma_accept.cu derives per entry (its fold chain on
-    64-bit words) are `LaneRNG`'s: the uniforms behind a round's normal and
-    its test, entry by entry."""
+    """The draws csrc/gamma_accept.cu derives per entry (the block's table
+    of round words, or past it the entry's own fold chain, on 64-bit words)
+    are `LaneRNG`'s: the uniforms behind a round's normal and its test,
+    entry by entry."""
     rng = LaneRNG.from_seeds([5, -9, 2**40], "cpu").fold(3)
     shape = (3, 4, 5)
-    for rnd in (0, 1, 7):
+    for rnd in (0, 1, 7, 8, 12):
         sub = rng.fold(2 * rnd)
         want = [uniform(sub, shape, 0, dtype, "cpu"),
                 uniform(sub, shape, 1, dtype, "cpu"),
@@ -281,6 +314,28 @@ def test_gamma_kernel_streams_are_the_lane_streams(dtype, bits):
             for i in (0, 7, 19):
                 got = kernel_uniforms(int(rng.keys[lane]), rnd, i, bits)
                 assert got == [float(w[lane].reshape(-1)[i]) for w in want]
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 112, 640, 5120])
+def test_gamma_plan_covers_each_lane_once(L):
+    """`gamma_plan`'s ranges cover every entry of a lane exactly once, none
+    empty and none longer than `GAMMA_MAX_SPAN`, with the bounds the kernel
+    checks; config 3's scout gets a block per lane (five entries a
+    thread), `sample()`'s one lane 17 blocks (one entry a thread)."""
+    for per_lane in (1, 2, 5, 31, 127, 128, 129, 640, 896, 2100, 2101, 5000,
+                     100003):
+        blocks, span, threads = tdir.gamma_plan(L, per_lane)
+        assert 1 <= span <= tdir.GAMMA_MAX_SPAN and threads == tdir.GAMMA_THREADS
+        assert threads % 32 == 0 and threads >= tdir.GAMMA_HOISTED_ROUNDS
+        assert blocks * span >= per_lane > (blocks - 1) * span
+        seen = np.zeros(per_lane, dtype=int)
+        for k in range(blocks):
+            lo, hi = k * span, min((k + 1) * span, per_lane)
+            assert lo < hi
+            seen[lo:hi] += 1
+        assert (seen == 1).all()
+    assert tdir.gamma_plan(640, 640) == (1, 640, 128)      # config 3's scout
+    assert tdir.gamma_plan(1, 2100) == (17, 124, 128)      # sample()'s step
 
 
 # -- the fold by a device step counter ------------------------------------
@@ -568,7 +623,22 @@ def test_cuda_gamma_kernel_matches_plain(cuda, dtype, monkeypatch):
     """csrc/gamma_accept.cu against its plain rounds on the card, at shapes
     from 0.05 to 1e10 (float32 needs tens of rounds there): within 4 ulp,
     with entries that the plain loop leaves after 4 rounds (float32) or 1
-    (float64); with the cap cut to one round the flag is set."""
+    (float64); with the cap cut to one round the flag is set. Also at lane
+    lengths that `gamma_plan` cuts into ranges that do not divide them
+    (2,101 entries: 16 ranges of 124 and one of 117), at lanes of one
+    entry, and with ``c`` scaled by 4 (a draw the test rejects more often:
+    entries past the block's `GAMMA_HOISTED_ROUNDS` hoisted rounds in both
+    types)."""
+    def held(d, c, streams):
+        flag = torch.zeros((), dtype=torch.bool, device=cuda)
+        launches = tdir.gamma_accept.launches
+        got = tdir.gamma_accept(d, c, LaneRNG(streams.keys, flag))
+        assert tdir.gamma_accept.launches == launches + 1 and not bool(flag)
+        want = tdir._gamma_accept(d, c, LaneRNG(streams.keys))
+        ulp = torch.nextafter(want.abs(), torch.full_like(want, float("inf"))) - want.abs()
+        assert float(((got - want).abs() / ulp).max()) <= 4
+        assert torch.equal(got.isfinite(), want.isfinite())
+
     rng = np.random.default_rng(3)
     alpha = torch.as_tensor(np.concatenate(
         [rng.uniform(0.05, 8, (4, 3000)), 10 ** rng.uniform(5, 10, (4, 1000))],
@@ -577,17 +647,25 @@ def test_cuda_gamma_kernel_matches_plain(cuda, dtype, monkeypatch):
     d = a - 1.0 / 3.0
     c = 1.0 / torch.sqrt(9.0 * d)
     streams = LaneRNG.from_seeds([1, 2, 3, 4], cuda).fold(7)
-    flag = torch.zeros((), dtype=torch.bool, device=cuda)
-    launches = tdir.gamma_accept.launches
-    got = tdir.gamma_accept(d, c, LaneRNG(streams.keys, flag))
-    assert tdir.gamma_accept.launches == launches + 1 and not bool(flag)
-    want = tdir._gamma_accept(d, c, LaneRNG(streams.keys))
-    ulp = torch.nextafter(want.abs(), torch.full_like(want, float("inf"))) - want.abs()
-    assert float(((got - want).abs() / ulp).max()) <= 4
+    held(d, c, streams)
     short = torch.zeros((), dtype=torch.bool, device=cuda)
     tdir._gamma_accept(d, c, LaneRNG(streams.keys, short),
                        max_rounds=4 if dtype == torch.float32 else 1)
     assert bool(short)
+    for L, per_lane, scale in ((3, 2101, 1.0), (5, 1, 1.0), (640, 1, 1.0),
+                               (3, 2101, 4.0), (1, 640, 4.0)):
+        a = torch.as_tensor(rng.uniform(1, 8, (L, per_lane)), dtype=dtype,
+                            device=cuda)
+        d = a - 1.0 / 3.0
+        c = scale / torch.sqrt(9.0 * d)
+        lanes = LaneRNG.from_seeds(list(range(L)), cuda).fold(per_lane)
+        held(d, c, lanes)
+        if scale > 1:
+            past = torch.zeros((), dtype=torch.bool, device=cuda)
+            tdir._gamma_accept(d, c, LaneRNG(lanes.keys, past),
+                               max_rounds=tdir.GAMMA_HOISTED_ROUNDS)
+            assert bool(past)
     monkeypatch.setattr(tdir, "GAMMA_MAX_ROUNDS", 1)
-    tdir.gamma_accept(d, c, LaneRNG(streams.keys, flag))
+    flag = torch.zeros((), dtype=torch.bool, device=cuda)
+    tdir.gamma_accept(d, c, LaneRNG(lanes.keys, flag))
     assert bool(flag)
