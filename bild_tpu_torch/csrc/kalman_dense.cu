@@ -49,12 +49,27 @@
 // still spread over the SMs. dense_layout() below and
 // ops/kalman_dense.py::dense_smem_bytes compute the same bytes; the launch
 // refuses a mismatch. A profile's arithmetic does not depend on its warp
-// or block partners, nor on where the operators live. It reaches about 15 %
-// of the likelihood's bound (PERF.md, an H100 SXM at 700 W). What holds it
-// there: the full products (4 N^3 where the symmetric C' needs 3 N^3), the
-// products' shared-memory wavefronts (two 16-byte loads per 16 FMAs, 7 of
-// 32 lanes idle at N=20) and the update, a third of the frame, which one
-// warp runs as short dependent chains.
+// or block partners, nor on where the operators live. The float32 kernel
+// reached about 15 % of the likelihood's bound with a float32 covariance
+// (PERF.md, an H100 SXM at 700 W). What held it there: the full products
+// (4 N^3 where the symmetric C' needs 3 N^3), the products' shared-memory
+// wavefronts (two 16-byte loads per 16 FMAs, 7 of 32 lanes idle at N=20)
+// and the update, a third of the frame, which one warp runs as short
+// dependent chains.
+//
+// Precision: the covariance type cov_t. A covariance stored in float32
+// between frames drifts over a long trajectory (0.14-0.16 nats per profile
+// family at T=1000 against the float64 build on the H100; re-symmetrizing
+// or a Joseph-form update do not cure it), so the float32 entry carries C,
+// X^T, Cw, 1/S and the products' sums in float64 (cov_t = double), while
+// B, Sig, G, w, s2, the means, the data, the log-density and the result
+// stay float32: B and Sig are read as float32 and widened in registers,
+// and K and 1/S are rounded once to float32 for the means and the
+// log-density. The float64 FMAs run at half the float32 rate, and a
+// float64 covariance doubles the warp's shared bytes. Where one warp's
+// float64 covariance does not fit (float32 from N=121 at q=1, N=85 at
+// q=3, d=3), the plan keeps it in float32 (bild_kalman_dense_f32_cov32;
+// ops/kalman_dense.py::dense_cov_itemsize).
 #include <type_traits>
 
 #include "kalman_common.cuh"
@@ -67,18 +82,19 @@ __host__ __device__ inline size_t align16(size_t bytes) { return (bytes + 15) / 
 
 struct DenseLayout {
   int NP;          // N padded to a multiple of 4
-  int scratch;     // scalars of a warp's scratch area
+  size_t scratch;  // bytes of a warp's scratch area
   size_t B, Sig, G, w, s2, Cind, warp0, per_warp, bytes;
 };
 
 // Byte offsets of the block's shared memory; mirrored by
 // ops/kalman_dense.py::dense_smem_bytes. With ops_shared the n states'
-// B, Sig (NP, NP) and G (N, d) come first.
-template <typename scalar_t>
+// B, Sig (NP, NP) and G (N, d) come first, in scalar_t; the covariance
+// and its scratch are cov_t, the means scalar_t.
+template <typename scalar_t, typename cov_t>
 __host__ __device__ DenseLayout dense_layout(int n, int N, int d, int q, int W,
                                              bool ops_shared) {
   DenseLayout s;
-  const size_t sz = sizeof(scalar_t);
+  const size_t sz = sizeof(scalar_t), cz = sizeof(cov_t);
   s.NP = (N + 3) / 4 * 4;
   const int NN = s.NP * s.NP;
   size_t o = 0;
@@ -92,27 +108,29 @@ __host__ __device__ DenseLayout dense_layout(int n, int N, int d, int q, int W,
   s.s2 = o;   o += align16(sz * q);
   s.Cind = o; o += align16(4 * d);
   s.warp0 = o;
-  // per warp: C (q, NP, NP), the scratch, M (NP, d), and with ops_shared
-  // a second mean buffer Mn (NP, d)
-  int scratch = NN;
-  if (q * s.NP + q + d > scratch) scratch = q * s.NP + q + d;
-  if (s.NP * d > scratch) scratch = s.NP * d;
+  // per warp: C (q, NP, NP), the scratch (X^T (NP, NP); or Cw (q, NP),
+  // 1/S (q) and w.M (d); or the propagated means (NP, d)), M (NP, d), and
+  // with ops_shared a second mean buffer Mn (NP, d)
+  size_t scratch = cz * NN;
+  if (cz * (q * s.NP + q) + sz * d > scratch) scratch = cz * (q * s.NP + q) + sz * d;
+  if (sz * s.NP * d > scratch) scratch = sz * s.NP * d;
   s.scratch = scratch;
-  s.per_warp = align16(sz * (static_cast<size_t>(q) * NN + scratch +
-                             (ops_shared ? 2 : 1) * s.NP * d));
+  s.per_warp = align16(cz * static_cast<size_t>(q) * NN + scratch +
+                       sz * (ops_shared ? 2 : 1) * s.NP * d);
   s.bytes = o + W * s.per_warp;
   return s;
 }
 
-template <typename T>
-__device__ __forceinline__ void load4(const T* p, T (&v)[4]) {
+// four consecutive scalars (16-byte aligned), converted to U
+template <typename T, typename U>
+__device__ __forceinline__ void load4(const T* p, U (&v)[4]) {
   constexpr int VW = bild::Vec16<T>::width;
 #pragma unroll
   for (int h = 0; h < 4 / VW; ++h) {
     const auto x = bild::load16(p + h * VW);
     const T* xs = reinterpret_cast<const T*>(&x);
 #pragma unroll
-    for (int u = 0; u < VW; ++u) v[h * VW + u] = xs[u];
+    for (int u = 0; u < VW; ++u) v[h * VW + u] = U(xs[u]);
   }
 }
 
@@ -128,14 +146,16 @@ __device__ __forceinline__ void store4(T* p, const T (&v)[4]) {
   }
 }
 
-// One state's N x N operator, read as k-major rows of 4 scalars: in shared
-// memory padded with zeros to (NP, NP) ...
+// One state's N x N operator (or a warp's covariance), read as k-major
+// rows of 4 scalars, widened to the reader's type: in shared memory padded
+// with zeros to (NP, NP) ...
 template <typename T>
 struct SharedOp {
   const T* p;
   int NP;
   __device__ __forceinline__ T at(int r, int k) const { return p[r * NP + k]; }
-  __device__ __forceinline__ void row4(int k, int j0, T (&v)[4]) const {
+  template <typename U>
+  __device__ __forceinline__ void row4(int k, int j0, U (&v)[4]) const {
     load4(p + k * NP + j0, v);
   }
 };
@@ -149,15 +169,16 @@ struct GlobalOp {
   __device__ __forceinline__ T at(int r, int k) const {
     return r < N && k < N ? __ldg(p + r * N + k) : T(0);
   }
-  __device__ __forceinline__ void row4(int k, int j0, T (&v)[4]) const {
+  template <typename U>
+  __device__ __forceinline__ void row4(int k, int j0, U (&v)[4]) const {
 #pragma unroll
-    for (int u = 0; u < 4; ++u) v[u] = at(k, j0 + u);
+    for (int u = 0; u < 4; ++u) v[u] = U(at(k, j0 + u));
   }
 };
 
-// out[i][j] (4x4 tile at i0, j0) = sum_k A[k][i0 + i] B[k][j0 + j]: both
-// operands k-major (SharedOp, GlobalOp), k = 0..NP-1 in order, four k per
-// step so that the loads of a step issue together.
+// out[i][j] (4x4 tile at i0, j0) = sum_k A[k][i0 + i] B[k][j0 + j] in T:
+// both operands k-major (SharedOp, GlobalOp), k = 0..NP-1 in order, four k
+// per step so that the loads of a step issue together.
 template <typename T, typename OpA, typename OpB>
 __device__ __forceinline__ void tile_product(const OpA& A, const OpB& B, int NP,
                                              int i0, int j0, T (&acc)[4][4]) {
@@ -181,16 +202,17 @@ __device__ __forceinline__ void tile_product(const OpA& A, const OpB& B, int NP,
   }
 }
 
-// sum_k x[k * xs] y[k] over k = 0..NP-1 in order (entries past N are zero)
-template <typename T>
-__device__ __forceinline__ T dot_np(const T* x, int xs, const T* y, int NP) {
+// sum_k x[k * xs] y[k] over k = 0..NP-1 in order, in T (entries past N
+// are zero)
+template <typename T, typename X, typename Y>
+__device__ __forceinline__ T dot_np(const X* x, int xs, const Y* y, int NP) {
   T acc = 0;
   for (int k0 = 0; k0 < NP; k0 += 4) {
     T xv[4], yv[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      xv[u] = x[(k0 + u) * xs];
-      yv[u] = y[k0 + u];
+      xv[u] = T(x[(k0 + u) * xs]);
+      yv[u] = T(y[k0 + u]);
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) acc = fma(xv[u], yv[u], acc);
@@ -198,7 +220,7 @@ __device__ __forceinline__ T dot_np(const T* x, int xs, const T* y, int NP) {
   return acc;
 }
 
-template <typename scalar_t, bool kOpsShared>
+template <typename scalar_t, typename cov_t, bool kOpsShared>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 kalman_dense_kernel(const scalar_t* __restrict__ Bs,
                     const scalar_t* __restrict__ Gs,
@@ -215,7 +237,7 @@ kalman_dense_kernel(const scalar_t* __restrict__ Bs,
                     int n, int N, int d, int q, int L, int P, int T, int W) {
   using Op = std::conditional_t<kOpsShared, SharedOp<scalar_t>, GlobalOp<scalar_t>>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const DenseLayout lay = dense_layout<scalar_t>(n, N, d, q, W, kOpsShared);
+  const DenseLayout lay = dense_layout<scalar_t, cov_t>(n, N, d, q, W, kOpsShared);
   const int NP = lay.NP;
   const int NN = NP * NP;
   scalar_t* w = reinterpret_cast<scalar_t*>(smem_raw + lay.w);      // (NP)
@@ -255,15 +277,17 @@ kalman_dense_kernel(const scalar_t* __restrict__ Bs,
   const long long g = static_cast<long long>(blockIdx.x) * W + warp;
   if (g >= static_cast<long long>(L) * P) return;
   const size_t traj = static_cast<size_t>(g / P);
-  scalar_t* C = reinterpret_cast<scalar_t*>(smem_raw + lay.warp0 + warp * lay.per_warp);
-  scalar_t* XT = C + q * NN;        // scratch, (NP, NP): X transposed
-  scalar_t* Cw = XT;                // scratch in the update, (q, NP)
-  scalar_t* Sinv = Cw + q * NP;     // (q): 1 / S
-  scalar_t* m = Sinv + q;           // (d): w.M
-  scalar_t* M = XT + lay.scratch;   // (NP, d)
+  unsigned char* warp_raw = smem_raw + lay.warp0 + warp * lay.per_warp;
+  cov_t* C = reinterpret_cast<cov_t*>(warp_raw);  // (q, NP, NP)
+  cov_t* XT = C + q * NN;           // scratch, (NP, NP): X transposed
+  cov_t* Cw = XT;                   // scratch in the update, (q, NP)
+  cov_t* Sinv = Cw + q * NP;        // (q): 1 / S
+  scalar_t* m = reinterpret_cast<scalar_t*>(Sinv + q);  // (d): w.M
+  scalar_t* M = reinterpret_cast<scalar_t*>(reinterpret_cast<unsigned char*>(XT) +
+                                            lay.scratch);  // (NP, d)
   // the propagated means (NP, d): their own buffer, swapped with M, when
   // the operators leave room; else the scratch, copied back to M
-  scalar_t* Mn = kOpsShared ? M + NP * d : XT;
+  scalar_t* Mn = kOpsShared ? M + NP * d : reinterpret_cast<scalar_t*>(XT);
   const int* prof = profiles + static_cast<size_t>(g) * T;
   const scalar_t* y_traj = ydata + traj * T * d;
   const unsigned char* valid_traj = valid + traj * T;
@@ -273,7 +297,7 @@ kalman_dense_kernel(const scalar_t* __restrict__ Bs,
   const int s0 = bild::clamp_state(prof[0], n);
   for (int i = lane; i < q * NN; i += 32) {
     const int r = (i / NP) % NP, k = i % NP;
-    C[i] = r < N && k < N ? C0s[(static_cast<size_t>(s0) * N + r) * N + k] : scalar_t(0);
+    C[i] = r < N && k < N ? cov_t(C0s[(static_cast<size_t>(s0) * N + r) * N + k]) : cov_t(0);
   }
   for (int i = lane; i < NP * d; i += 32) {
     const int r = i / d, dd = i % d;
@@ -286,37 +310,37 @@ kalman_dense_kernel(const scalar_t* __restrict__ Bs,
     const scalar_t* y = y_traj + static_cast<size_t>(t) * d;
     for (int idx = lane; idx < q * NP + d; idx += 32) {
       if (idx < q * NP)  // Cw = C w (zero past N)
-        Cw[idx] = dot_np(C + (idx / NP) * NN + (idx % NP) * NP, 1, w, NP);
+        Cw[idx] = dot_np<cov_t>(C + (idx / NP) * NN + (idx % NP) * NP, 1, w, NP);
       else               // m = w.M
-        m[idx - q * NP] = dot_np(M + idx - q * NP, d, w, NP);
+        m[idx - q * NP] = dot_np<scalar_t>(M + idx - q * NP, d, w, NP);
     }
     __syncwarp();
     for (int qi = lane; qi < q; qi += 32)
-      Sinv[qi] = scalar_t(1) / (dot_np(Cw + qi * NP, 1, w, NP) + s2[qi]);
+      Sinv[qi] = cov_t(1) / (dot_np<cov_t>(Cw + qi * NP, 1, w, NP) + cov_t(s2[qi]));
     __syncwarp();
     for (int item = lane; item < q * NT * NT; item += 32) {  // C -= (Cw / S) Cw^T
       const int qi = item / (NT * NT), i0 = item / NT % NT * 4, j0 = item % NT * 4;
-      const scalar_t* cw = Cw + qi * NP;
-      scalar_t cj[4];
+      const cov_t* cw = Cw + qi * NP;
+      cov_t cj[4];
       load4(cw + j0, cj);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        scalar_t* row = C + qi * NN + (i0 + i) * NP + j0;
-        scalar_t r[4];
+        cov_t* row = C + qi * NN + (i0 + i) * NP + j0;
+        cov_t r[4];
         load4(row, r);
-        const scalar_t k = cw[i0 + i] * Sinv[qi];
+        const cov_t k = cw[i0 + i] * Sinv[qi];
 #pragma unroll
         for (int j = 0; j < 4; ++j) r[j] -= k * cj[j];
         store4(row, r);
       }
     }
-    for (int idx = lane; idx < N * d; idx += 32) {
+    for (int idx = lane; idx < N * d; idx += 32) {  // K rounded once to scalar_t
       const int i = idx / d, dd = idx % d, c = Cind[dd];
-      M[idx] += (Cw[c * NP + i] * Sinv[c]) * (y[dd] - m[dd]);
+      M[idx] += scalar_t(Cw[c * NP + i] * Sinv[c]) * (y[dd] - m[dd]);
     }
     if (lane == 0) {
       for (int dd = 0; dd < d; ++dd) {
-        const scalar_t Sv = Sinv[Cind[dd]];
+        const scalar_t Sv = scalar_t(Sinv[Cind[dd]]);
         const scalar_t xmm = y[dd] - m[dd];
         ll += scalar_t(-0.5) *
               (xmm * xmm * Sv - bild::dlog(Sv) + scalar_t(bild::kLog2Pi));
@@ -354,26 +378,26 @@ kalman_dense_kernel(const scalar_t* __restrict__ Bs,
       __syncwarp();
     }
     for (int qi = 0; qi < q; ++qi) {
-      scalar_t* Cq = C + qi * NN;
-      const SharedOp<scalar_t> Cop{Cq, NP}, XTop{XT, NP};
+      cov_t* Cq = C + qi * NN;
+      const SharedOp<cov_t> Cop{Cq, NP}, XTop{XT, NP};
       for (int tile = lane; tile < NT * NT; tile += 32) {  // X = B C, stored as X^T
         const int i0 = tile / NT * 4, j0 = tile % NT * 4;
-        scalar_t acc[4][4];
+        cov_t acc[4][4];
         tile_product(B, Cop, NP, i0, j0, acc);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          scalar_t col[4] = {acc[0][j], acc[1][j], acc[2][j], acc[3][j]};
+          cov_t col[4] = {acc[0][j], acc[1][j], acc[2][j], acc[3][j]};
           store4(XT + (j0 + j) * NP + i0, col);
         }
       }
       __syncwarp();
       for (int tile = lane; tile < NT * NT; tile += 32) {  // C' = X B + Sig
         const int i0 = tile / NT * 4, j0 = tile % NT * 4;
-        scalar_t acc[4][4];
+        cov_t acc[4][4];
         tile_product(XTop, B, NP, i0, j0, acc);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          scalar_t sg[4], row[4];
+          cov_t sg[4], row[4];
           Sig.row4(i0 + i, j0, sg);
 #pragma unroll
           for (int j = 0; j < 4; ++j) row[j] = acc[i][j] + sg[j];
@@ -396,19 +420,19 @@ kalman_dense_kernel(const scalar_t* __restrict__ Bs,
 }
 
 
-template <typename scalar_t>
+template <typename scalar_t, typename cov_t>
 int launch_dense(const void* Bs, const void* Gs, const void* Sigs,
                  const void* M0s, const void* C0s, const void* w,
                  const void* s2, const void* Cind, const void* profiles,
                  const void* ydata, const void* valid, void* out,
                  int n, int N, int d, int q, int L, int P, int T, int W,
                  int ops_shared, int smem, int device, void* stream) {
-  const DenseLayout lay = dense_layout<scalar_t>(n, N, d, q, W, ops_shared != 0);
+  const DenseLayout lay = dense_layout<scalar_t, cov_t>(n, N, d, q, W, ops_shared != 0);
   if (W < 1 || W > kMaxWarps || lay.bytes != static_cast<size_t>(smem))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long items = static_cast<long long>(L) * P;
-  auto kernel = ops_shared ? kalman_dense_kernel<scalar_t, true>
-                           : kalman_dense_kernel<scalar_t, false>;
+  auto kernel = ops_shared ? kalman_dense_kernel<scalar_t, cov_t, true>
+                           : kalman_dense_kernel<scalar_t, cov_t, false>;
   return bild::launch(
       kernel, (items + W - 1) / W, 32 * W, lay.bytes, device, stream,
       static_cast<const scalar_t*>(Bs), static_cast<const scalar_t*>(Gs),
@@ -422,17 +446,21 @@ int launch_dense(const void* Bs, const void* Gs, const void* Sigs,
 
 }  // namespace
 
-#define BILD_DENSE_ENTRY(NAME, TYPE)                                          \
+#define BILD_DENSE_ENTRY(NAME, TYPE, COV)                                     \
   extern "C" int NAME(const void* Bs, const void* Gs, const void* Sigs,       \
                       const void* M0s, const void* C0s, const void* w,        \
                       const void* s2, const void* Cind, const void* profiles, \
                       const void* ydata, const void* valid, void* out, int n, \
                       int N, int d, int q, int L, int P, int T, int W,        \
                       int ops_shared, int smem, int device, void* stream) {   \
-    return launch_dense<TYPE>(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind, profiles,  \
-                              ydata, valid, out, n, N, d, q, L, P, T, W,      \
-                              ops_shared, smem, device, stream);              \
+    return launch_dense<TYPE, COV>(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind,       \
+                                   profiles, ydata, valid, out, n, N, d, q,   \
+                                   L, P, T, W, ops_shared, smem, device,      \
+                                   stream);                                   \
   }
 
-BILD_DENSE_ENTRY(bild_kalman_dense_f32, float)
-BILD_DENSE_ENTRY(bild_kalman_dense_f64, double)
+// float32 in and out, the covariance recursion in float64; the large-N
+// plan's float32 covariance; float64 throughout
+BILD_DENSE_ENTRY(bild_kalman_dense_f32, float, double)
+BILD_DENSE_ENTRY(bild_kalman_dense_f32_cov32, float, float)
+BILD_DENSE_ENTRY(bild_kalman_dense_f64, double, double)

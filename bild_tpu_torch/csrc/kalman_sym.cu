@@ -56,13 +56,28 @@
 // loads per 4 k, one barrier per 8 k, and the update and means, a fifth of
 // the frame.
 //
-// Shared memory at N=20, d=3, q=1, n=2, TP=32, float32 (the lockstep
-// launch): c and cn 2 x 32 x 220 x 4 = 56.3 KB, the P_s slabs 2 buffers x
-// n x 216 rows x 8 x 4 = 27.6 KB, the means M and Mn 2 x 32 x 21 x 3 x 4
-// = 16.1 KB, Cw and 1/S 32 x 21 x 4 = 2.7 KB, Ballw and Gsw 3.9 KB, the
-// index tables, column lists and barriers 0.9 KB: 108 KB, two blocks per
-// SM. sym_layout() below and ops/kalman_sym.py::sym_smem_bytes compute the
-// same bytes; the launch refuses a mismatch.
+// Precision: the covariance type cov_t. A packed covariance stored in
+// float32 between frames drifts over a long trajectory (0.32-0.34 nats per
+// profile family at T=1000 against the float64 build on the H100), so the
+// float32 entry carries c, cn, Cw, 1/S, the product's register tile and
+// the downdate in float64 (cov_t = double); the P_s slabs, sig, Ballw,
+// Gsw, w, s2, the means, the data, the log-density and the result stay
+// float32. A slab scalar is widened in registers before its FMAs; K and
+// 1/S are rounded once to float32 for the means and the log-density. The
+// float64 FMAs run at half the float32 rate, c and cn double their bytes,
+// and the register tile doubles its registers: the float32 build takes 224
+// registers a thread, so one block per SM. (Held to two blocks, 128
+// registers, it spilled, and 16-profile tiles read P_s twice as often:
+// 165.6 against 112.5 ms at the lockstep launch on an H100.)
+//
+// Shared memory at N=20, d=3, q=1, n=2, TP=32, float32 with the float64
+// covariance (the lockstep launch): c and cn 2 x 32 x 218 x 8 = 111.6 KB,
+// the P_s slabs 2 buffers x n x 216 rows x 8 x 4 = 27.6 KB, the means M
+// and Mn 2 x 32 x 21 x 3 x 4 = 16.1 KB, Cw and 1/S 32 x 21 x 8 = 5.4 KB,
+// Ballw and Gsw 3.9 KB, the log-likelihoods, index tables, column lists
+// and barriers 1.0 KB: 166 KB, one block per SM. sym_layout() below and
+// ops/kalman_sym.py::sym_smem_bytes compute the same bytes; the launch
+// refuses a mismatch.
 //
 // A profile's result does not depend on its partners: every output of the
 // products is one thread's dot product over k = 0..PPp-1 in order, the
@@ -115,24 +130,25 @@ struct SymLayout {
 };
 
 // Byte offsets of the block's shared memory; mirrored by
-// ops/kalman_sym.py::sym_smem_bytes.
-template <typename scalar_t>
+// ops/kalman_sym.py::sym_smem_bytes. The covariances, Cw and 1/S are
+// cov_t, the rest scalar_t.
+template <typename scalar_t, typename cov_t>
 __host__ __device__ SymLayout sym_layout(int n, int N, int d, int q, int PPp,
                                          int TP) {
   SymLayout s;
-  const size_t sz = sizeof(scalar_t);
+  const size_t sz = sizeof(scalar_t), cz = sizeof(cov_t);
   const int ncol = TP * q;
-  s.ld = PPp + bild::Vec16<scalar_t>::width;
+  s.ld = PPp + bild::Vec16<cov_t>::width;
   s.nct_max = (ncol + kTN - 1) / kTN + n;
   s.rows_slab = PPp < kRowsMax ? PPp : kRowsMax;
   size_t o = 0;
-  s.c = o;      o += align16(sz * ncol * s.ld);
-  s.cn = o;     o += align16(sz * ncol * s.ld);
+  s.c = o;      o += align16(cz * ncol * s.ld);
+  s.cn = o;     o += align16(cz * ncol * s.ld);
   s.slab = o;   o += align16(sz * 2 * n * s.rows_slab * kBK);
   s.M = o;      o += align16(sz * TP * (N + 1) * d);
   s.Mn = o;     o += align16(sz * TP * (N + 1) * d);
-  s.R = o;      o += align16(sz * ncol * N);
-  s.Sinv = o;   o += align16(sz * ncol);
+  s.R = o;      o += align16(cz * ncol * N);
+  s.Sinv = o;   o += align16(cz * ncol);
   s.ll = o;     o += align16(sz * TP);
   s.Bw = o;     o += align16(sz * n * (N + 1) * N);
   s.Gw = o;     o += align16(sz * n * (N + 1) * d);
@@ -150,11 +166,10 @@ __host__ __device__ SymLayout sym_layout(int n, int N, int d, int q, int PPp,
   return s;
 }
 
-// float32: two blocks per SM (at most 128 registers a thread), so that
-// one block's arithmetic covers the other's barrier waits; a float64
-// block's shared memory leaves room for one
-template <typename scalar_t>
-__global__ void __launch_bounds__(kThreads, sizeof(scalar_t) == 4 ? 2 : 1)
+// one block per SM: the float64 covariance's register tile leaves no
+// room for a second (see the header)
+template <typename scalar_t, typename cov_t>
+__global__ void __launch_bounds__(kThreads, 1)
 kalman_sym_kernel(const scalar_t* __restrict__ Pslab,
                   const scalar_t* __restrict__ sig,
                   const scalar_t* __restrict__ c0,
@@ -170,16 +185,17 @@ kalman_sym_kernel(const scalar_t* __restrict__ Pslab,
                   scalar_t* __restrict__ out,
                   int n, int N, int d, int q, int P, int T, int PPp, int N1p,
                   int TP) {
-  constexpr int VW = bild::Vec16<scalar_t>::width;
+  constexpr int VW = bild::Vec16<scalar_t>::width;  // slab scalars per 16-byte load
+  constexpr int CVW = bild::Vec16<cov_t>::width;    // covariance scalars per load
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const SymLayout lay = sym_layout<scalar_t>(n, N, d, q, PPp, TP);
-  scalar_t* c = reinterpret_cast<scalar_t*>(smem_raw + lay.c);    // (ncol, ld)
-  scalar_t* cn = reinterpret_cast<scalar_t*>(smem_raw + lay.cn);  // (ncol, ld)
+  const SymLayout lay = sym_layout<scalar_t, cov_t>(n, N, d, q, PPp, TP);
+  cov_t* c = reinterpret_cast<cov_t*>(smem_raw + lay.c);          // (ncol, ld)
+  cov_t* cn = reinterpret_cast<cov_t*>(smem_raw + lay.cn);        // (ncol, ld)
   scalar_t* slab = reinterpret_cast<scalar_t*>(smem_raw + lay.slab);
   scalar_t* M = reinterpret_cast<scalar_t*>(smem_raw + lay.M);    // (TP, N+1, d)
   scalar_t* Mn = reinterpret_cast<scalar_t*>(smem_raw + lay.Mn);
-  scalar_t* R = reinterpret_cast<scalar_t*>(smem_raw + lay.R);    // (ncol, N): Cw
-  scalar_t* Sinv = reinterpret_cast<scalar_t*>(smem_raw + lay.Sinv);  // (ncol)
+  cov_t* R = reinterpret_cast<cov_t*>(smem_raw + lay.R);          // (ncol, N): Cw
+  cov_t* Sinv = reinterpret_cast<cov_t*>(smem_raw + lay.Sinv);    // (ncol)
   scalar_t* llv = reinterpret_cast<scalar_t*>(smem_raw + lay.ll); // (TP)
   // the small operands, read in latency-bound loops, live here and not in
   // L1 (which the two blocks' shared memory leaves at about 28 KB)
@@ -214,7 +230,7 @@ kalman_sym_kernel(const scalar_t* __restrict__ Pslab,
   for (int i = tid; i < ncol * ld; i += nth) {
     const int col = i / ld, k = i % ld;
     const int s0 = bild::clamp_state(prof[static_cast<size_t>(col / q) * T], n);
-    c[i] = k < PPp ? c0[static_cast<size_t>(s0) * PPp + k] : scalar_t(0);
+    c[i] = k < PPp ? cov_t(c0[static_cast<size_t>(s0) * PPp + k]) : cov_t(0);
     cn[i] = 0;
   }
   for (int i = tid; i < tp * N1 * d; i += nth) {
@@ -241,21 +257,22 @@ kalman_sym_kernel(const scalar_t* __restrict__ Pslab,
   __syncthreads();
   BILD_PHASE_START();
 
-  // sum_k x[k] y[k] over k = 0..K-1 in order, four loads at a time
-  auto dot = [](const scalar_t* x, const scalar_t* y, int K) {
-    scalar_t acc = 0;
+  // sum_k x[k] y[k] over k = 0..K-1 in order, in cov_t, four loads at a
+  // time (x covariance entries, y the scalar_t w)
+  auto dot = [](const cov_t* x, const scalar_t* y, int K) {
+    cov_t acc = 0;
     int k = 0;
     for (; k + 4 <= K; k += 4) {
-      scalar_t xv[4], yv[4];
+      cov_t xv[4], yv[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         xv[u] = x[k + u];
-        yv[u] = y[k + u];
+        yv[u] = cov_t(y[k + u]);
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u) acc = fma(xv[u], yv[u], acc);
     }
-    for (; k < K; ++k) acc = fma(x[k], y[k], acc);
+    for (; k < K; ++k) acc = fma(x[k], cov_t(y[k]), acc);
     return acc;
   };
 
@@ -265,20 +282,20 @@ kalman_sym_kernel(const scalar_t* __restrict__ Pslab,
     // the upper triangle (b >= a) is contiguous, column a (b < a) strided
     for (int item = tid; item < ncol * N; item += nth) {
       const int col = item / N, a = item % N;
-      const scalar_t* cc = c + static_cast<size_t>(col) * ld;
-      scalar_t acc = 0;
+      const cov_t* cc = c + static_cast<size_t>(col) * ld;
+      cov_t acc = 0;
       int k = a;  // packed index of (b, a), b = 0..a-1
 #pragma unroll 4
       for (int b = 0; b < a; ++b) {
-        acc = fma(cc[k], w[b], acc);
+        acc = fma(cc[k], cov_t(w[b]), acc);
         k += N - 1 - b;
       }
-      const scalar_t* row = cc + a * N - a * (a - 1) / 2;  // entries (a, a..N-1)
+      const cov_t* row = cc + a * N - a * (a - 1) / 2;  // entries (a, a..N-1)
       R[col * N + a] = acc + dot(row, w + a, N - a);
     }
     __syncthreads();
     for (int col = tid; col < ncol; col += nth)  // S = w.Cw + s2
-      Sinv[col] = scalar_t(1) / (dot(R + col * N, w, N) + s2[col % q]);
+      Sinv[col] = cov_t(1) / (dot(R + col * N, w, N) + cov_t(s2[col % q]));
     __syncthreads();
     for (int k = tid; k < PP; k += nth) {  // c[(a,b)] -= (Cw_a Cw_b) Sinv
       const int a = ab[k] & 0xff, b = ab[k] >> 8;
@@ -287,35 +304,36 @@ kalman_sym_kernel(const scalar_t* __restrict__ Pslab,
       };
       int col = 0;
       for (; col + 4 <= ncol; col += 4) {  // four columns' loads before their stores
-        scalar_t v[4];
+        cov_t v[4];
 #pragma unroll
         for (int u = 0; u < 4; ++u) v[u] = down(col + u);
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
-          scalar_t* cc = c + static_cast<size_t>(col + u) * ld + k;
+          cov_t* cc = c + static_cast<size_t>(col + u) * ld + k;
           *cc = bild::sub_rn(*cc, v[u]);
         }
       }
       for (; col < ncol; ++col) {
-        scalar_t* cc = c + static_cast<size_t>(col) * ld + k;
+        cov_t* cc = c + static_cast<size_t>(col) * ld + k;
         *cc = bild::sub_rn(*cc, down(col));
       }
     }
-    for (int item = tid; item < tp * N; item += nth) {  // M += K[Cind] (y - w.M)
+    // M += K[Cind] (y - w.M), K rounded once to scalar_t
+    for (int item = tid; item < tp * N; item += nth) {
       const int p = item / N, i = item % N;
       scalar_t* Mp = M + p * N1 * d;
 #pragma unroll
       for (int dd = 0; dd < kMaxD; ++dd) {
         if (dd < d) {
           const int col = p * q + Cind[dd];
-          Mp[i * d + dd] += (R[col * N + i] * Sinv[col]) * (yt[dd] - Mp[N * d + dd]);
+          Mp[i * d + dd] += scalar_t(R[col * N + i] * Sinv[col]) * (yt[dd] - Mp[N * d + dd]);
         }
       }
     }
     for (int p = tid; p < tp; p += nth) {
       scalar_t ll = llv[p];
       for (int dd = 0; dd < d; ++dd) {
-        const scalar_t Sv = Sinv[p * q + Cind[dd]];
+        const scalar_t Sv = scalar_t(Sinv[p * q + Cind[dd]]);
         const scalar_t xmm = yt[dd] - M[p * N1 * d + N * d + dd];
         ll -= scalar_t(0.5) *
               (xmm * xmm * Sv - bild::dlog(Sv) + scalar_t(bild::kLog2Pi));
@@ -412,7 +430,7 @@ kalman_sym_kernel(const scalar_t* __restrict__ Pslab,
     const bool active = ct < nct;
     const int my_s = active ? tstate[ct] : 0;
     int cols[kTN];
-    const scalar_t* bcol[kTN];
+    const cov_t* bcol[kTN];
 #pragma unroll
     for (int j = 0; j < kTN; ++j) {
       cols[j] = active ? list[ct * kTN + j] : -1;
@@ -440,7 +458,7 @@ kalman_sym_kernel(const scalar_t* __restrict__ Pslab,
         }
       };
 
-      scalar_t acc[kTM][kTN];
+      cov_t acc[kTM][kTN];
 #pragma unroll
       for (int i = 0; i < kTM; ++i)
 #pragma unroll
@@ -462,13 +480,16 @@ kalman_sym_kernel(const scalar_t* __restrict__ Pslab,
           const int k0 = kb * kBK;
 #pragma unroll
           for (int kk = 0; kk < kBK; kk += VW) {
-            scalar_t b[kTN][VW];
+            cov_t b[kTN][VW];  // VW entries of each column, CVW per load
 #pragma unroll
             for (int j = 0; j < kTN; ++j) {
-              const auto v = bild::load16(bcol[j] + k0 + kk);
-              const scalar_t* vs = reinterpret_cast<const scalar_t*>(&v);
 #pragma unroll
-              for (int u = 0; u < VW; ++u) b[j][u] = vs[u];
+              for (int h = 0; h < VW / CVW; ++h) {
+                const auto v = bild::load16(bcol[j] + k0 + kk + h * CVW);
+                const cov_t* vs = reinterpret_cast<const cov_t*>(&v);
+#pragma unroll
+                for (int u = 0; u < CVW; ++u) b[j][h * CVW + u] = vs[u];
+              }
             }
 #pragma unroll
             for (int i = 0; i < kTM; ++i) {
@@ -477,9 +498,11 @@ kalman_sym_kernel(const scalar_t* __restrict__ Pslab,
                 const auto av = bild::load16(A + r * kBK + swizzle<CH>(row0 + r, kk / VW) * VW);
                 const scalar_t* a = reinterpret_cast<const scalar_t*>(&av);
 #pragma unroll
-                for (int u = 0; u < VW; ++u)
+                for (int u = 0; u < VW; ++u) {
+                  const cov_t au = cov_t(a[u]);
 #pragma unroll
-                  for (int j = 0; j < kTN; ++j) acc[i][j] = fma(a[u], b[j][u], acc[i][j]);
+                  for (int j = 0; j < kTN; ++j) acc[i][j] = fma(au, b[j][u], acc[i][j]);
+                }
               }
             }
           }
@@ -491,7 +514,7 @@ kalman_sym_kernel(const scalar_t* __restrict__ Pslab,
         for (int i = 0; i < kTM; ++i) {
           if (i >= tm || rt + i * RT >= rows) continue;
           const int r = row0 + rt + i * RT;
-          const scalar_t sg = sig[static_cast<size_t>(my_s) * PPp + r];
+          const cov_t sg = cov_t(sig[static_cast<size_t>(my_s) * PPp + r]);
 #pragma unroll
           for (int j = 0; j < kTN; ++j)
             if (cols[j] >= 0) cn[static_cast<size_t>(cols[j]) * ld + r] = acc[i][j] + sg;
@@ -514,8 +537,8 @@ kalman_sym_kernel(const scalar_t* __restrict__ Pslab,
       partition(t);
       BILD_PHASE(0);
       propagate();  // ends with a block barrier: cn and Mn are complete
-      scalar_t* tmp = c; c = cn; cn = tmp;
-      tmp = M; M = Mn; Mn = tmp;
+      cov_t* tmp = c; c = cn; cn = tmp;
+      scalar_t* tmpM = M; M = Mn; Mn = tmpM;
     }
     if (valid_traj[t]) update();
     BILD_PHASE(6);
@@ -525,20 +548,20 @@ kalman_sym_kernel(const scalar_t* __restrict__ Pslab,
   for (int p = tid; p < tp; p += nth) out[traj * P + p0 + p] = llv[p];
 }
 
-template <typename scalar_t>
+template <typename scalar_t, typename cov_t>
 int launch_sym(const void* Pslab, const void* sig, const void* c0,
                const void* w, const void* Ballw, const void* Gsw,
                const void* M0w, const void* s2, const void* Cind,
                const void* profiles, const void* ydata, const void* valid,
                void* out, int n, int N, int d, int q, int L, int P, int T,
                int PPp, int N1p, int TP, int smem, int device, void* stream) {
-  const SymLayout lay = sym_layout<scalar_t>(n, N, d, q, PPp, TP);
+  const SymLayout lay = sym_layout<scalar_t, cov_t>(n, N, d, q, PPp, TP);
   if (TP < 1 || TP > kMaxTile || n < 1 || n > 32 || N < 1 || N > 255 || d > kMaxD ||
       PPp % kBK != 0 || lay.nct_max > kThreads || lay.bytes != static_cast<size_t>(smem))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = static_cast<long long>(L) * ((P + TP - 1) / TP);
   return bild::launch(
-      kalman_sym_kernel<scalar_t>, blocks, kThreads, lay.bytes, device, stream,
+      kalman_sym_kernel<scalar_t, cov_t>, blocks, kThreads, lay.bytes, device, stream,
       static_cast<const scalar_t*>(Pslab), static_cast<const scalar_t*>(sig),
       static_cast<const scalar_t*>(c0), static_cast<const scalar_t*>(w),
       static_cast<const scalar_t*>(Ballw), static_cast<const scalar_t*>(Gsw),
@@ -561,10 +584,12 @@ int launch_sym(const void* Pslab, const void* sig, const void* c0,
   sig, c0, w, Ballw, Gsw, M0w, s2, Cind, profiles, ydata, valid, out, n, N, d, \
       q, L, P, T, PPp, N1p, TP, smem, device, stream
 
-// exact tier: the propagators in slab order (ops/kalman_sym.py::slab_operators)
+// exact tier: the propagators in slab order (ops/kalman_sym.py::slab_operators);
+// float32 in and out with the covariance recursion in float64, and float64
+// throughout
 extern "C" int bild_kalman_sym_f32(const void* Pslab, BILD_SYM_ARGS) {
-  return launch_sym<float>(Pslab, BILD_SYM_PASS);
+  return launch_sym<float, double>(Pslab, BILD_SYM_PASS);
 }
 extern "C" int bild_kalman_sym_f64(const void* Pslab, BILD_SYM_ARGS) {
-  return launch_sym<double>(Pslab, BILD_SYM_PASS);
+  return launch_sym<double, double>(Pslab, BILD_SYM_PASS);
 }

@@ -63,12 +63,17 @@ def kalman_update_batch(M, C, y, w, s2, Cind):
     ``y`` the observation, ``(d,)`` or one per profile ``(P, d)``, ``w
     (N,)`` measurement vector, ``s2 (q,)`` squared localization errors,
     ``Cind (d,)`` long map d -> q. Returns the posterior ``M, C`` and the
-    ``(P,)`` observation log-likelihood.
+    ``(P,)`` observation log-likelihood. A covariance wider than the means
+    (float64 beside float32) computes ``Cw``, ``S``, ``K`` and the
+    downdate in its own type; ``K`` and ``S`` are rounded once to the
+    means' type for the mean update and the log-density.
     """
-    Cw = torch.einsum("pqij,j->pqi", C, w)                 # (P, q, N)
-    S = torch.einsum("pqi,i->pq", Cw, w) + s2              # (P, q)
+    wc = w.to(C.dtype)
+    Cw = torch.einsum("pqij,j->pqi", C, wc)                # (P, q, N)
+    S = torch.einsum("pqi,i->pq", Cw, wc) + s2             # (P, q)
     K = Cw / S[..., None]                                  # (P, q, N)
     C_new = C - K[..., :, None] * Cw[..., None, :]         # (P, q, N, N)
+    K, S = K.to(M.dtype), S.to(M.dtype)
 
     m = torch.einsum("pid,i->pd", M, w)                    # (P, d)
     xmm = y - m                                            # (P, d)
@@ -81,22 +86,27 @@ def kalman_update_batch(M, C, y, w, s2, Cind):
 
 
 def logL_dense_loop(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind, profiles, ydata,
-                    valid, symmetrize):
+                    valid, symmetrize, cov_dtype=None):
     """The dense-covariance recursion shared by `msrouse_logL_batch` and
     `ops.kalman_dense.msrouse_logL_dense_torch` (see the module docstring).
-    Propagation is ``C' = (B C) B + Sig``, ``M' = B M + G``."""
+    Propagation is ``C' = (B C) B + Sig``, ``M' = B M + G``. The
+    covariance is carried in ``cov_dtype`` (default: the inputs' dtype):
+    ``C0``, ``B`` and ``Sig`` are converted exactly at use, while the
+    means, the data and the log-density stay in the inputs' dtype (see
+    `kalman_update_batch`)."""
     profiles, ydata, valid, single = as_lanes(profiles, ydata, valid)
     L, P, T = profiles.shape
     n = Bs.shape[0]
     q = s2.shape[0]
     dev = ydata.device
+    cov = ydata.dtype if cov_dtype is None else cov_dtype
     Cind = torch.as_tensor(Cind, dtype=torch.long, device=dev)
     prof = profiles.reshape(L * P, T).long().clamp(0, n - 1)
     lane = torch.arange(L * P, device=dev) // P            # row -> lane
 
     st0 = prof[:, 0]
     M = M0s[st0]                                           # (LP, N, d)
-    C = C0s[st0][:, None].expand(L * P, q, *C0s.shape[1:])  # (LP, q, N, N)
+    C = C0s.to(cov)[st0][:, None].expand(L * P, q, *C0s.shape[1:])  # (LP, q, N, N)
     acc = torch.zeros((L * P,), dtype=ydata.dtype, device=dev)
 
     def observe(t, M, C, acc):
@@ -111,8 +121,9 @@ def logL_dense_loop(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind, profiles, ydata,
         st = prof[:, t]
         B = Bs[st]                                         # (LP, N, N)
         M = torch.bmm(B, M) + Gs[st]
+        B = B.to(cov)
         X = torch.einsum("pij,pqjk->pqik", B, C)
-        C = torch.einsum("pqik,pkj->pqij", X, B) + Sigs[st][:, None]
+        C = torch.einsum("pqik,pkj->pqij", X, B) + Sigs[st].to(cov)[:, None]
         if symmetrize:
             C = 0.5 * (C + C.transpose(-1, -2))
         M, C, acc = observe(t, M, C, acc)

@@ -16,10 +16,24 @@ launch's shape: in shared memory when they fit beside the warps, else in
 global memory, so that one warp's working set alone bounds N. Shapes
 whose one warp exceeds `SMEM_LIMIT` raise.
 
+Precision. The float32 kernel takes and returns float32, and its
+operators (``B``, ``Sig``, ``G``, ``w``), means, data and log-density
+stay float32, but it carries the covariance recursion (``C``, ``X = B
+C``, ``Cw``, ``1/S``, the downdate) in float64: stored in float32 between
+frames, the covariance drifted over a long trajectory (0.14-0.16 nats per
+profile family at T=1000 against the float64 build on an H100; 0.03 in
+float64), and neither a Joseph-form update nor re-symmetrizing cures
+that. Where one warp's float64 covariance does
+not fit `SMEM_LIMIT`, the plan keeps it in float32 (`dense_cov_itemsize`;
+d=3, n=2: from N=121 at q=1 and N=85 at q=3), counted in
+``msrouse_logL_dense.cov32_launches``. The plain version follows the
+same rule. The float64 kernel is float64 throughout.
+
 `msrouse_logL_dense` launches the kernel for CUDA tensors and runs
 `msrouse_logL_dense_torch` for CPU tensors; it never falls back from one to
 the other. Each keeps a count of its calls: ``msrouse_logL_dense.launches``
-and ``msrouse_logL_dense_torch.calls``.
+(of which ``.cov32_launches`` with a float32 covariance) and
+``msrouse_logL_dense_torch.calls``.
 """
 from __future__ import annotations
 
@@ -33,7 +47,8 @@ from . import _build, counters
 from .kalman import as_lanes, in_range_mask, logL_dense_loop
 
 __all__ = ["msrouse_logL_dense", "msrouse_logL_dense_torch",
-           "dense_smem_bytes", "dense_plan", "DensePlan", "SMEM_LIMIT",
+           "dense_smem_bytes", "dense_plan", "DensePlan", "dense_cov_itemsize",
+           "SMEM_LIMIT",
            "SMEM_PER_SM", "H100_SMS", "MAX_BLOCKS"]
 
 # the most dynamic shared memory one block may use on Hopper (227 KB), and
@@ -54,46 +69,66 @@ def _a16(nbytes):
     return -(-nbytes // 16) * 16
 
 
-def dense_smem_bytes(N, d, q, itemsize, n=2, warps=1, ops_shared=True) -> int:
+def dense_smem_bytes(N, d, q, itemsize, n=2, warps=1, ops_shared=True,
+                     cov_itemsize=8) -> int:
     """Shared memory of one block of the dense kernel (``dense_layout`` in
-    ``csrc/kalman_dense.cu``), N padded to ``NP``, a multiple of 4: with
-    ``ops_shared`` the n states' ``B, Sig (NP, NP)`` and ``G (N, d)``;
-    ``w``, ``s2`` and ``Cind``; per warp one profile's ``C (q, NP, NP)``,
-    a scratch area (``X^T (NP, NP)``, at least the propagated means ``(NP,
-    d)`` or ``Cw (q, NP)``, ``1/S (q)`` and ``w.M (d)``), ``M (NP, d)``
-    and, with ``ops_shared``, ``Mn (NP, d)``."""
+    ``csrc/kalman_dense.cu``), N padded to ``NP``, a multiple of 4, with
+    ``itemsize``-byte operators and means and an ``cov_itemsize``-byte
+    covariance: with ``ops_shared`` the n states' ``B, Sig (NP, NP)`` and
+    ``G (N, d)``; ``w``, ``s2`` and ``Cind``; per warp one profile's ``C
+    (q, NP, NP)``, a scratch area (the covariance type's ``X^T (NP, NP)``,
+    or ``Cw (q, NP)`` and ``1/S (q)`` followed by ``w.M (d)``, or the
+    propagated means ``(NP, d)``), ``M (NP, d)`` and, with ``ops_shared``,
+    ``Mn (NP, d)``."""
     NP = -(-N // 4) * 4
     NN = NP * NP
     shared = _a16(NP * itemsize) + _a16(q * itemsize) + _a16(4 * d)
     if ops_shared:
         shared += 2 * _a16(n * NN * itemsize) + _a16(n * N * d * itemsize)
-    scratch = max(NN, q * NP + q + d, NP * d)
-    per_warp = _a16((q * NN + scratch + (2 if ops_shared else 1) * NP * d)
-                    * itemsize)
+    scratch = max(NN * cov_itemsize, (q * NP + q) * cov_itemsize + d * itemsize,
+                  NP * d * itemsize)
+    per_warp = _a16(q * NN * cov_itemsize + scratch
+                    + (2 if ops_shared else 1) * NP * d * itemsize)
     return shared + warps * per_warp
+
+
+def dense_cov_itemsize(n, N, d, q, itemsize) -> int:
+    """Bytes of the dense kernel's covariance scalars at this shape: 8
+    (float64) where one warp's float64 covariance fits `SMEM_LIMIT` (the
+    operators in global memory if need be), else ``itemsize`` (float32
+    inputs at large N: the plan that keeps the float32 covariance)."""
+    fits = dense_smem_bytes(N, d, q, itemsize, n, 1, False, 8) <= SMEM_LIMIT
+    return 8 if fits else itemsize
 
 
 @dataclasses.dataclass(frozen=True)
 class DensePlan:
     """One launch of the dense kernel: ``warps`` profiles per block, the
-    operators in shared memory or not."""
+    operators in shared memory or not, the covariance's scalar bytes (8:
+    float64; 4: the large-N plan of float32 inputs)."""
 
     warps: int
     blocks: int
     smem: int
     ops_shared: bool
+    cov_itemsize: int = 8
 
 
-def dense_plan(L, P, n, N, d, q, itemsize, sms=H100_SMS):
-    """Where the operators live and the warps per block for an ``(L, P)``
-    launch. The operators go to shared memory if they fit beside one warp,
+def dense_plan(L, P, n, N, d, q, itemsize, sms=H100_SMS, cov_itemsize=None):
+    """The covariance's width, where the operators live and the warps per
+    block for an ``(L, P)`` launch. The covariance is float64 where one
+    warp of it fits (`dense_cov_itemsize`; ``cov_itemsize`` forces a
+    width). The operators go to shared memory if they fit beside one warp,
     else they are read from global memory. Then the most warps (of 8, 4,
     2, 1) that still give every SM two blocks, else one, else one warp per
     block, so that a single-trajectory step (L=1, P=100) spreads over as
     many SMs as it has profiles. Raises if one warp's working set exceeds
     `SMEM_LIMIT`."""
+    cov = (dense_cov_itemsize(n, N, d, q, itemsize) if cov_itemsize is None
+           else cov_itemsize)
+
     def smem(w, shared):
-        return dense_smem_bytes(N, d, q, itemsize, n, w, shared)
+        return dense_smem_bytes(N, d, q, itemsize, n, w, shared, cov)
 
     shared = smem(1, True) <= SMEM_LIMIT
     fits = [w for w in DENSE_WARPS if smem(w, shared) <= SMEM_LIMIT]
@@ -109,7 +144,7 @@ def dense_plan(L, P, n, N, d, q, itemsize, sms=H100_SMS):
 
     chosen = next((w for w in fits if blocks(w) >= 2 * sms),
                   next((w for w in fits if blocks(w) >= sms), fits[-1]))
-    return DensePlan(chosen, blocks(chosen), smem(chosen, shared), shared)
+    return DensePlan(chosen, blocks(chosen), smem(chosen, shared), shared, cov)
 
 
 @functools.cache
@@ -121,10 +156,15 @@ def sm_count(index: int) -> int:
 def msrouse_logL_dense_torch(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind,
                              profiles, ydata, valid):
     """Plain PyTorch version of the dense kernel: the recursion of
-    `ops.kalman` without re-symmetrization."""
+    `ops.kalman` without re-symmetrization, the covariance carried in
+    float64 where the kernel carries it so (`dense_cov_itemsize`)."""
     msrouse_logL_dense_torch.calls += 1
+    n, N, _ = Bs.shape
+    wide = dense_cov_itemsize(n, N, Gs.shape[-1], s2.shape[0],
+                              ydata.element_size()) == 8
     return logL_dense_loop(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind, profiles,
-                           ydata, valid, symmetrize=False)
+                           ydata, valid, symmetrize=False,
+                           cov_dtype=torch.float64 if wide else ydata.dtype)
 
 
 counters.register("plain_dense", msrouse_logL_dense_torch, "calls")
@@ -203,8 +243,9 @@ def msrouse_logL_dense(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind,
     Cind = cind_tensor(Cind, d, ydata.device)
     out = torch.empty((L, P), dtype=ydata.dtype, device=ydata.device)
     if L * P > 0:
-        lib, fn = _build.entry("kalman_dense", f"bild_kalman_dense_{sfx}",
-                               12, 11)
+        cov32 = plan.cov_itemsize < 8
+        lib, fn = _build.entry("kalman_dense", f"bild_kalman_dense_{sfx}"
+                               + ("_cov32" if cov32 else ""), 12, 11)
         rc = fn(Bs.data_ptr(), Gs.data_ptr(), Sigs.data_ptr(),
                 M0s.data_ptr(), C0s.data_ptr(), w.data_ptr(), s2.data_ptr(),
                 Cind.data_ptr(), profiles.data_ptr(), ydata.data_ptr(),
@@ -212,6 +253,7 @@ def msrouse_logL_dense(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind,
                 plan.warps, int(plan.ops_shared), plan.smem, index,
                 torch.cuda.current_stream(ydata.device).cuda_stream)
         msrouse_logL_dense.launches += 1
+        msrouse_logL_dense.cov32_launches += cov32
         _build.check(lib, rc, "kalman_dense launch")
         out = torch.where(in_range_mask(profiles, n), out,
                           torch.full_like(out, math.nan))
@@ -219,3 +261,4 @@ def msrouse_logL_dense(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind,
 
 
 counters.register("kalman_dense", msrouse_logL_dense, "launches")
+counters.register("kalman_dense_cov32", msrouse_logL_dense, "cov32_launches")

@@ -36,6 +36,15 @@ on the H100's tensor cores (``wgmma``) in a kernel of its own,
 and the mean propagation ``Ballw M`` split too. In float64 every tier is
 the exact one, bit for bit.
 
+Precision. The exact tier carries the covariance recursion in float64
+whatever the inputs' type: the packed ``c``, ``Cw``, ``1/S`` and the
+downdate; the operators (``P_s``, ``sig``, ``Ballw``, ``Gsw``, ``w``),
+the means, the data, the log-density and the result stay in the inputs'
+type (float32 in, float32 out). Stored in float32 between frames the
+covariance drifted over a long trajectory (0.32-0.34 nats per profile
+family at T=1000 against the float64 build on an H100); carried in
+float64 it reads 0.02. The split tiers keep their float32 covariance.
+
 `msrouse_logL_sym` launches the kernel for CUDA tensors and runs
 `msrouse_logL_sym_torch` for CPU tensors, with no fallback between them.
 Counters: ``msrouse_logL_sym.launches`` (every launch),
@@ -117,11 +126,14 @@ def split_ld(PPp) -> int:
 
 
 def sym_smem_bytes(tile, n, N, d, q, itemsize, tier="exact",
-                   stages=_STAGES) -> int:
+                   stages=_STAGES, cov_itemsize=8) -> int:
     """Shared memory of one block of the packed kernel with ``tile``
-    profiles. The exact tier (``sym_layout`` in ``csrc/kalman_sym.cu``):
-    two packed covariance buffers of ``tile * q`` columns (stride ``PPp``
-    plus one 16-byte vector), two ``P_s`` slabs for each of the n states,
+    profiles. The exact tier (``sym_layout`` in ``csrc/kalman_sym.cu``),
+    with ``itemsize``-byte operators and means and a ``cov_itemsize``-byte
+    covariance: two packed covariance buffers of ``tile * q`` columns
+    (stride ``PPp`` plus one 16-byte vector) and ``Cw`` and ``1/S`` per
+    column in the covariance's type; two ``P_s`` slabs for each of the n
+    states,
     two mean buffers, ``Cw`` and ``1/S`` per column, the log-likelihoods,
     the mean operators ``Ballw, Gsw``, ``w``, ``s2``, one frame's data, the
     packed index table, ``Cind``, the column lists and two slab barriers.
@@ -146,23 +158,25 @@ def sym_smem_bytes(tile, n, N, d, q, itemsize, tier="exact",
                  4 * (N + (PPp if tier == "split" else 0)), 4 * d, 4 * 8 * nct,
                  4 * nct, 4 * tile, 16, 16 * stages)
         return stages * _MB * _DEPTH * 4 + sum(_a16(x) for x in parts)
-    ld = PPp + 16 // itemsize
+    ld = PPp + 16 // cov_itemsize
     nct = -(-ncol // _TN) + n
     slab = 2 * n * min(PPp, _ROWS_MAX) * _BK * itemsize
-    floats = (ncol * ld, ncol * ld, tile * (N + 1) * d, tile * (N + 1) * d,
-              ncol * N, ncol, tile, n * (N + 1) * N, n * (N + 1) * d, N, q, d)
+    covs = (ncol * ld, ncol * ld, ncol * N, ncol)
+    floats = (tile * (N + 1) * d, tile * (N + 1) * d, tile, n * (N + 1) * N,
+              n * (N + 1) * d, N, q, d)
     ints = (d, nct * _TN, nct, tile)
-    return (sum(_a16(x * itemsize) for x in floats) + _a16(slab) + _a16(2 * PP)
-            + sum(_a16(4 * x) for x in ints) + 16 + 16)
+    return (sum(_a16(x * cov_itemsize) for x in covs)
+            + sum(_a16(x * itemsize) for x in floats) + _a16(slab)
+            + _a16(2 * PP) + sum(_a16(4 * x) for x in ints) + 16 + 16)
 
 
-def _tile_fits(tile, n, N, d, q, itemsize, tier="exact"):
+def _tile_fits(tile, n, N, d, q, itemsize, tier="exact", cov_itemsize=8):
     if tier == "exact":
         cols = -(-tile * q // _TN) + n <= SYM_THREADS
     else:
         cols = itemsize == 4 and tile * q <= _SPLIT_COLS
-    return (sym_smem_bytes(tile, n, N, d, q, itemsize, tier) <= SMEM_LIMIT
-            and cols)
+    return (sym_smem_bytes(tile, n, N, d, q, itemsize, tier,
+                           cov_itemsize=cov_itemsize) <= SMEM_LIMIT and cols)
 
 
 def sym_fits(n, N, d, q, itemsize, tier="exact") -> bool:
@@ -186,19 +200,24 @@ class SymPlan:
 
 
 def sym_plan(L, P, n, N, d, q, itemsize, sms=H100_SMS,
-             tier="exact") -> SymPlan:
+             tier="exact", cov_itemsize=8) -> SymPlan:
     """
-    Tile width for an ``(L, P)`` launch in ``tier``. The widest tile (of
-    `SYM_TILES`) that fits `SMEM_LIMIT`, keeps two blocks resident per SM
-    and still gives every SM two blocks; else the widest that gives every
-    SM one block; else the narrowest, so that a single-trajectory step
-    (L=1, P=100) spreads over as many SMs as it has profiles. The split
-    tiers then take the deepest operator ring (up to `_MAX_STAGES`) that
-    keeps two blocks per SM where the tile was chosen for two, else that
-    fits `SMEM_LIMIT`. Raises for shapes that `sym_fits` refuses.
+    Tile width for an ``(L, P)`` launch in ``tier`` (the exact tier with a
+    ``cov_itemsize``-byte covariance: 8, float64, in this kernel; 4 gives
+    the layout and plan of its float32-covariance predecessor). The
+    widest tile (of `SYM_TILES`) that fits `SMEM_LIMIT`, keeps two blocks
+    resident per SM and still gives every SM two blocks, where the kernel
+    holds two blocks per SM (the split tiers; a float32 covariance); else
+    the widest that gives every SM one block; else the narrowest, so that
+    a single-trajectory step (L=1, P=100) spreads over as many SMs as it
+    has profiles. The exact tier's float64 covariance takes the registers
+    of a second block, so it is planned for one. The split tiers then
+    take the deepest operator ring (up to `_MAX_STAGES`) that keeps two
+    blocks per SM where the tile was chosen for two, else that fits
+    `SMEM_LIMIT`. Raises for shapes that `sym_fits` refuses.
     """
     fits = [t for t in SYM_TILES
-            if _tile_fits(t, n, N, d, q, itemsize, tier)]
+            if _tile_fits(t, n, N, d, q, itemsize, tier, cov_itemsize)]
     if not fits:
         raise ValueError(f"packed kernel does not fit n={n}, N={N}, d={d}, "
                          f"q={q}, {itemsize}-byte floats, tier {tier!r}")
@@ -207,9 +226,11 @@ def sym_plan(L, P, n, N, d, q, itemsize, sms=H100_SMS,
         return L * -(-P // t)
 
     def smem(t):
-        return sym_smem_bytes(t, n, N, d, q, itemsize, tier)
+        return sym_smem_bytes(t, n, N, d, q, itemsize, tier,
+                              cov_itemsize=cov_itemsize)
 
-    two = [t for t in fits if 2 * (smem(t) + 1024) <= SMEM_PER_SM
+    two_per_sm = tier != "exact" or cov_itemsize == 4
+    two = [t for t in fits if two_per_sm and 2 * (smem(t) + 1024) <= SMEM_PER_SM
            and blocks(t) >= 2 * sms]
     one = [t for t in fits if blocks(t) >= sms]
     chosen = (two or one or fits[-1:])[0]
@@ -430,11 +451,12 @@ class SymOperators:
 def update_contraction(ops: SymOperators, c, s2, split=False):
     """The update contraction ``R1 = U1 c`` of packed covariances ``c``
     (..., q, PPp): ``(Cw (..., q, N), Sinv (..., q))``, ``Sinv = 1 / (S +
-    s2)``; ``split``: each product split (`split_product`), 'split''s."""
+    s2)``, in ``c``'s type (``U1`` converted exactly); ``split``: each
+    product split (`split_product`), 'split''s."""
     if split:
         R1 = split_product(lambda a, v: v @ a.T, ops.pairs["U1"], c)
     else:
-        R1 = c @ ops.U1.T
+        R1 = c @ ops.U1.to(c.dtype).T
     return R1[..., :ops.N], 1.0 / (R1[..., ops.S_OFF] + s2)
 
 
@@ -458,12 +480,23 @@ def msrouse_logL_sym_torch(ops: SymOperators, s2, Cind, profiles, ydata,
     as `ops.kalman.msrouse_logL_batch` (lane or single-lane form).
     ``matmul`` is the tier (`check_tier`; inert unless ``ydata`` is
     float32): the split products are `split_product` on the operators'
-    `pairs`."""
+    `pairs`. The exact tier carries ``c``, ``Cw``, ``1/S`` and the
+    downdate in float64, the operators converted exactly at use; ``K``
+    and ``1/S`` are rounded once to the inputs' type for the means and the
+    log-density. The split tiers carry them in the inputs' type."""
     matmul = check_tier(matmul)
     msrouse_logL_sym_torch.calls += 1
     split_cov = matmul != "exact" and ydata.dtype == torch.float32
-    split_upd = split_cov and matmul == "split"
+    return _sym_recursion(ops, s2, Cind, profiles, ydata, valid, split_cov,
+                          split_cov and matmul == "split",
+                          ydata.dtype if split_cov else torch.float64)
 
+
+def _sym_recursion(ops, s2, Cind, profiles, ydata, valid, split_cov,
+                   split_upd, cov):
+    """`msrouse_logL_sym_torch`'s recursion: the conjugation split
+    (``split_cov``) or not, the update contraction and the means split
+    (``split_upd``) or not, the covariance carried in ``cov``."""
     profiles, ydata, valid, single = as_lanes(profiles, ydata, valid)
     n, N, PPp = ops.n, ops.N, ops.PPp
     L, P, T = profiles.shape
@@ -475,8 +508,9 @@ def msrouse_logL_sym_torch(ops: SymOperators, s2, Cind, profiles, ydata,
     lane = torch.arange(R, device=dev) // P                # row -> lane
     ia, ja = (torch.as_tensor(i, device=dev) for i in np.triu_indices(N))
 
+    Pall, sig = (None if split_cov else ops.Pall.to(cov)), ops.sig.to(cov)
     st0 = prof[:, 0]
-    c = ops.c0[st0][:, None, :].expand(R, q, PPp)          # (R, q, PPp)
+    c = ops.c0.to(cov)[st0][:, None, :].expand(R, q, PPp)  # (R, q, PPp)
     M = ops.M0w[st0]                                       # (R, N1p, d)
     acc = torch.zeros((R,), dtype=ydata.dtype, device=dev)
 
@@ -486,8 +520,9 @@ def msrouse_logL_sym_torch(ops: SymOperators, s2, Cind, profiles, ydata,
         upd = torch.zeros_like(c)
         upd[..., :len(ia)] = Cw[..., ia] * Cw[..., ja]
         c_u = c - upd * Sinv[..., None]
+        K = (Cw * Sinv[..., None]).to(ydata.dtype)         # (R, q, N)
+        Sinv = Sinv.to(ydata.dtype)
         xmm = y - M[:, N, :]                               # (R, d)
-        K = Cw * Sinv[..., None]                           # (R, q, N)
         M_top = M[:, :N] + K[:, Cind].transpose(1, 2) * xmm[:, None, :]
         M_u = torch.cat([M_top, M[:, N:]], dim=1)
         Sd = Sinv[:, Cind]                                 # (R, d)
@@ -504,8 +539,8 @@ def msrouse_logL_sym_torch(ops: SymOperators, s2, Cind, profiles, ydata,
         if split_cov:                                      # every state
             Pc = split_product(lambda a, v: v @ a.T, ops.pairs["Pall"], c)
         else:
-            Pc = c @ ops.Pall.T
-        c = Pc.view(R, q, n, PPp)[rows, :, st] + ops.sig[st][:, None, :]
+            Pc = c @ Pall.T
+        c = Pc.view(R, q, n, PPp)[rows, :, st] + sig[st][:, None, :]
         M = mean_propagation(ops, M, st, split_upd)
         c, M, acc = observe(t, c, M, acc)
 

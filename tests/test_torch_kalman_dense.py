@@ -51,24 +51,28 @@ def test_wrapper_on_cpu_runs_the_plain_version(rng):
 
 
 # One block of one warp, n=2 states (csrc/kalman_dense.cu, each part
-# rounded up to 16 bytes). N=20, q=1, float32, operators in shared memory:
-# B, Sig 2 x 2 x 400 x 4, G 2 x 20 x 3 x 4, w 80, s2 16, Cind 16; the
-# warp's C, the scratch (X^T), M and Mn (400 + 400 + 2 x 60) x 4: 6992 +
-# 3680. N=20, q=3, float64: 13968 + (3 x 400 + 400 + 2 x 60) x 8. N=119,
-# q=3, float32, the operators in global memory (NP = 120) and so no Mn: w
-# 480, s2 16, Cind 16, and (3 x 14400 + 14400 + 360) x 4 = 231840.
-@pytest.mark.parametrize("N,d,q,itemsize,ops_shared,nbytes", [
-    (20, 3, 1, 4, True, 10672), (20, 3, 3, 8, True, 27728),
-    (119, 3, 3, 4, False, 232352)])
-def test_shared_memory_bytes(N, d, q, itemsize, ops_shared, nbytes):
+# rounded up to 16 bytes). N=20, q=1, float32 with the float64 covariance,
+# operators in shared memory: B, Sig 2 x 2 x 400 x 4, G 2 x 20 x 3 x 4, w
+# 80, s2 16, Cind 16; the warp's C and the scratch (X^T) 2 x 400 x 8, M
+# and Mn 2 x 60 x 4: 6992 + 6880. N=20, q=3, float64: 13968 + (3 x 400 +
+# 400 + 2 x 60) x 8. N=119, q=3, float32 with the float32 covariance (the
+# large-N plan), the operators in global memory (NP = 120) and so no Mn:
+# w 480, s2 16, Cind 16, and (3 x 14400 + 14400 + 360) x 4 = 231840.
+@pytest.mark.parametrize("N,d,q,itemsize,cov_itemsize,ops_shared,nbytes", [
+    (20, 3, 1, 4, 8, True, 13872), (20, 3, 3, 8, 8, True, 27728),
+    (119, 3, 3, 4, 4, False, 232352)])
+def test_shared_memory_bytes(N, d, q, itemsize, cov_itemsize, ops_shared,
+                             nbytes):
     assert kalman_dense.dense_smem_bytes(N, d, q, itemsize,
-                                         ops_shared=ops_shared) == nbytes
+                                         ops_shared=ops_shared,
+                                         cov_itemsize=cov_itemsize) == nbytes
     assert (nbytes <= kalman_dense.SMEM_LIMIT) is True
 
 
 def test_shared_memory_limit_is_hopper_block_maximum():
     assert kalman_dense.SMEM_LIMIT == 227 * 1024
-    assert kalman_dense.dense_smem_bytes(121, 3, 3, 4, ops_shared=False) \
+    assert kalman_dense.dense_smem_bytes(121, 3, 3, 4, ops_shared=False,
+                                         cov_itemsize=4) \
         > kalman_dense.SMEM_LIMIT
 
 
@@ -135,11 +139,14 @@ def test_cuda_lanes_match_plain_and_single_lanes(rng, cuda, dtype, rtol):
         np.testing.assert_array_equal(one.cpu().numpy(), got[i])
 
 
-def dense_edge(n, q, itemsize):
+def dense_edge(n, q, itemsize, cov_itemsize=None):
     """The largest N one warp of the dense kernel takes (d=3), with the
-    operators in global memory."""
+    operators in global memory and a ``cov_itemsize``-byte covariance
+    (default ``itemsize``: the narrowest, the large-N plan of float32)."""
+    cov = itemsize if cov_itemsize is None else cov_itemsize
     return max(N for N in range(1, 200)
-               if kalman_dense.dense_smem_bytes(N, 3, q, itemsize, n, 1, False)
+               if kalman_dense.dense_smem_bytes(N, 3, q, itemsize, n, 1, False,
+                                                cov)
                <= kalman_dense.SMEM_LIMIT)
 
 
@@ -153,20 +160,25 @@ def block_items(plan, b, L, P):
 @pytest.mark.parametrize("L,P", LAUNCHES)
 def test_plan_places_every_launch(L, P):
     """At every launch shape, in float32 and float64, q in {1, 3}, n in {2,
-    3}: at N=20, at the first N the packed kernel sends here and at the
+    3}: at N=20, at the first N the packed kernel sends here, at the
+    largest N one warp of float64 covariance takes, one N more and at the
     largest N one warp takes, the block fits the shared memory, has at
     least one warp, and the grid covers every (lane, profile) exactly
-    once; one N more raises."""
+    once; the covariance is float64 up to its edge and the inputs' type
+    beyond; one N more than the largest raises."""
     for itemsize, n, q in itertools.product((4, 8), (2, 3), (1, 3)):
         edge = dense_edge(n, q, itemsize)
+        cov_edge = dense_edge(n, q, itemsize, 8)
         past_sym = 1 + max(N for N in range(1, 100)
                            if kalman_sym.sym_fits(n, N, 3, q, itemsize))
-        assert past_sym <= edge
-        for N in (20, past_sym, edge):
+        assert past_sym <= cov_edge <= edge
+        for N in (20, past_sym, cov_edge, min(cov_edge + 1, edge), edge):
             plan = kalman_dense.dense_plan(L, P, n, N, 3, q, itemsize)
+            assert plan.cov_itemsize == (8 if N <= cov_edge else itemsize)
             assert plan.warps >= 1
             assert plan.smem == kalman_dense.dense_smem_bytes(
-                N, 3, q, itemsize, n, plan.warps, plan.ops_shared)
+                N, 3, q, itemsize, n, plan.warps, plan.ops_shared,
+                plan.cov_itemsize)
             assert plan.smem <= kalman_dense.SMEM_LIMIT
             assert covers_once([block_items(plan, b, L, P)
                                 for b in range(plan.blocks)], L * P)

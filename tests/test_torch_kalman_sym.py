@@ -214,26 +214,39 @@ def test_plan_places_every_launch(L, P):
 
 
 def test_plan_tiles():
-    """The lockstep launch gets 32-profile tiles with two blocks resident
-    per SM; a single-trajectory step spreads one profile per block;
-    float64 takes narrower tiles."""
+    """The lockstep launch gets 32-profile tiles, one block per SM (the
+    float64 covariance's registers leave no room for a second); with a
+    float32 covariance (its predecessor's layout) the same tiles kept two
+    blocks resident per SM, and a 16-profile config 4 scout tile two; a
+    single-trajectory step spreads one profile per block; float64 takes
+    the same tiles as float32."""
     lock = kalman_sym.sym_plan(640, 128, 2, 20, 3, 1, 4)
     assert lock.tile == 32 and lock.blocks == 2560
-    assert 2 * (lock.smem + 1024) <= kalman_dense.SMEM_PER_SM
+    assert lock.smem + 1024 <= kalman_dense.SMEM_PER_SM < 2 * (lock.smem + 1024)
+    old = kalman_sym.sym_plan(640, 128, 2, 20, 3, 1, 4, cov_itemsize=4)
+    assert old.tile == 32 and 2 * (old.smem + 1024) <= kalman_dense.SMEM_PER_SM
+    assert kalman_sym.sym_plan(112, 128, 3, 20, 3, 1, 4).tile == 32
+    assert kalman_sym.sym_plan(112, 128, 3, 20, 3, 1, 4, cov_itemsize=4).tile == 16
     assert kalman_sym.sym_plan(1, 100, 2, 20, 3, 1, 4).blocks == 100
-    assert kalman_sym.sym_plan(640, 128, 2, 20, 3, 1, 8).tile < 32
+    assert kalman_sym.sym_plan(640, 128, 2, 20, 3, 1, 8).tile == 32
 
 
 def test_smem_bytes_at_the_lockstep_tile():
     """The layout of csrc/kalman_sym.cu at TP=32, n=2, N=20, d=3, q=1,
-    float32 (each part rounded up to 16 bytes): c and cn 2 x 32 x 220 x 4,
-    the slabs 2 x 2 x 216 x 8 x 4, M and Mn 2 x 32 x 21 x 3 x 4, Cw 32 x 20
-    x 4, 1/S and ll 2 x 32 x 4, Ballw 2 x 21 x 20 x 4, Gsw 2 x 21 x 3 x 4
-    (504 -> 512), w 80, s2 16, y 16, the index table 420 -> 432, Cind 16,
-    the lists 160 + 48 + 128, the counts 16, the two slab barriers 16."""
-    want = (56320 + 27648 + 16128 + 2560 + 256 + 3360 + 512 + 80 + 16 + 16
-            + 432 + 16 + 160 + 48 + 128 + 16 + 16)
-    assert kalman_sym.sym_smem_bytes(32, 2, 20, 3, 1, 4) == want == 107712
+    float32 with the float64 covariance (each part rounded up to 16
+    bytes): c and cn 2 x 32 x 218 x 8, the slabs 2 x 2 x 216 x 8 x 4, M
+    and Mn 2 x 32 x 21 x 3 x 4, Cw 32 x 20 x 8, 1/S 32 x 8, ll 32 x 4,
+    Ballw 2 x 21 x 20 x 4, Gsw 2 x 21 x 3 x 4 (504 -> 512), w 80, s2 16, y
+    16, the index table 420 -> 432, Cind 16, the lists 160 + 48 + 128, the
+    counts 16, the two slab barriers 16. With a float32 covariance (the
+    parent kernel's layout) c and cn take 2 x 32 x 220 x 4, Cw 32 x 20 x 4
+    and 1/S 32 x 4."""
+    rest = (27648 + 16128 + 128 + 3360 + 512 + 80 + 16 + 16 + 432 + 16 + 160
+            + 48 + 128 + 16 + 16)
+    want = 111616 + 5120 + 256 + rest
+    assert kalman_sym.sym_smem_bytes(32, 2, 20, 3, 1, 4) == want == 165696
+    assert kalman_sym.sym_smem_bytes(32, 2, 20, 3, 1, 4, cov_itemsize=4) \
+        == 56320 + 2560 + 128 + rest == 107712
 
 
 @pytest.mark.cuda
