@@ -101,6 +101,97 @@ int launch(Kernel kernel, long long blocks, int threads, size_t smem,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Thread block clusters: the rank of this block in its cluster, the
+// cluster address of the same shared variable in block `rank` (distributed
+// shared memory), an asynchronous store there, and the cluster barrier
+// (every thread of every block arrives; the writes before it are seen
+// after it).
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned map_rank(unsigned addr, unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+// store v at cluster address `addr`; its 8 bytes count as complete_tx on
+// the barrier at cluster address `bar` (in the same block as addr)
+__device__ __forceinline__ void st_async(unsigned addr, double v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f64 [%0], %1, [%2];\n"
+               ::"r"(addr), "d"(v), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The attributes of a cluster launch of `kernel`: `smem` bytes of dynamic
+// shared memory, and clusters above the portable 8 blocks allowed.
+template <typename Kernel>
+cudaError_t cluster_attributes(Kernel kernel, int cluster, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             static_cast<int>(cudaSharedmemCarveoutMaxShared));
+  if (err != cudaSuccess || cluster <= 8) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+inline cudaLaunchConfig_t cluster_config(long long blocks, int threads, size_t smem,
+                                         void* stream, cudaLaunchAttribute* attr,
+                                         int cluster) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned int>(blocks), 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// launch() for a kernel in clusters of `cluster` blocks (`blocks` a
+// multiple of it), through cudaLaunchKernelEx. A refused launch returns
+// its error; it never falls back to a launch without clusters.
+template <typename... Params, typename... Args>
+int launch_cluster(void (*kernel)(Params...), long long blocks, int cluster, int threads,
+                   size_t smem, int device, void* stream, Args... args) {
+  if (blocks > 2147483647LL || cluster < 1 || blocks % cluster != 0)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (blocks == 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cluster_attributes(kernel, cluster, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(blocks, threads, smem, stream, &attr, cluster);
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// How many clusters of `cluster` blocks of `kernel` (each `threads`
+// threads and `smem` bytes of dynamic shared memory) the device holds at
+// once (cudaOccupancyMaxActiveClusters), or minus the error code.
+template <typename Kernel>
+int max_active_clusters(Kernel kernel, int cluster, int threads, size_t smem, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cluster_attributes(kernel, cluster, smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(cluster, threads, smem, nullptr, &attr, cluster);
+  int count = 0;
+  err = cudaOccupancyMaxActiveClusters(&count, reinterpret_cast<const void*>(kernel), &cfg);
+  return err == cudaSuccess ? count : -static_cast<int>(err);
+}
+
 }  // namespace bild
 
 extern "C" const char* bild_cuda_error_string(int code) {

@@ -1,6 +1,7 @@
 // Packed-symmetric Rouse-Kalman log-likelihood: one block per tile of TP
-// profiles of one lane, where a lane is one trajectory and all lanes share
-// the model.
+// profiles of one lane (the tile plan), or one cluster of C blocks per
+// group of profiles of one lane (the cluster plan), where a lane is one
+// trajectory and all lanes share the model.
 //
 // Replaces the Pallas kernel bild_tpu/ops/kalman_sym.py::_kernel. The
 // covariance is carried packed: the PP = N(N+1)/2 entries (a, b), a <= b, in
@@ -79,12 +80,42 @@
 // ops/kalman_sym.py::sym_smem_bytes compute the same bytes; the launch
 // refuses a mismatch.
 //
+// The cluster plan (ops/kalman_sym.py::sym_plan), for launches where even
+// one profile per block leaves SMs idle: sample()'s single-trajectory step
+// (L=1, P=100) gave 100 one-profile blocks, each streaming its state's
+// whole P_s from L2 in 27 slabs, one at a time, per frame (2.1 ms, 0.2 %
+// of the bound). Here a cluster of C = 8 blocks (one per SM) takes TP
+// profiles of one lane, as few as let every cluster run at once (the
+// card's cudaOccupancyMaxActiveClusters: 15 clusters of 8 on an H100).
+// Block `rank` owns operator rows PP/C (+1) of every state: they are
+// bulk-copied into its shared memory once (ops/kalman_sym.py::
+// row_operators) and stay there for all T frames.
+// Every block keeps a replica of the cluster's covariances. Per frame it
+// computes its rows of cn[:, col] = P_s c[:, col] + sig_s for every column
+// (one thread per (row, column), the tile kernel's FMA chain), stores each
+// into every block's replica with st.async, whose bytes count on the
+// receiving block's mbarrier of that buffer (no cluster barrier per
+// frame: a block waits for the bytes of its replica, and a peer can only
+// overwrite a buffer after every block has sent the rows it read from it),
+// then runs the means and the update on its replica, the same work in
+// every block. Rank 0 writes the results. Measured on an H100 (PERF.md,
+// tools/profile_kernels.py): about 0.62 ms at sample()'s step, a third of
+// the tile plan's time; of a frame the product takes about 39 %, bound by
+// shared-memory wavefronts (each thread reads its own operator row), the
+// update about 38 % (latency: a 20-long FMA chain per entry and four block
+// barriers), the means 13 %, the exchange 6 %. No state sort: a thread's
+// columns share no operator load (one column per thread keeps six warps
+// in the product; groups of 4 columns of one state measured slower).
+// Clusters of 16 measure slower too (chip_smoke.py's cluster phase times
+// both): each block then updates twice the columns.
+//
 // A profile's result does not depend on its partners: every output of the
 // products is one thread's dot product over k = 0..PPp-1 in order, the
 // downdate's products are rounded explicitly (never contracted), and
-// every other step is per profile. So a lane launch equals single-lane
-// launches, a permutation of the profiles permutes the results and a
-// subset gives the same bits, whatever the tile width.
+// every other step is per profile, in code both plans share. So a lane
+// launch equals single-lane launches, a permutation of the profiles
+// permutes the results and a subset gives the same bits, whatever the
+// tile width or plan.
 //
 // The split-bf16 tiers ('split_cov', 'split') have a kernel of their own,
 // kalman_sym_split.cu.
@@ -164,6 +195,175 @@ __host__ __device__ SymLayout sym_layout(int n, int N, int d, int q, int PPp,
   s.bar = o;    o += 16;  // two mbarriers, one per slab buffer
   s.bytes = o;
   return s;
+}
+
+// What the shared steps of a frame read and write: a block's tp profiles
+// (column p q + qi of profile p) and the model's small operands, all in
+// shared memory. Both kernels run these steps with the same code, so a
+// profile's bits do not depend on which kernel evaluated it.
+template <typename scalar_t, typename cov_t>
+struct Frame {
+  cov_t* c;                  // (ncol, ld) packed covariances
+  scalar_t* M;               // (tp, N+1, d) means
+  scalar_t* Mn;              // (tp, N+1, d) propagated means
+  cov_t* R;                  // (ncol, N): Cw
+  cov_t* Sinv;               // (ncol)
+  scalar_t* llv;             // (tp) log-likelihoods
+  const scalar_t* Bw;        // (n, N+1, N)
+  const scalar_t* Gw;        // (n, N+1, d)
+  const scalar_t* w;         // (N)
+  const scalar_t* s2;        // (q)
+  const scalar_t* yt;        // (d): this frame's data
+  const unsigned short* ab;  // (a, b) of packed entry k, a in the low byte
+  const int* Cind;           // (d)
+  const int* pstate;         // (tp): this frame's state of each profile
+  int tp, ncol, ld, N, d, q;
+};
+
+// sum_k x[k] y[k] over k = 0..K-1 in order, in cov_t, four loads at a
+// time (x covariance entries, y the scalar_t w)
+template <typename scalar_t, typename cov_t>
+__device__ __forceinline__ cov_t dot(const cov_t* x, const scalar_t* y, int K) {
+  cov_t acc = 0;
+  int k = 0;
+#pragma unroll 1
+  for (; k + 4 <= K; k += 4) {
+    cov_t xv[4], yv[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      xv[u] = x[k + u];
+      yv[u] = cov_t(y[k + u]);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc = fma(xv[u], yv[u], acc);
+  }
+#pragma unroll 1
+  for (; k < K; ++k) acc = fma(x[k], cov_t(y[k]), acc);
+  return acc;
+}
+
+// The measurement update of the frame whose data f.yt holds; ends with a
+// block barrier. mark(k) ends its step k (0: Cw, 1: 1/S, 2: the rest) for
+// the phase marks of tools/profile_kernels.py.
+template <typename scalar_t, typename cov_t, typename Mark>
+__device__ __forceinline__ void measurement_update(const Frame<scalar_t, cov_t>& f, Mark mark) {
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int N = f.N, d = f.d, q = f.q, ncol = f.ncol, tp = f.tp, ld = f.ld;
+  const int N1 = N + 1, PP = N * (N + 1) / 2;
+  cov_t* c = f.c;
+  cov_t* R = f.R;
+  cov_t* Sinv = f.Sinv;
+  scalar_t* M = f.M;
+  scalar_t* llv = f.llv;
+  const scalar_t* w = f.w;
+  const scalar_t* s2 = f.s2;
+  const scalar_t* yt = f.yt;
+  const unsigned short* ab = f.ab;
+  const int* Cind = f.Cind;
+  // Cw[col, a] = sum_b C_ab w_b, read from the packed column: row a of
+  // the upper triangle (b >= a) is contiguous, column a (b < a) strided.
+  // One loop over b = 0..N-1 that every lane of a warp runs alike sums
+  // the strided part and the row's part apart, each in order from 0 (the
+  // bits of two loops, which a warp would run one after the other), and
+  // adds them
+#pragma unroll 1
+  for (int item = tid; item < ncol * N; item += nth) {
+    const int col = item / N, a = item % N;
+    const cov_t* cc = c + static_cast<size_t>(col) * ld;
+    cov_t lo = 0, hi = 0;
+    int k = a;  // packed index of (min(a, b), max(a, b))
+#pragma unroll 4
+    for (int b = 0; b < N; ++b) {
+      const cov_t x = cc[k], y = cov_t(w[b]);
+      if (b < a) {
+        lo = fma(x, y, lo);
+        k += N - 1 - b;
+      } else {
+        hi = fma(x, y, hi);
+        k += 1;
+      }
+    }
+    R[col * N + a] = lo + hi;
+  }
+  __syncthreads();
+  mark(0);
+#pragma unroll 1
+  for (int col = tid; col < ncol; col += nth)  // S = w.Cw + s2
+    Sinv[col] = cov_t(1) / (dot(R + col * N, w, N) + cov_t(s2[col % q]));
+  __syncthreads();
+  mark(1);
+#pragma unroll 1
+  for (int k = tid; k < PP; k += nth) {  // c[(a,b)] -= (Cw_a Cw_b) Sinv
+    const int a = ab[k] & 0xff, b = ab[k] >> 8;
+    auto down = [&](int col) {
+      return bild::mul_rn(bild::mul_rn(R[col * N + a], R[col * N + b]), Sinv[col]);
+    };
+    int col = 0;
+    for (; col + 4 <= ncol; col += 4) {  // four columns' loads before their stores
+      cov_t v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = down(col + u);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        cov_t* cc = c + static_cast<size_t>(col + u) * ld + k;
+        *cc = bild::sub_rn(*cc, v[u]);
+      }
+    }
+    for (; col < ncol; ++col) {
+      cov_t* cc = c + static_cast<size_t>(col) * ld + k;
+      *cc = bild::sub_rn(*cc, down(col));
+    }
+  }
+  // M += K[Cind] (y - w.M), K rounded once to scalar_t
+#pragma unroll 1
+  for (int item = tid; item < tp * N; item += nth) {
+    const int p = item / N, i = item % N;
+    scalar_t* Mp = M + p * N1 * d;
+#pragma unroll
+    for (int dd = 0; dd < kMaxD; ++dd) {
+      if (dd < d) {
+        const int col = p * q + Cind[dd];
+        Mp[i * d + dd] += scalar_t(R[col * N + i] * Sinv[col]) * (yt[dd] - Mp[N * d + dd]);
+      }
+    }
+  }
+#pragma unroll 1
+  for (int p = tid; p < tp; p += nth) {
+    scalar_t ll = llv[p];
+    for (int dd = 0; dd < d; ++dd) {
+      const scalar_t Sv = scalar_t(Sinv[p * q + Cind[dd]]);
+      const scalar_t xmm = yt[dd] - M[p * N1 * d + N * d + dd];
+      ll -= scalar_t(0.5) *
+            (xmm * xmm * Sv - bild::dlog(Sv) + scalar_t(bild::kLog2Pi));
+    }
+    llv[p] = ll;
+  }
+  __syncthreads();
+  mark(2);
+}
+
+// Mn[p] = Ballw_s M[p] + Gsw_s, s the profile's state: one row of one
+// profile per item, its d columns at once (no barrier)
+template <typename scalar_t, typename cov_t>
+__device__ __forceinline__ void propagate_means(const Frame<scalar_t, cov_t>& f) {
+  const int N = f.N, d = f.d, N1 = N + 1;
+#pragma unroll 1
+  for (int item = threadIdx.x; item < f.tp * N1; item += blockDim.x) {
+    const int p = item / N1, row = item % N1, s = f.pstate[p];
+    const scalar_t* Bwr = f.Bw + (s * N1 + row) * N;
+    const scalar_t* Mp = f.M + p * N1 * d;
+    scalar_t acc[kMaxD] = {};
+#pragma unroll 4
+    for (int k = 0; k < N; ++k) {
+      const scalar_t b = Bwr[k];
+#pragma unroll
+      for (int dd = 0; dd < kMaxD; ++dd)
+        if (dd < d) acc[dd] = fma(b, Mp[k * d + dd], acc[dd]);
+    }
+#pragma unroll
+    for (int dd = 0; dd < kMaxD; ++dd)
+      if (dd < d) f.Mn[(p * N1 + row) * d + dd] = acc[dd] + f.Gw[(s * N1 + row) * d + dd];
+  }
 }
 
 // one block per SM: the float64 covariance's register tile leaves no
@@ -257,90 +457,10 @@ kalman_sym_kernel(const scalar_t* __restrict__ Pslab,
   __syncthreads();
   BILD_PHASE_START();
 
-  // sum_k x[k] y[k] over k = 0..K-1 in order, in cov_t, four loads at a
-  // time (x covariance entries, y the scalar_t w)
-  auto dot = [](const cov_t* x, const scalar_t* y, int K) {
-    cov_t acc = 0;
-    int k = 0;
-    for (; k + 4 <= K; k += 4) {
-      cov_t xv[4], yv[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        xv[u] = x[k + u];
-        yv[u] = cov_t(y[k + u]);
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc = fma(xv[u], yv[u], acc);
-    }
-    for (; k < K; ++k) acc = fma(x[k], cov_t(y[k]), acc);
-    return acc;
-  };
-
-  // the measurement update of frame t (whose data yt holds)
-  auto update = [&]() {
-    // Cw[col, a] = sum_b C_ab w_b, read from the packed column: row a of
-    // the upper triangle (b >= a) is contiguous, column a (b < a) strided
-    for (int item = tid; item < ncol * N; item += nth) {
-      const int col = item / N, a = item % N;
-      const cov_t* cc = c + static_cast<size_t>(col) * ld;
-      cov_t acc = 0;
-      int k = a;  // packed index of (b, a), b = 0..a-1
-#pragma unroll 4
-      for (int b = 0; b < a; ++b) {
-        acc = fma(cc[k], cov_t(w[b]), acc);
-        k += N - 1 - b;
-      }
-      const cov_t* row = cc + a * N - a * (a - 1) / 2;  // entries (a, a..N-1)
-      R[col * N + a] = acc + dot(row, w + a, N - a);
-    }
-    __syncthreads();
-    for (int col = tid; col < ncol; col += nth)  // S = w.Cw + s2
-      Sinv[col] = cov_t(1) / (dot(R + col * N, w, N) + cov_t(s2[col % q]));
-    __syncthreads();
-    for (int k = tid; k < PP; k += nth) {  // c[(a,b)] -= (Cw_a Cw_b) Sinv
-      const int a = ab[k] & 0xff, b = ab[k] >> 8;
-      auto down = [&](int col) {
-        return bild::mul_rn(bild::mul_rn(R[col * N + a], R[col * N + b]), Sinv[col]);
-      };
-      int col = 0;
-      for (; col + 4 <= ncol; col += 4) {  // four columns' loads before their stores
-        cov_t v[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) v[u] = down(col + u);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          cov_t* cc = c + static_cast<size_t>(col + u) * ld + k;
-          *cc = bild::sub_rn(*cc, v[u]);
-        }
-      }
-      for (; col < ncol; ++col) {
-        cov_t* cc = c + static_cast<size_t>(col) * ld + k;
-        *cc = bild::sub_rn(*cc, down(col));
-      }
-    }
-    // M += K[Cind] (y - w.M), K rounded once to scalar_t
-    for (int item = tid; item < tp * N; item += nth) {
-      const int p = item / N, i = item % N;
-      scalar_t* Mp = M + p * N1 * d;
-#pragma unroll
-      for (int dd = 0; dd < kMaxD; ++dd) {
-        if (dd < d) {
-          const int col = p * q + Cind[dd];
-          Mp[i * d + dd] += scalar_t(R[col * N + i] * Sinv[col]) * (yt[dd] - Mp[N * d + dd]);
-        }
-      }
-    }
-    for (int p = tid; p < tp; p += nth) {
-      scalar_t ll = llv[p];
-      for (int dd = 0; dd < d; ++dd) {
-        const scalar_t Sv = scalar_t(Sinv[p * q + Cind[dd]]);
-        const scalar_t xmm = yt[dd] - M[p * N1 * d + N * d + dd];
-        ll -= scalar_t(0.5) *
-              (xmm * xmm * Sv - bild::dlog(Sv) + scalar_t(bild::kLog2Pi));
-      }
-      llv[p] = ll;
-    }
-    __syncthreads();
+  // this frame's view of the block's profiles, for the shared steps
+  auto frame = [&]() {
+    return Frame<scalar_t, cov_t>{c, M, Mn, R, Sinv, llv, Bw, Gw, w, s2, yt, ab,
+                                  Cind, pstate, tp, ncol, ld, N, d, q};
   };
 
   // Sort this frame's columns by state: the columns of state s fill group
@@ -386,27 +506,6 @@ kalman_sym_kernel(const scalar_t* __restrict__ Pslab,
       }
     }
     __syncthreads();
-  };
-
-  // Mn[p] = Ballw_s M[p] + Gsw_s, s the profile's state: one row of one
-  // profile per item, its d columns at once
-  auto propagate_means = [&]() {
-    for (int item = tid; item < tp * N1; item += nth) {
-      const int p = item / N1, row = item % N1, s = pstate[p];
-      const scalar_t* Bwr = Bw + (s * N1 + row) * N;
-      const scalar_t* Mp = M + p * N1 * d;
-      scalar_t acc[kMaxD] = {};
-#pragma unroll 4
-      for (int k = 0; k < N; ++k) {
-        const scalar_t b = Bwr[k];
-#pragma unroll
-        for (int dd = 0; dd < kMaxD; ++dd)
-          if (dd < d) acc[dd] = fma(b, Mp[k * d + dd], acc[dd]);
-      }
-#pragma unroll
-      for (int dd = 0; dd < kMaxD; ++dd)
-        if (dd < d) Mn[(p * N1 + row) * d + dd] = acc[dd] + Gw[(s * N1 + row) * d + dd];
-    }
   };
 
   // cn[:, col] = P_s c[:, col] + sig_s for every column, s its state, and
@@ -466,7 +565,7 @@ kalman_sym_kernel(const scalar_t* __restrict__ Pslab,
 
       if (row0 > 0) __syncthreads();  // the last pass's slabs are consumed
       issue(0);
-      if (row0 == 0) propagate_means();
+      if (row0 == 0) propagate_means(frame());
       BILD_PHASE(1);
       for (int kb = 0; kb < nkb; ++kb) {
         bild::mbar_wait(&bar[kb & 1], (parity >> (kb & 1)) & 1u);  // slab kb landed
@@ -540,12 +639,268 @@ kalman_sym_kernel(const scalar_t* __restrict__ Pslab,
       cov_t* tmp = c; c = cn; cn = tmp;
       scalar_t* tmpM = M; M = Mn; Mn = tmpM;
     }
-    if (valid_traj[t]) update();
+    if (valid_traj[t]) measurement_update(frame(), [&](int) { BILD_PHASE(6); });
     BILD_PHASE(6);
   }
   BILD_PHASE_END();
 
   for (int p = tid; p < tp; p += nth) out[traj * P + p0 + p] = llv[p];
+}
+
+// The operator rows [first, first + count) that block `rank` of a cluster
+// of C owns: PP / C each, one more for the first PP % C blocks. Mirrored
+// by ops/kalman_sym.py::cluster_rows.
+__host__ __device__ inline int cluster_first_row(int PP, int C, int rank) {
+  return rank * (PP / C) + (rank < PP % C ? rank : PP % C);
+}
+__host__ __device__ inline int cluster_row_count(int PP, int C, int rank) {
+  return PP / C + (rank < PP % C ? 1 : 0);
+}
+
+// A cluster launch asks for at least this much shared memory per block,
+// more than half of an SM's (two resident blocks would need 2 x (116 KB +
+// 1 KB) of its 228 KB), so that its blocks spread one per SM.
+constexpr size_t kClusterSmem = 116 * 1024;
+
+struct ClusterLayout {
+  int ld;    // covariance column stride (scalars)
+  int ldp;   // operator row stride (scalars): PPp plus one 16-byte vector
+  int rows;  // operator rows per block, at most
+  size_t c, cn, P, sig, M, Mn, R, Sinv, ll, Bw, Gw, w, s2, y, ab, Cind, pstate, bar, bytes;
+};
+
+// Byte offsets of one cluster block's shared memory; mirrored by
+// ops/kalman_sym.py::sym_smem_bytes(..., cluster=C). The replicas of the
+// cluster's covariances, Cw and 1/S are cov_t, the rest scalar_t.
+template <typename scalar_t, typename cov_t>
+__host__ __device__ ClusterLayout cluster_layout(int n, int N, int d, int q, int PPp,
+                                                 int TP, int C) {
+  ClusterLayout s;
+  const size_t sz = sizeof(scalar_t), cz = sizeof(cov_t);
+  const int ncol = TP * q, PP = N * (N + 1) / 2;
+  s.ld = PPp + bild::Vec16<cov_t>::width;
+  s.ldp = PPp + bild::Vec16<scalar_t>::width;
+  s.rows = (PP + C - 1) / C;
+  size_t o = 0;
+  s.c = o;      o += align16(cz * ncol * s.ld);
+  s.cn = o;     o += align16(cz * ncol * s.ld);
+  s.P = o;      o += align16(sz * n * s.rows * s.ldp);
+  s.sig = o;    o += align16(sz * n * s.rows);
+  s.M = o;      o += align16(sz * TP * (N + 1) * d);
+  s.Mn = o;     o += align16(sz * TP * (N + 1) * d);
+  s.R = o;      o += align16(cz * ncol * N);
+  s.Sinv = o;   o += align16(cz * ncol);
+  s.ll = o;     o += align16(sz * TP);
+  s.Bw = o;     o += align16(sz * n * (N + 1) * N);
+  s.Gw = o;     o += align16(sz * n * (N + 1) * d);
+  s.w = o;      o += align16(sz * N);
+  s.s2 = o;     o += align16(sz * q);
+  s.y = o;      o += align16(sz * d);
+  s.ab = o;     o += align16(2 * PP);
+  s.Cind = o;   o += align16(4 * d);
+  s.pstate = o; o += align16(4 * TP);
+  s.bar = o;    o += 32;  // the operator rows' barrier; one per covariance buffer
+  s.bytes = o;
+  return s;
+}
+
+// The cluster plan: a cluster of C blocks evaluates TP profiles of one
+// lane. Block `rank` keeps its operator rows of every state resident in
+// shared memory for the whole launch, and a replica of the cluster's
+// covariances; per frame it computes its rows of every column's
+// propagation, stores them into every block's replica (distributed shared
+// memory, counted on that block's barrier of the buffer), and once its own
+// replica is whole runs the means and the update on it, the same work in
+// every block. Rank 0 writes the results. Cluster barriers only after the
+// set-up and before leaving. One block per SM (kClusterSmem), so its own
+// launch bounds.
+template <typename scalar_t, typename cov_t>
+__global__ void __launch_bounds__(kThreads, 1)
+kalman_sym_cluster_kernel(const scalar_t* __restrict__ Prow,
+                          const scalar_t* __restrict__ sig,
+                          const scalar_t* __restrict__ c0,
+                          const scalar_t* __restrict__ w_g,
+                          const scalar_t* __restrict__ Ballw,
+                          const scalar_t* __restrict__ Gsw,
+                          const scalar_t* __restrict__ M0w,
+                          const scalar_t* __restrict__ s2_g,
+                          const int* __restrict__ Cind_g,
+                          const int* __restrict__ profiles,
+                          const scalar_t* __restrict__ ydata,
+                          const unsigned char* __restrict__ valid,
+                          scalar_t* __restrict__ out,
+                          int n, int N, int d, int q, int P, int T, int PPp, int N1p,
+                          int TP, int C) {
+  constexpr int VW = bild::Vec16<scalar_t>::width;  // operator scalars per 16-byte load
+  constexpr int CVW = bild::Vec16<cov_t>::width;    // covariance scalars per load
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const ClusterLayout lay = cluster_layout<scalar_t, cov_t>(n, N, d, q, PPp, TP, C);
+  cov_t* c = reinterpret_cast<cov_t*>(smem_raw + lay.c);           // (ncol, ld): replica
+  cov_t* cn = reinterpret_cast<cov_t*>(smem_raw + lay.cn);         // (ncol, ld): replica
+  scalar_t* Pl = reinterpret_cast<scalar_t*>(smem_raw + lay.P);    // (n, rows, ldp): own rows
+  scalar_t* sigl = reinterpret_cast<scalar_t*>(smem_raw + lay.sig);  // (n, rows)
+  scalar_t* M = reinterpret_cast<scalar_t*>(smem_raw + lay.M);     // (TP, N+1, d)
+  scalar_t* Mn = reinterpret_cast<scalar_t*>(smem_raw + lay.Mn);
+  cov_t* R = reinterpret_cast<cov_t*>(smem_raw + lay.R);           // (ncol, N): Cw
+  cov_t* Sinv = reinterpret_cast<cov_t*>(smem_raw + lay.Sinv);     // (ncol)
+  scalar_t* llv = reinterpret_cast<scalar_t*>(smem_raw + lay.ll);  // (TP)
+  scalar_t* Bw = reinterpret_cast<scalar_t*>(smem_raw + lay.Bw);   // (n, N+1, N)
+  scalar_t* Gw = reinterpret_cast<scalar_t*>(smem_raw + lay.Gw);   // (n, N+1, d)
+  scalar_t* w = reinterpret_cast<scalar_t*>(smem_raw + lay.w);     // (N)
+  scalar_t* s2 = reinterpret_cast<scalar_t*>(smem_raw + lay.s2);   // (q)
+  scalar_t* yt = reinterpret_cast<scalar_t*>(smem_raw + lay.y);    // (d): this frame's data
+  unsigned short* ab = reinterpret_cast<unsigned short*>(smem_raw + lay.ab);
+  int* Cind = reinterpret_cast<int*>(smem_raw + lay.Cind);
+  int* pstate = reinterpret_cast<int*>(smem_raw + lay.pstate);     // state of each profile
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem_raw + lay.bar);
+
+  const int tid = threadIdx.x;
+  const int nth = blockDim.x;
+  const int PP = N * (N + 1) / 2;
+  const int N1 = N + 1;
+  const int ld = lay.ld, ldp = lay.ldp;
+  const int rank = static_cast<int>(bild::cluster_rank());
+  const int groups = (P + TP - 1) / TP;              // clusters per lane
+  const int cl = blockIdx.x / C;                     // this block's cluster
+  const size_t traj = cl / groups;                   // its lane
+  const int p0 = (cl % groups) * TP;
+  const int tp = min(TP, P - p0);                    // profiles in this cluster
+  const int ncol = tp * q;                           // column p*q + qi
+  const int r0 = cluster_first_row(PP, C, rank);     // this block's operator rows
+  const int nrows = cluster_row_count(PP, C, rank);
+  const int* prof = profiles + (traj * P + p0) * static_cast<size_t>(T);
+  const scalar_t* y_traj = ydata + traj * T * d;
+  const unsigned char* valid_traj = valid + traj * T;
+
+  // this block's rows of every state's P_s, once: the host stores each
+  // row padded to ldp scalars (ops/kalman_sym.py::row_operators), so the
+  // rows of one state are one bulk copy
+  if (tid == 0) {
+    for (int b = 0; b < 3; ++b) bild::mbar_init(&bar[b]);
+    if (nrows > 0) {
+      const unsigned bytes = nrows * ldp * sizeof(scalar_t);
+      bild::mbar_arrive_expect(bar, bytes * n);
+      for (int s = 0; s < n; ++s)
+        bild::bulk_copy(Pl + static_cast<size_t>(s) * lay.rows * ldp,
+                        Prow + (static_cast<size_t>(s) * PPp + r0) * ldp, bytes, bar);
+    }
+  }
+  for (int i = tid; i < ncol * ld; i += nth) {
+    const int col = i / ld, k = i % ld;
+    const int s0 = bild::clamp_state(prof[static_cast<size_t>(col / q) * T], n);
+    c[i] = k < PPp ? cov_t(c0[static_cast<size_t>(s0) * PPp + k]) : cov_t(0);
+    cn[i] = 0;
+  }
+  for (int i = tid; i < tp * N1 * d; i += nth) {
+    const int p = i / (N1 * d);
+    const int s0 = bild::clamp_state(prof[static_cast<size_t>(p) * T], n);
+    M[i] = M0w[static_cast<size_t>(s0) * N1p * d + i % (N1 * d)];
+  }
+  for (int p = tid; p < tp; p += nth) llv[p] = 0;
+  for (int a = tid; a < N; a += nth)
+    for (int b = a; b < N; ++b)
+      ab[a * N - a * (a - 1) / 2 + (b - a)] = static_cast<unsigned short>(a | (b << 8));
+  for (int i = tid; i < n * N1 * N; i += nth)
+    Bw[i] = Ballw[(static_cast<size_t>(i / (N1 * N)) * N1p) * N + i % (N1 * N)];
+  for (int i = tid; i < n * N1 * d; i += nth)
+    Gw[i] = Gsw[(static_cast<size_t>(i / (N1 * d)) * N1p) * d + i % (N1 * d)];
+  for (int i = tid; i < n * nrows; i += nth)
+    sigl[(i / nrows) * lay.rows + i % nrows] =
+        sig[static_cast<size_t>(i / nrows) * PPp + r0 + i % nrows];
+  for (int i = tid; i < N; i += nth) w[i] = w_g[i];
+  for (int i = tid; i < q; i += nth) s2[i] = s2_g[i];
+  for (int i = tid; i < d; i += nth) Cind[i] = Cind_g[i];
+  __syncthreads();                       // the barrier is initialized
+  if (nrows > 0) bild::mbar_wait(bar, 0);  // the operator rows landed
+  bild::cluster_sync();  // every replica is set before any block stores into a peer's
+
+  auto frame = [&]() {
+    return Frame<scalar_t, cov_t>{c, M, Mn, R, Sinv, llv, Bw, Gw, w, s2, yt, ab,
+                                  Cind, pstate, tp, ncol, ld, N, d, q};
+  };
+  // this frame's states and data, loaded by warp 0 one frame ahead
+  int st_next = -1;
+  scalar_t y_next = 0;
+  auto prefetch = [&](int t) {
+    if (tid < 32 && t < T) {
+      if (tid < tp) st_next = bild::clamp_state(prof[static_cast<size_t>(tid) * T + t], n);
+      if (tid < d) y_next = y_traj[static_cast<size_t>(t) * d + tid];
+    }
+  };
+
+  prefetch(0);
+  BILD_PHASE_START();
+  for (int t = 0; t < T; ++t) {
+    if (tid < 32) {  // this frame's data and states
+      if (tid < d) yt[tid] = y_next;
+      if (tid < tp) pstate[tid] = st_next;
+      prefetch(t + 1);
+    }
+    __syncthreads();
+    BILD_PHASE(0);
+    if (t > 0) {
+      propagate_means(frame());
+      BILD_PHASE(1);
+      // cn[r, col] = P_s[r, :] c[:, col] + sig_s[r] for this block's rows
+      // r and every column, s the column's state: one thread per (row,
+      // column), one float64 FMA chain over k = 0..PPp-1 in order (as the
+      // tile kernel's), stored into every block's replica by an
+      // asynchronous store that counts its bytes on that block's barrier
+      // of this buffer
+      const unsigned cn_addr = bild::smem_addr(cn);
+      const unsigned bar_addr = bild::smem_addr(&bar[1 + (t & 1)]);
+#pragma unroll 1
+      for (int item = tid; item < ncol * nrows; item += nth) {
+        const int col = item / nrows, r = item % nrows;
+        const int s = pstate[col / q];
+        const scalar_t* A = Pl + (static_cast<size_t>(s) * lay.rows + r) * ldp;
+        const cov_t* bcol = c + static_cast<size_t>(col) * ld;
+        cov_t acc = 0;
+#pragma unroll 4
+        for (int k = 0; k < PPp; k += VW) {
+          const auto av = bild::load16(A + k);
+          const scalar_t* a = reinterpret_cast<const scalar_t*>(&av);
+          cov_t b[VW];
+#pragma unroll
+          for (int h = 0; h < VW / CVW; ++h) {
+            const auto v = bild::load16(bcol + k + h * CVW);
+            const cov_t* vs = reinterpret_cast<const cov_t*>(&v);
+#pragma unroll
+            for (int u = 0; u < CVW; ++u) b[h * CVW + u] = vs[u];
+          }
+#pragma unroll
+          for (int u = 0; u < VW; ++u) acc = fma(cov_t(a[u]), b[u], acc);
+        }
+        const cov_t v = acc + cov_t(sigl[s * lay.rows + r]);
+        BILD_PHASE(2);
+        const unsigned addr = cn_addr + static_cast<unsigned>(
+            (static_cast<size_t>(col) * ld + r0 + r) * sizeof(cov_t));
+        for (int j = 0; j < C; ++j)
+          bild::st_async(bild::map_rank(addr, j), v, bild::map_rank(bar_addr, j));
+        BILD_PHASE(3);
+      }
+      // every block's rows of this frame have landed in this replica
+      if (tid == 0)
+        bild::mbar_arrive_expect(&bar[1 + (t & 1)],
+                                 static_cast<unsigned>(ncol * PP * sizeof(cov_t)));
+      bild::mbar_wait(&bar[1 + (t & 1)], ((t - 1) >> 1) & 1u);
+      BILD_PHASE(3);
+      cov_t* tmp = c; c = cn; cn = tmp;
+      scalar_t* tmpM = M; M = Mn; Mn = tmpM;
+    }
+    if (valid_traj[t])
+      measurement_update(frame(), [&](int k) {
+        if (k == 0) BILD_PHASE(4);
+        if (k == 1) BILD_PHASE(5);
+        if (k == 2) BILD_PHASE(6);
+      });
+    BILD_PHASE(6);
+  }
+  BILD_PHASE_END();
+
+  if (rank == 0)
+    for (int p = tid; p < tp; p += nth) out[traj * P + p0 + p] = llv[p];
+  bild::cluster_sync();  // no block leaves while a peer may still store into it
 }
 
 template <typename scalar_t, typename cov_t>
@@ -572,6 +927,27 @@ int launch_sym(const void* Pslab, const void* sig, const void* c0,
       n, N, d, q, P, T, PPp, N1p, TP);
 }
 
+
+template <typename scalar_t, typename cov_t>
+int launch_sym_cluster(const void* Prow, const void* sig, const void* c0,
+                       const void* w, const void* Ballw, const void* Gsw,
+                       const void* M0w, const void* s2, const void* Cind,
+                       const void* profiles, const void* ydata, const void* valid,
+                       void* out, int n, int N, int d, int q, int L, int P, int T,
+                       int PPp, int N1p, int TP, int C, int smem, int device,
+                       void* stream) {
+  const ClusterLayout lay = cluster_layout<scalar_t, cov_t>(n, N, d, q, PPp, TP, C);
+  if (TP < 1 || TP > kMaxTile || C < 1 || C > 16 || n < 1 || n > 32 || N < 1 ||
+      N > 255 || d > kMaxD || PPp % kBK != 0 || lay.bytes != static_cast<size_t>(smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = static_cast<long long>(L) * ((P + TP - 1) / TP) * C;
+  return bild::launch_cluster(
+      kalman_sym_cluster_kernel<scalar_t, cov_t>, blocks, C, kThreads,
+      lay.bytes > kClusterSmem ? lay.bytes : kClusterSmem, device, stream,
+      Prow, sig, c0, w, Ballw, Gsw, M0w, s2, Cind, profiles, ydata, valid, out,
+      n, N, d, q, P, T, PPp, N1p, TP, C);
+}
+
 }  // namespace
 
 #define BILD_SYM_ARGS                                                         \
@@ -592,4 +968,33 @@ extern "C" int bild_kalman_sym_f32(const void* Pslab, BILD_SYM_ARGS) {
 }
 extern "C" int bild_kalman_sym_f64(const void* Pslab, BILD_SYM_ARGS) {
   return launch_sym<double, double>(Pslab, BILD_SYM_PASS);
+}
+
+// the cluster plan (ops/kalman_sym.py::sym_plan): the propagators row by
+// row, each row padded to a whole 16-byte vector
+// (ops/kalman_sym.py::row_operators); C blocks per cluster
+#define BILD_SYM_CLUSTER_ARGS                                                 \
+  const void *Prow, const void *sig, const void *c0, const void *w,          \
+      const void *Ballw, const void *Gsw, const void *M0w, const void *s2,    \
+      const void *Cind, const void *profiles, const void *ydata,              \
+      const void *valid, void *out, int n, int N, int d, int q, int L, int P, \
+      int T, int PPp, int N1p, int TP, int C, int smem, int device,           \
+      void *stream
+#define BILD_SYM_CLUSTER_PASS                                                 \
+  Prow, sig, c0, w, Ballw, Gsw, M0w, s2, Cind, profiles, ydata, valid, out,   \
+      n, N, d, q, L, P, T, PPp, N1p, TP, C, smem, device, stream
+extern "C" int bild_kalman_sym_cluster_f32(BILD_SYM_CLUSTER_ARGS) {
+  return launch_sym_cluster<float, double>(BILD_SYM_CLUSTER_PASS);
+}
+extern "C" int bild_kalman_sym_cluster_f64(BILD_SYM_CLUSTER_ARGS) {
+  return launch_sym_cluster<double, double>(BILD_SYM_CLUSTER_PASS);
+}
+// clusters of C blocks that the device holds at once, or minus the error
+extern "C" int bild_kalman_sym_cluster_slots_f32(int C, int device) {
+  return bild::max_active_clusters(kalman_sym_cluster_kernel<float, double>, C, kThreads,
+                                   kClusterSmem, device);
+}
+extern "C" int bild_kalman_sym_cluster_slots_f64(int C, int device) {
+  return bild::max_active_clusters(kalman_sym_cluster_kernel<double, double>, C, kThreads,
+                                   kClusterSmem, device);
 }

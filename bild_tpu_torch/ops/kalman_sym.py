@@ -14,16 +14,24 @@ contraction ``R = U1 c`` gives ``Cw`` and ``w.C.w``; the rank-1 downdate is
 ``c[(a,b)] -= Cw_a Cw_b / S``. The mean propagator carries an extra
 ``w.B_s`` row, so the predicted measurement mean comes with it.
 
-On the H100 one block evaluates a tile of up to 32 profiles of one lane
-(trajectory), so one launch covers a whole lockstep AMIS step. Per frame
-the block sorts its profiles by state and multiplies each state's ``P_s``
-(streamed from L2 in slabs) into all of that state's packed covariances
-at once (see the source). `sym_plan` chooses the tile width and the
-shared memory from the launch's shape. Operators larger than
-`SYM_OPERATOR_BUDGET` would no longer stay in L2, and the dense kernel
-needs only ``n N^2`` operator scalars: above it the wrapper calls
-`ops.kalman_dense.msrouse_logL_dense`, as the reference falls back from
-its packed kernel to its dense one.
+On the H100 the exact tier has two plans (`sym_plan`, from the launch's
+shape; see the source). The tile plan: one block evaluates a tile of up
+to 32 profiles of one lane (trajectory), so one launch covers a whole
+lockstep AMIS step; per frame the block sorts its profiles by state and
+multiplies each state's ``P_s`` (streamed from L2 in slabs) into all of
+that state's packed covariances at once. The cluster plan, where even one
+profile per block would leave SMs idle (``L P`` below the SM count, as
+`sample()`'s single-trajectory step, L=1, P=100): a cluster of 8 blocks
+keeps every state's operator rows resident in shared memory, split among
+its blocks (`cluster_rows`, `row_operators`), and streams a group of the
+lane's profiles through them, exchanging each frame's propagated rows
+through distributed shared memory. Both give every profile the same
+bits.
+
+Operators larger than `SYM_OPERATOR_BUDGET` would no longer stay in L2,
+and the dense kernel needs only ``n N^2`` operator scalars: above it the
+wrapper calls `ops.kalman_dense.msrouse_logL_dense`, as the reference
+falls back from its packed kernel to its dense one.
 
 Matmul tiers (``matmul=``, bild_tpu's ``split_bf16``/``split_update``
 flags; `config.set_rouse_matmul`), float32 only: ``'exact'``;
@@ -49,10 +57,12 @@ float64 it reads 0.02. The split tiers keep their float32 covariance.
 `msrouse_logL_sym_torch` for CPU tensors, with no fallback between them.
 Counters: ``msrouse_logL_sym.launches`` (every launch),
 ``msrouse_logL_sym.split_launches`` (those of a split tier),
+``msrouse_logL_sym.cluster_launches`` (those of the cluster plan),
 ``msrouse_logL_sym_torch.calls``.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import math
@@ -69,6 +79,8 @@ from .kalman_dense import (H100_SMS, SMEM_LIMIT, SMEM_PER_SM,
 __all__ = ["SymOperators", "build_sym_operators", "msrouse_logL_sym",
            "msrouse_logL_sym_torch", "sym_fits", "sym_plan", "SymPlan",
            "sym_smem_bytes", "SYM_OPERATOR_BUDGET", "SYM_TILES", "TIERS",
+           "SYM_CLUSTERS", "H100_CLUSTER_SLOTS", "cluster_rows",
+           "row_operators",
            "update_contraction", "mean_propagation",
            "check_tier", "hi_lo", "split_product", "split_stages"]
 
@@ -99,6 +111,16 @@ _STAGES, _MAX_STAGES, _DEPTH, _MB, _SPLIT_COLS = 3, 16, 32, 64, 32
 
 TIERS = ("exact", "split", "split_cov")
 
+# blocks per cluster of the exact tier's cluster plan, in the order tried
+# (clusters of 16 fit more operator rows but measured slower at sample()'s
+# step on an H100: PERF.md; `sym_plan(_force=16)` takes them)
+SYM_CLUSTERS = (8,)
+# clusters of each size that an H100 SXM holds at once, one block per SM
+# (cudaOccupancyMaxActiveClusters on the card, NVIDIA H100 80GB HBM3 at
+# 700 W: its GPCs do not all hold two clusters of 8): the plan's default
+# where no device is asked, as on the CPU; the wrapper asks the device
+H100_CLUSTER_SLOTS = {8: 15, 16: 7}
+
 
 def check_tier(matmul) -> str:
     """``matmul`` as a tier name: None resolves from `config.rouse_matmul`
@@ -125,8 +147,43 @@ def split_ld(PPp) -> int:
     return KP + (4 - KP % 32) % 32
 
 
+def cluster_rows(PP, C):
+    """The operator rows of each block of a cluster of ``C``: ``range``s of
+    ``PP // C`` rows, one more for the first ``PP % C`` blocks, in rank
+    order (``cluster_first_row`` in ``csrc/kalman_sym.cu``)."""
+    out, first = [], 0
+    for rank in range(C):
+        count = PP // C + (rank < PP % C)
+        out.append(range(first, first + count))
+        first += count
+    return out
+
+
+def _cluster_smem(tile, n, N, d, q, itemsize, C, cov_itemsize=8):
+    """``cluster_layout`` in ``csrc/kalman_sym.cu``: the replicas of the
+    cluster's ``tile * q`` packed covariances (two buffers, stride ``PPp``
+    plus one 16-byte vector), the block's rows of every state's ``P_s`` (at
+    most ``ceil(PP / C)`` rows of ``PPp`` plus one 16-byte vector of
+    ``itemsize``-byte scalars) and of ``sig``, then as the tile layout: two
+    mean buffers, ``Cw`` and ``1/S`` per column, the log-likelihoods,
+    ``Ballw``, ``Gsw``, ``w``, ``s2``, one frame's data, the packed
+    index table, ``Cind``, the profiles' states and three barriers (the
+    operator rows', one per covariance buffer)."""
+    PP = N * (N + 1) // 2
+    PPp = _pad(PP, 8)
+    ncol = tile * q
+    rows = -(-PP // C)
+    ld = PPp + 16 // cov_itemsize
+    covs = (ncol * ld, ncol * ld, ncol * N, ncol)
+    floats = (n * rows * (PPp + 16 // itemsize), n * rows, tile * (N + 1) * d,
+              tile * (N + 1) * d, tile, n * (N + 1) * N, n * (N + 1) * d, N, q, d)
+    return (sum(_a16(x * cov_itemsize) for x in covs)
+            + sum(_a16(x * itemsize) for x in floats)
+            + _a16(2 * PP) + _a16(4 * d) + _a16(4 * tile) + 32)
+
+
 def sym_smem_bytes(tile, n, N, d, q, itemsize, tier="exact",
-                   stages=_STAGES, cov_itemsize=8) -> int:
+                   stages=_STAGES, cov_itemsize=8, cluster=0) -> int:
     """Shared memory of one block of the packed kernel with ``tile``
     profiles. The exact tier (``sym_layout`` in ``csrc/kalman_sym.cu``),
     with ``itemsize``-byte operators and means and a ``cov_itemsize``-byte
@@ -144,7 +201,11 @@ def sym_smem_bytes(tile, n, N, d, q, itemsize, tier="exact",
     of 8 the states can take, ``(tile q + 7 n) // 8``, by the depth padded
     to whole stages), then as the exact tier, with the S row of ``U1`` for
     'split', the indices of w's nonzero entries (and the S row's, for
-    'split') and a full and an empty barrier per stage."""
+    'split') and a full and an empty barrier per stage. With ``cluster``
+    blocks per cluster (the exact tier's cluster plan): one block of that
+    cluster (`_cluster_smem`); ``tile`` profiles per cluster."""
+    if cluster:
+        return _cluster_smem(tile, n, N, d, q, itemsize, cluster, cov_itemsize)
     PP = N * (N + 1) // 2
     PPp = _pad(PP, 8)
     ncol = tile * q
@@ -189,32 +250,67 @@ def sym_fits(n, N, d, q, itemsize, tier="exact") -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class SymPlan:
-    """One launch of the packed kernel: ``tile`` profiles per block; the
-    split tiers' ring of ``stages`` operator stages (0 in the exact tier)."""
+    """One launch of the packed kernel: ``tile`` profiles per block (per
+    cluster in the cluster plan), ``tiles_per_lane`` blocks (clusters) per
+    lane, ``blocks`` in all; the split tiers' ring of ``stages`` operator
+    stages (0 in the exact tier); ``cluster`` blocks per cluster in the
+    exact tier's cluster plan (0: the tile plan)."""
 
     tile: int
     tiles_per_lane: int
     blocks: int
     smem: int
     stages: int = 0
+    cluster: int = 0
+
+
+def _cluster_plan(L, P, n, N, d, q, itemsize, slots, sizes=SYM_CLUSTERS):
+    """The cluster plan of an ``(L, P)`` launch, or None where no cluster
+    size of ``sizes`` that the device holds (``slots(C)`` clusters at
+    once) fits one profile per cluster into shared memory. For the first
+    that fits: as few profiles per cluster (at most ``SYM_TILES[0]``) as
+    let the launch's clusters run at once, fewer if those do not fit."""
+    for C in sizes:
+        held = slots(C)
+        if held < 1 or _cluster_smem(1, n, N, d, q, itemsize, C) > SMEM_LIMIT:
+            continue
+        tile = min(SYM_TILES[0], -(-P // max(1, held // L)))
+        while _cluster_smem(tile, n, N, d, q, itemsize, C) > SMEM_LIMIT:
+            tile -= 1
+        per_lane = -(-P // tile)
+        return SymPlan(tile, per_lane, L * per_lane * C,
+                       _cluster_smem(tile, n, N, d, q, itemsize, C), cluster=C)
+    return None
 
 
 def sym_plan(L, P, n, N, d, q, itemsize, sms=H100_SMS,
-             tier="exact", cov_itemsize=8) -> SymPlan:
+             tier="exact", cov_itemsize=8, cluster_slots=None,
+             _force=None) -> SymPlan:
     """
-    Tile width for an ``(L, P)`` launch in ``tier`` (the exact tier with a
+    The plan of an ``(L, P)`` launch in ``tier`` (the exact tier with a
     ``cov_itemsize``-byte covariance: 8, float64, in this kernel; 4 gives
-    the layout and plan of its float32-covariance predecessor). The
-    widest tile (of `SYM_TILES`) that fits `SMEM_LIMIT`, keeps two blocks
-    resident per SM and still gives every SM two blocks, where the kernel
-    holds two blocks per SM (the split tiers; a float32 covariance); else
-    the widest that gives every SM one block; else the narrowest, so that
-    a single-trajectory step (L=1, P=100) spreads over as many SMs as it
-    has profiles. The exact tier's float64 covariance takes the registers
-    of a second block, so it is planned for one. The split tiers then
-    take the deepest operator ring (up to `_MAX_STAGES`) that keeps two
-    blocks per SM where the tile was chosen for two, else that fits
-    `SMEM_LIMIT`. Raises for shapes that `sym_fits` refuses.
+    the layout and plan of its float32-covariance predecessor).
+
+    The tile plan: the widest tile (of `SYM_TILES`) that fits
+    `SMEM_LIMIT`, keeps two blocks resident per SM and still gives every
+    SM two blocks, where the kernel holds two blocks per SM (the split
+    tiers; a float32 covariance); else the widest that gives every SM one
+    block; else the narrowest, one profile per block. The exact tier's
+    float64 covariance takes the registers of a second block, so it is
+    planned for one. The split tiers then take the deepest operator ring
+    (up to `_MAX_STAGES`) that keeps two blocks per SM where the tile was
+    chosen for two, else that fits `SMEM_LIMIT`.
+
+    The cluster plan (the exact tier with its float64 covariance), where
+    even one profile per block leaves SMs idle (``L * P < sms``, as a
+    single-trajectory `sample()` step, L=1, P=100) and a cluster's
+    operator rows fit beside its replicas (`_cluster_plan`): clusters of
+    C blocks keep every state's operators resident and stream the
+    profiles. ``cluster_slots(C)`` is the number of clusters of C blocks
+    the device holds at once (cudaOccupancyMaxActiveClusters; default
+    `H100_CLUSTER_SLOTS`). ``_force`` (``"tile"``, ``"cluster"`` or a
+    cluster size; for tests and the smoke script only) takes that plan
+    wherever it fits. Raises for shapes that `sym_fits` refuses.
     """
     fits = [t for t in SYM_TILES
             if _tile_fits(t, n, N, d, q, itemsize, tier, cov_itemsize)]
@@ -235,6 +331,17 @@ def sym_plan(L, P, n, N, d, q, itemsize, sms=H100_SMS,
     one = [t for t in fits if blocks(t) >= sms]
     chosen = (two or one or fits[-1:])[0]
     if tier == "exact":
+        if not two_per_sm and _force != "tile" and (
+                _force is not None or blocks(chosen) < sms):
+            plan = _cluster_plan(
+                L, P, n, N, d, q, itemsize,
+                cluster_slots or (lambda C: H100_CLUSTER_SLOTS.get(C, 0)),
+                (_force,) if isinstance(_force, int) else SYM_CLUSTERS)
+            if plan is not None:
+                return plan
+            if _force is not None:
+                raise ValueError(f"no cluster plan fits n={n}, N={N}, d={d}, "
+                                 f"q={q}, {itemsize}-byte floats")
         return SymPlan(chosen, -(-P // chosen), blocks(chosen), smem(chosen))
     # the split tiers: the deepest ring that keeps the blocks per SM
     budget = SMEM_PER_SM // 2 - 1024 if two else SMEM_LIMIT
@@ -321,6 +428,17 @@ def slab_operators(Pall, n, PPp, itemsize):
     return out.reshape(n, nkb, PPp, _BK)
 
 
+def row_operators(Pall, n, PPp, itemsize):
+    """``Pall (n*PPp, PPp)`` as the cluster plan loads it, ``(n, PPp,
+    PPp + 16 // itemsize)``: each row padded with zeros to a whole 16-byte
+    vector of ``itemsize``-byte scalars, so that a block's rows of one
+    state are one bulk copy and the rows that neighbouring threads read
+    fall in distinct bank groups."""
+    out = np.zeros((n, PPp, PPp + 16 // itemsize))
+    out[:, :, :PPp] = np.asarray(Pall).reshape(n, PPp, PPp)
+    return out
+
+
 def hi_lo(x: torch.Tensor):
     """The bfloat16 pair of a float32 tensor: ``hi = bf16(x)``, ``lo =
     bf16(x - hi)``, each rounded to nearest even (``x - hi`` is exact);
@@ -368,9 +486,10 @@ def split_stages(Pall, n, PPp) -> np.ndarray:
 @dataclasses.dataclass(frozen=True)
 class SymOperators:
     """The packed operators as tensors of one dtype on one device. The
-    CUDA kernel reads ``Pslab``, the propagators in its order
-    (`slab_operators`; built for a CUDA device only), and the split tiers'
-    kernel ``Psplit`` and ``Srow``. The plain version reads ``Pall`` and ``U1``,
+    CUDA kernel reads ``Pslab``, the propagators in its tile plan's order
+    (`slab_operators`), and ``Prow`` in its cluster plan's
+    (`row_operators`), both built for a CUDA device only; the split tiers'
+    kernel reads ``Psplit`` and ``Srow``. The plain version reads ``Pall`` and ``U1``,
     made on the device from the float64 host arrays ``host`` when it
     first runs, and in a split tier ``pairs``."""
 
@@ -380,6 +499,7 @@ class SymOperators:
     Gsw: torch.Tensor
     M0w: torch.Tensor
     Pslab: torch.Tensor | None
+    Prow: torch.Tensor | None
     host: tuple = dataclasses.field(repr=False)    # (Pall, U1), numpy
     PPp: int
     S_OFF: int
@@ -397,11 +517,13 @@ class SymOperators:
         def dev(a):
             return torch.as_tensor(a, dtype=dtype, device=device)
 
-        Pslab = (dev(slab_operators(Pall, n, PPp,
-                                    torch.empty((), dtype=dtype).element_size()))
-                 if torch.device(device).type == "cuda" else None)
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        cuda = torch.device(device).type == "cuda"
+        Pslab = dev(slab_operators(Pall, n, PPp, itemsize)) if cuda else None
+        Prow = dev(row_operators(Pall, n, PPp, itemsize)) if cuda else None
         return SymOperators(dev(sig), dev(c0), dev(Ballw), dev(Gsw), dev(M0w),
-                            Pslab, (Pall, U1), PPp=PPp, S_OFF=S_OFF, N1p=N1p)
+                            Pslab, Prow, (Pall, U1), PPp=PPp, S_OFF=S_OFF,
+                            N1p=N1p)
 
     @functools.cached_property
     def Pall(self) -> torch.Tensor:
@@ -553,8 +675,24 @@ def _sym_recursion(ops, s2, Cind, profiles, ydata, valid, split_cov,
 counters.register("plain_sym", msrouse_logL_sym_torch, "calls")
 
 
+@functools.cache
+def _cluster_slots(sfx, index, C) -> int:
+    """Clusters of ``C`` blocks of the cluster kernel (``sfx`` its build)
+    that CUDA device ``index`` holds at once, asked once per device, build
+    and size (cudaOccupancyMaxActiveClusters)."""
+    lib = _build.load("kalman_sym")
+    fn = getattr(lib, f"bild_kalman_sym_cluster_slots_{sfx}")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    held = fn(C, index)
+    if held < 0:
+        _build.check(lib, -held, f"cluster occupancy of {C} blocks")
+    return held
+
+
 def msrouse_logL_sym(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind, profiles, ydata,
-                     valid, ops: SymOperators | None = None, matmul=None):
+                     valid, ops: SymOperators | None = None, matmul=None,
+                     _force=None):
     """
     Log-likelihoods, arguments and shapes as `ops.kalman.msrouse_logL_batch`
     (``(L, P)`` for L lanes, ``(P,)`` for the single-lane form), plus the
@@ -563,9 +701,12 @@ def msrouse_logL_sym(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind, profiles, ydata,
     (`check_tier`: None is `config.resolve_matmul("single")`; float64
     computes every tier exactly). Shapes that `sym_fits` refuses go to
     the dense kernel, which is always exact. CUDA tensors launch the
-    kernel, one block per tile of profiles of one lane (the width from
-    `sym_plan`), on the current stream (no synchronization); CPU tensors
-    run `msrouse_logL_sym_torch`. Out-of-range states give NaN.
+    kernel on the current stream (no synchronization) with `sym_plan`'s
+    plan: one block per tile of profiles of one lane, or, where that
+    leaves SMs idle, clusters that keep the operators resident (counted
+    in ``msrouse_logL_sym.cluster_launches``; a refused cluster launch
+    raises); CPU tensors run `msrouse_logL_sym_torch`. Out-of-range
+    states give NaN. ``_force`` is `sym_plan`'s, for tests.
     """
     n, N, _ = Bs.shape
     d = Gs.shape[2]
@@ -599,10 +740,16 @@ def msrouse_logL_sym(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind, profiles, ydata,
     L, P, T = profiles.shape
     index = ydata.device.index or 0
     plan = sym_plan(L, P, n, N, d, q, ydata.element_size(),
-                    sms=sm_count(index), tier=tier)
+                    sms=sm_count(index), tier=tier,
+                    cluster_slots=functools.partial(_cluster_slots, sfx, index),
+                    _force=_force)
     out = torch.empty((L, P), dtype=ydata.dtype, device=ydata.device)
     if L * P > 0:
-        if tier == "exact":
+        if plan.cluster:
+            lib, fn = _build.entry("kalman_sym", f"bild_kalman_sym_cluster_{sfx}",
+                                   13, 13)
+            ptrs, ints = (ops.Prow.data_ptr(),), (plan.cluster,)
+        elif tier == "exact":
             lib, fn = _build.entry("kalman_sym", f"bild_kalman_sym_{sfx}", 13, 12)
             ptrs, ints = (ops.Pslab.data_ptr(),), ()
         else:
@@ -621,6 +768,8 @@ def msrouse_logL_sym(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind, profiles, ydata,
         msrouse_logL_sym.launches += 1
         if tier != "exact":
             msrouse_logL_sym.split_launches += 1
+        if plan.cluster:
+            msrouse_logL_sym.cluster_launches += 1
         _build.check(lib, rc, "kalman_sym launch")
         out = torch.where(in_range_mask(profiles, n), out,
                           torch.full_like(out, math.nan))
@@ -629,3 +778,4 @@ def msrouse_logL_sym(Bs, Gs, Sigs, M0s, C0s, w, s2, Cind, profiles, ydata,
 
 counters.register("kalman_sym", msrouse_logL_sym, "launches")
 counters.register("kalman_sym_split", msrouse_logL_sym, "split_launches")
+counters.register("kalman_sym_cluster", msrouse_logL_sym, "cluster_launches")

@@ -27,7 +27,9 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    localization_error=0.1), a T=100 trajectory with a loop at frames 30-60,
    and `bild_tpu_torch.sample()` with its defaults, once per kernel
    selector; every sampler's steps replay one CUDA graph of the lockstep
-   step at one lane. The whole counter registry (`ops.counters`) must show
+   step at one lane, and under 'sym' every step launches the cluster plan
+   (``kalman_sym_cluster`` at least the steps). The whole counter registry
+   (`ops.counters`) must show
    that the run went through the selected kernel, csrc/gamma_accept.cu
    and csrc/cfc_solve.cu and never through a plain version; the first
    call captures one graph and a second from the same seed none, with the
@@ -44,6 +46,16 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    own missing frames, P=37, T=100, out-of-range rows in two lanes), in
    float32 and float64, against the plain version, the f64 oracle and six
    single-lane launches of the same kernel (bit for bit).
+5b. Cluster phase: the packed kernel's cluster plan (csrc/kalman_sym.cu,
+   `kalman_sym_cluster_kernel`, which sample()'s step at one trajectory
+   takes) at L=1 with P = 1, 7, 37, 100, 128 and at L = 2, 6 with P=37,
+   in two and three states, one and three localization errors, float32
+   and float64, with missing frames (frame 0 among them) and out-of-range
+   rows: against the same launch forced onto the tile plan, bit for bit;
+   against the plain version and the f64 oracle (rtol 2e-5, float64
+   1e-9); each launch counted in ``kalman_sym_cluster``. At sample()'s
+   step, the tile plan and clusters of 8 and 16 timed in turns, and the
+   clusters the card holds at once.
 6. Lockstep phase: both kernels against their plain versions and against
    their own float64 build at every lane shape the dataset run below
    launches (per 64-trajectory chunk: scout L=320, refine L=192, P=128;
@@ -62,13 +74,14 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    the shift its profiles share (`BILD_TPU_CENTERED_T1000`), printed
    beside the plain float32 version's own drift.
 6a. Parent kernel phase: with a checkout of the parent commit at
-   _chip/parent (or ``--parent DIR``), its two likelihood kernels (float32
-   with a float32 covariance), built from its sources, timed against this
-   checkout's float32 kernels in turns (parent, change, change, parent)
-   at the shapes of PERF.md's kernel table: sample()'s step (L=1, P=100),
-   the bench shape (L=1, P=8192), config 3's lockstep launch (L=640,
-   P=128), config 4's scout (L=112, T=1000, three states) and config 5's
-   scout (L=5,120).
+   _chip/parent (or ``--parent DIR``), its two float32 likelihood kernels,
+   built from its sources and launched with its plan (the tile plan),
+   against this checkout's bit for bit and timed in turns (parent,
+   change, change, parent) at the shapes of PERF.md's kernel table:
+   sample()'s step (L=1, P=100; this checkout's cluster plan, and its
+   tile plan timed beside it), the bench shape (L=1, P=8192), config 3's
+   lockstep launch (L=640, P=128), config 4's scout (L=112, T=1000, three
+   states) and config 5's scout (L=5,120).
 6b. Ladder phase: both float32 kernels against their own float64 build
    at tools/parity_ladder.py's shapes (T=100 and 300 with two states,
    T=1000 with config 4's three; 64 every-frame random profiles, 64
@@ -242,8 +255,9 @@ launched (`parallel.graphs`), so the counters read as in an eager run.
 
 Prints the card's name and power limit, bench_torch.py's JSON line and
 config 2's dict (phases 3b and 4b), one JSON line of per-kernel results
-(the two TPU kernels' ports, the split tiers' kernel, the CFC solve's and
-the gamma sampler's, and the graph phase's readings), and as the last line ``{"ok": true,
+(the two TPU kernels' ports, the packed kernel's cluster plan, the split
+tiers' kernel, the CFC solve's and the gamma sampler's, and the graph
+phase's readings), and as the last line ``{"ok": true,
 "device": {...}}``. Any
 failed check raises: the exit code is then non-zero and no result is
 printed. Without a CUDA device it exits non-zero at once.
@@ -286,7 +300,7 @@ DATASET_SWITCH_ACCURACY = 0.75
 N, D, KSPRING, DIM, T = 20, 1.0, 5.0, 3, 100
 DEVICE = "cuda"
 # the counters of the Rouse likelihood (`ops.counters`): the GGM runs none
-ROUSE_COUNTERS = ("kalman_sym", "kalman_sym_split", "kalman_dense",
+ROUSE_COUNTERS = ("kalman_sym", "kalman_sym_split", "kalman_sym_cluster", "kalman_dense",
                   "kalman_dense_cov32",
                   "plain_sym", "plain_dense", "plain_torch")
 
@@ -483,6 +497,137 @@ def lane_kernel_phase(bt, rng, max_abs):
                 max_abs[name] = max(max_abs[name], float(
                     np.max(np.abs(got[fin] - want[fin]))))
             print(line, flush=True)
+
+
+# The launches of the cluster phase: sample()'s single-trajectory step
+# (L=1, P=100) and the shapes around it, one profile to more than a
+# cluster's share, and two lane launches (L=6 takes the tile plan; its
+# cluster launch is forced)
+CLUSTER_SHAPES = ((1, 1), (1, 7), (1, 37), (1, 100), (1, 128), (2, 37), (6, 37))
+
+
+def cluster_phase(bt):
+    """The exact tier's cluster plan (csrc/kalman_sym.cu,
+    `kalman_sym_cluster_kernel`) at `CLUSTER_SHAPES`, in two and three
+    states, one and three localization errors (q=1, 3), float32 and
+    float64, with about 5 % of the frames missing (frame 0 of lane 0
+    among them) and out-of-range rows (NaN): the cluster launch (forced
+    where the planner takes the tile plan) against the same launch forced
+    onto the tile plan, bit for bit; against the plain version (float32
+    rtol 2e-5, float64 1e-9) and the float64 oracle on two rows per lane
+    (the same bars); NaN exactly on the out-of-range rows; one cluster
+    launch counted in ``kalman_sym_cluster`` per cluster launch and none
+    for the tile plan's. At sample()'s step (n=2, q=1, float32), in turns
+    (tile, C=8, C=16, C=16, C=8, tile): the tile plan, clusters of 8
+    (the planner's) and of 16, with the bound. Returns ``{"max_abs":
+    float32 max abs error against the plain version, "ms", "plain_ms",
+    "bound_ms", "bound_by", "ms_16", "tile_ms", "slots": {C: clusters the
+    card holds}}``."""
+    import functools
+
+    from bild_tpu_torch.ops import kalman_sym
+    from bild_tpu_torch.ops.kalman_dense import sm_count
+    from bild_tpu_torch.ops.kalman_sym import msrouse_logL_sym, msrouse_logL_sym_torch
+    from bild_tpu_torch.ops.oracle import msrouse_logL_numpy
+
+    slots = {C: kalman_sym._cluster_slots("f32", 0, C) for C in (8, 16)}
+    print(f"cluster plan: the card holds {slots} clusters of each size at once "
+          f"(cudaOccupancyMaxActiveClusters), {sm_count(0)} SMs", flush=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+    out = {"max_abs": 0.0, "slots": slots}
+    for n, loops in ((2, (None, (0, -1))), (3, THREE_STATES)):
+        for q, err in ((1, 0.1), (3, (0.1, 0.2, 0.15))):
+            for dtype, rtol in ((torch.float32, RTOL_F32), (torch.float64, RTOL_F64)):
+                model = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM, looppositions=loops,
+                                                  localization_error=err, device=DEVICE,
+                                                  dtype=dtype)
+                ops = model.sym_operators()
+                h = model.host
+                sfx = "f32" if dtype == torch.float32 else "f64"
+                for L, P in CLUSTER_SHAPES:
+                    batch = model.trajectories_from_loopingprofiles(
+                        truth_profiles(np.random.default_rng(L * 1000 + P), L, T, n),
+                        generator=torch.Generator(device=DEVICE).manual_seed(P))
+                    valid = torch.rand((L, T), generator=gen, device=DEVICE) > 0.05
+                    valid[0, 0] = False
+                    ydata = torch.where(valid[..., None], batch.data, 0.0).contiguous()
+                    prof = lane_profiles(gen, L, P, n, T)
+                    nan_rows = np.zeros((L, P), dtype=bool)
+                    if P > 1:
+                        prof[0, P - 1, T // 2] = n
+                        prof[L - 1, 0, T // 3] = -1
+                        nan_rows[0, P - 1] = nan_rows[L - 1, 0] = True
+                    traj0 = bt.Trajectory(ydata[0], valid[0])
+                    s2, Cind = model._noise_arrays(traj0)
+                    args = (model.Bs, model.Gs, model.Sigs, model.M0s, model.C0s, model.w,
+                            s2, Cind, prof, ydata, valid)
+                    plan = kalman_sym.sym_plan(
+                        L, P, n, N, DIM, len(s2), ydata.element_size(), sms=sm_count(0),
+                        cluster_slots=functools.partial(kalman_sym._cluster_slots, sfx, 0))
+                    force = None if plan.cluster else "cluster"
+                    counters.reset(["kalman_sym_cluster"])
+                    got = msrouse_logL_sym(*args, ops=ops, _force=force)
+                    launched = counters.read(["kalman_sym_cluster"])["kalman_sym_cluster"]
+                    tile = msrouse_logL_sym(*args, ops=ops, _force="tile")
+                    tile_launched = (counters.read(["kalman_sym_cluster"])["kalman_sym_cluster"]
+                                     - launched)
+                    plain = msrouse_logL_sym_torch(ops, s2, Cind, prof, ydata, valid)
+                    torch.cuda.synchronize()
+                    got, tile, plain = (x.cpu().numpy() for x in (got, tile, plain))
+                    data_nan = np.where(valid.cpu().numpy()[..., None],
+                                        ydata.cpu().numpy(), np.nan)
+                    noise = np.asarray(model._get_noise(traj0))
+                    prof_np = prof.cpu().numpy()
+                    orc_err = 0.0
+                    for lane in range(L):
+                        rows = [r for r in range(P) if not nan_rows[lane, r]][:2]
+                        orc = np.array([msrouse_logL_numpy(
+                            h["Bs"], h["Gs"], h["Sigs"], h["M0s"], h["C0s"], h["w"], noise,
+                            prof_np[lane, r], data_nan[lane]) for r in rows])
+                        orc_err = max(orc_err, rel_err(got[lane, rows], orc))
+                    e_plain = rel_err(got, plain) if (~nan_rows).any() else 0.0
+                    same = np.array_equal(got, tile, equal_nan=True)
+                    how = (f"planned: clusters of {plan.cluster}, {plan.tile} profiles each"
+                           if plan.cluster else
+                           f"forced (the planner takes {plan.tile}-profile tiles)")
+                    line = (f"cluster n={n} q={len(s2)} {str(dtype)[6:]:7s} L={L} P={P:3d} "
+                            f"{how}: against the tile plan "
+                            f"{'same bits' if same else 'DIFFER'}; plain rel {e_plain:.2e}, "
+                            f"oracle rel {orc_err:.2e} (rtol {rtol})")
+                    print(line, flush=True)
+                    check(launched == 1 and tile_launched == 0,
+                          f"{line}: one cluster launch counted ({launched}), none for the "
+                          f"tile plan ({tile_launched})")
+                    check(same, f"{line}: the cluster plan gives the tile plan's bits")
+                    check(np.array_equal(np.isnan(got), nan_rows),
+                          f"{line}: NaN exactly on the out-of-range rows")
+                    check(e_plain <= rtol and orc_err <= rtol,
+                          f"{line}: plain and oracle within {rtol}")
+                    if dtype == torch.float32:
+                        fin = ~nan_rows
+                        out["max_abs"] = max(out["max_abs"], float(
+                            np.max(np.abs(got[fin] - plain[fin]), initial=0.0)))
+                    if (n, len(s2), dtype, L, P) != (2, 1, torch.float32, 1, 100):
+                        continue
+                    runs = {"tile": lambda: msrouse_logL_sym(*args, ops=ops, _force="tile"),
+                            8: lambda: msrouse_logL_sym(*args, ops=ops),
+                            16: lambda: msrouse_logL_sym(*args, ops=ops, _force=16)}
+                    check(plan.cluster == 8, f"sample()'s step plans clusters of 8: {plan}")
+                    times = {k: [] for k in runs}
+                    for k in ("tile", 8, 16, 16, 8, "tile"):
+                        times[k].append(time_ms(runs[k], 20))
+                    p1, p2 = (time_ms(lambda: msrouse_logL_sym_torch(
+                        ops, s2, Cind, prof, ydata, valid), 2) for _ in range(2))
+                    ms = {k: sum(v) / len(v) for k, v in times.items()}
+                    bnd, by = bound_ms(*kernel_work(L, P, T, n, N, DIM, 1, int(valid.sum())))
+                    out.update(ms=ms[8], ms_16=ms[16], tile_ms=ms["tile"],
+                               plain_ms=(p1 + p2) / 2, bound_ms=bnd, bound_by=by)
+                    print(f"time cluster sample() step L=1 P=100 (in turns: tile, 8, 16, 16, "
+                          f"8, tile): clusters of 8 {ms[8]:.4f} ms ({bnd / ms[8]:.2%} of "
+                          f"bound), of 16 {ms[16]:.4f} ms, tile plan {ms['tile']:.4f} ms, "
+                          f"plain {(p1 + p2) / 2:.3f} ms; bound {bnd:.4f} ms ({by}); "
+                          f"{ms['tile'] / ms[8]:.2f}x the tile plan", flush=True)
+    return out
 
 
 # (label, lanes, profiles per lane, trajectories the lanes cycle over,
@@ -726,17 +871,15 @@ def lockstep_phase(bt, rng, max_abs):
 
 
 # The shapes of PERF.md's kernel table, where the parent commit's float32
-# likelihood kernels (a float32 covariance) are timed beside this
-# checkout's: (label, L, P, T, states)
+# likelihood kernels are timed beside this checkout's: (label, L, P, T,
+# states)
 PARENT_SHAPES = (("sample() step", 1, 100, 100, 2), ("bench", 1, 8192, 100, 2),
                  ("config 3 lockstep", 640, 128, 100, 2),
                  ("config 4 scout", 112, 128, 1000, 3),
                  ("config 5 scout", 5120, 128, 100, 2))
-# The parent's results against this checkout's on the same inputs: they
-# differ by the parent's float32 covariance drift (3.8e-5 relative at
-# config 4's scout on an H100), so the bar only says that both computed
-# the same likelihood.
-PARENT_RTOL = 1e-4
+# The parent's results against this checkout's on the same inputs: the
+# same arithmetic (the tile plan's code is the parent's; the cluster plan
+# gives its bits), so the same bits at every shape.
 
 
 def parent_kernel_phase(bt, parent, ptxas):
@@ -746,11 +889,16 @@ def parent_kernel_phase(bt, parent, ptxas):
     `PARENT_SHAPES` (the README model's two states, or config 4's three;
     trajectories drawn by the model, profiles by `lane_profiles`, about 5 %
     of the frames missing): the parent launched through its C entry point
-    with its own plan (`sym_plan` and `dense_plan` with a float32
-    covariance) and the wrapper's NaN mask, within `PARENT_RTOL` of this
-    checkout's kernel; CUDA events in turns (parent, change, change,
-    parent), beside the computed bound. Returns ``{(name, label): (ms,
-    parent_ms, bound_ms)}`` (empty without the parent's kernels)."""
+    with its own plan (the tile plan of `sym_plan`, `dense_plan`) and the
+    wrapper's NaN mask, bit for bit equal to this checkout's kernel with
+    its plan (at sample()'s step the sym kernel's cluster plan); CUDA
+    events in turns (parent, change, change, parent), beside the computed
+    bound, and at sample()'s step this checkout's sym launch forced onto
+    the tile plan too (parent, change, tile, tile, change, parent).
+    Returns ``{(name, label): (ms, parent_ms, bound_ms)}`` and, for sym at
+    sample()'s step, ``("kalman_sym tile", label)``: the forced tile
+    plan's ``(ms, parent_ms, bound_ms)`` (empty without the parent's
+    kernels)."""
     from bild_tpu_torch.ops.kalman import in_range_mask
     from bild_tpu_torch.ops.kalman_dense import (cind_tensor, dense_plan,
                                                  msrouse_logL_dense, sm_count)
@@ -785,8 +933,8 @@ def parent_kernel_phase(bt, parent, ptxas):
         ops = model.sym_operators()
         args = (model.Bs, model.Gs, model.Sigs, model.M0s, model.C0s, model.w,
                 s2, Cind, prof, ydata, valid)
-        sp = sym_plan(L, P, n, N, DIM, 1, 4, sms=sms, cov_itemsize=4)
-        dp = dense_plan(L, P, n, N, DIM, 1, 4, sms=sms, cov_itemsize=4)
+        sp = sym_plan(L, P, n, N, DIM, 1, 4, sms=sms, _force="tile")
+        dp = dense_plan(L, P, n, N, DIM, 1, 4, sms=sms)
         stream = torch.cuda.current_stream().cuda_stream
 
         def masked(launch):
@@ -804,8 +952,8 @@ def parent_kernel_phase(bt, parent, ptxas):
                     prof.data_ptr(), ydata.data_ptr(), valid.data_ptr(),
                     res.data_ptr(), n, N, DIM, 1, L, P, Tl, ops.PPp, ops.N1p,
                     sp.tile, sp.smem, 0, stream)),
-                f"tile {sym_plan(L, P, n, N, DIM, 1, 4, sms=sms).tile} "
-                f"[parent {sp.tile}]"),
+                ("cluster plan" if label == "sample() step" else f"tile {sp.tile}")
+                + f" [parent tile {sp.tile}]"),
             "kalman_dense": (
                 lambda: msrouse_logL_dense(*args),
                 lambda: masked(lambda res: fns["kalman_dense"](
@@ -814,8 +962,7 @@ def parent_kernel_phase(bt, parent, ptxas):
                     s2.data_ptr(), Cind.data_ptr(), prof.data_ptr(),
                     ydata.data_ptr(), valid.data_ptr(), res.data_ptr(), n, N, DIM,
                     1, L, P, Tl, dp.warps, int(dp.ops_shared), dp.smem, 0, stream)),
-                f"{dense_plan(L, P, n, N, DIM, 1, 4, sms=sms).warps} warps "
-                f"[parent {dp.warps}]"),
+                f"{dp.warps} warps [parent {dp.warps}]"),
         }
         reps = max(1, min(20, int(2e4 // (L * P * Tl / 1e3))))
         bnd, by = bound_ms(*kernel_work(L, P, Tl, n, N, DIM, 1, int(valid.sum())))
@@ -823,14 +970,23 @@ def parent_kernel_phase(bt, parent, ptxas):
             got, was = kern(), old()
             torch.cuda.synchronize()
             got, was = got.cpu().numpy(), was.cpu().numpy()
-            e = rel_err(got, was)
+            same = np.array_equal(got, was, equal_nan=True)
             line = (f"parent {name:12s} {label:17s} L={L:4d} P={P:4d} T={Tl:4d} "
-                    f"n={n}: this checkout against the parent's kernel rel {e:.2e}")
-            check(np.array_equal(np.isnan(got), np.isnan(was)) and e <= PARENT_RTOL,
-                  f"{line}: within {PARENT_RTOL}, NaN on the same rows")
-            p1, k1, k2, p2 = (time_ms(f, reps) for f in (old, kern, kern, old))
-            ms, parent_ms = (k1 + k2) / 2, (p1 + p2) / 2
+                    f"n={n}: this checkout against the parent's kernel: "
+                    f"{'same bits' if same else f'DIFFER (rel {rel_err(got, was):.2e})'}")
+            check(same, f"{line}: the parent's bits")
+            tile = (lambda: msrouse_logL_sym(*args, ops=ops, _force="tile")) \
+                if (name, label) == ("kalman_sym", "sample() step") else None
+            order = (old, kern, kern, old) if tile is None else (old, kern, tile, tile,
+                                                                 kern, old)
+            t = [time_ms(f, reps) for f in order]
+            ms, parent_ms = (t[1] + t[-2]) / 2, (t[0] + t[-1]) / 2
             out[(name, label)] = (ms, parent_ms, bnd)
+            if tile is not None:
+                check(np.array_equal(tile().cpu().numpy(), was, equal_nan=True),
+                      f"{line}: the tile plan gives the parent's bits")
+                out[("kalman_sym tile", label)] = ((t[2] + t[3]) / 2, parent_ms, bnd)
+                line += f"; this checkout's tile plan {(t[2] + t[3]) / 2:.3f} ms"
             print(f"{line}; {plan}; parent {parent_ms:.3f} ms ({bnd / parent_ms:.2%} "
                   f"of bound), change {ms:.3f} ms ({bnd / ms:.2%}), "
                   f"{ms / parent_ms:.2f}x; bound {bnd:.4f} ms ({by})", flush=True)
@@ -2208,6 +2364,12 @@ def parent_cfc(lib, logf, logg, tr, maxiter, precision, frozen):
     return run
 
 
+def ptxas_rows(report):
+    """`ptxas_report`'s tuples as dicts, for the JSON line."""
+    return {k: dict(zip(("registers", "stack_frame", "spill_stores", "spill_loads"), v))
+            for k, v in report.items()}
+
+
 def ptxas_report(name):
     """``nvcc -Xptxas -v`` of csrc/<name>.cu with the build's flags:
     ``{kernel (demangled where it is a template of this repository):
@@ -2238,7 +2400,8 @@ def ptxas_report(name):
                               + (f", {t.group(2)}>" if t.group(2) else ">"))
                     break
             # the likelihood kernels: <operators, covariance[, operators shared]>
-            t = re.search(r"(kalman_sym_kernel|kalman_dense_kernel)I([fd])([fd])"
+            t = re.search(r"(kalman_sym_cluster_kernel|kalman_sym_kernel|"
+                          r"kalman_dense_kernel)I([fd])([fd])"
                           r"(?:Lb([01])E)?E", raw)
             if t:
                 types = {"f": "float", "d": "double"}
@@ -2573,7 +2736,7 @@ LAUNCH_CALLS = ("LaunchKernel", "GraphLaunch", "MemcpyAsync", "MemsetAsync")
 
 
 # the hand kernels' names in a trace (csrc/*.cu)
-KERNEL_NAMES = ("kalman_sym_kernel", "kalman_sym_split_kernel",
+KERNEL_NAMES = ("kalman_sym_kernel", "kalman_sym_cluster_kernel", "kalman_sym_split_kernel",
                 "kalman_dense_kernel", "cfc_solve_kernel", "gamma_accept_kernel")
 
 
@@ -4070,12 +4233,16 @@ def assoc_phase(bt, work):
 def timing_phase(bt, rng):
     """Kernel and plain version at the AMIS step (P=100), in the order
     plain, kernel, kernel, plain, beside the bound computed from the same
-    inputs (the bench shape, P=8192, is `bench_phase`'s). Returns
-    ``{(name, P): (ms, plain_ms, bound_ms, bound_by)}``."""
+    inputs (the bench shape, P=8192, is `bench_phase`'s): the dense
+    kernel, the sym kernel's cluster plan (the planner's at this step,
+    ``kalman_sym_cluster``) and the same launch forced onto its tile plan
+    (``kalman_sym``). Returns ``{(name, P): (ms, plain_ms, bound_ms,
+    bound_by)}``."""
     from bild_tpu_torch.ops.kalman_dense import (msrouse_logL_dense,
                                                  msrouse_logL_dense_torch)
+    from bild_tpu_torch.ops.kalman_dense import sm_count
     from bild_tpu_torch.ops.kalman_sym import (msrouse_logL_sym,
-                                               msrouse_logL_sym_torch)
+                                               msrouse_logL_sym_torch, sym_plan)
 
     model = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
                                       localization_error=0.1,
@@ -4091,9 +4258,13 @@ def timing_phase(bt, rng):
         prof = torch.as_tensor(make_profiles(rng, P, 2, T), device=DEVICE)
         args = (model.Bs, model.Gs, model.Sigs, model.M0s, model.C0s,
                 model.w, s2, Cind, prof, traj.data, traj.valid)
+        check(sym_plan(1, P, 2, N, DIM, 1, 4, sms=sm_count(0)).cluster > 0,
+              f"the sym kernel's cluster plan at sample()'s step (P={P})")
         fns = {
-            "kalman_sym": (lambda: msrouse_logL_sym(*args, ops=ops),
+            "kalman_sym": (lambda: msrouse_logL_sym(*args, ops=ops, _force="tile"),
                            lambda: msrouse_logL_sym_torch(ops, *args[6:])),
+            "kalman_sym_cluster": (lambda: msrouse_logL_sym(*args, ops=ops),
+                                   lambda: msrouse_logL_sym_torch(ops, *args[6:])),
             "kalman_dense": (lambda: msrouse_logL_dense(*args),
                              lambda: msrouse_logL_dense_torch(*args)),
         }
@@ -4103,7 +4274,7 @@ def timing_phase(bt, rng):
             bnd, by = bound_ms(*kernel_work(1, P, T, 2, N, DIM, 1,
                                             int(traj.valid.sum())))
             times[(name, P)] = (ms, plain_ms, bnd, by)
-            print(f"time {name:12s} P={P:5d}  kernel {ms:9.3f} ms "
+            print(f"time {name:18s} P={P:5d}  kernel {ms:9.3f} ms "
                   f"({P / ms * 1e3:12.1f} profiles/s)  plain {plain_ms:9.3f} ms "
                   f"({P / plain_ms * 1e3:12.1f} profiles/s)  bound {bnd:.4f} ms "
                   f"({by}), {bnd / ms:.1%} of bound", flush=True)
@@ -4284,6 +4455,13 @@ def slice_phase(bt):
         check(same_sample(res, again), "a second sample() from the same seed "
               "gives the same bits")
         check(ran[f"kalman_{selector}"] > 0, f"{selector} kernel launched")
+        # each AMIS step launches the sym kernel once at (L=1, P=N=100): its
+        # cluster plan; the samplers' exhaustive enumerations add launches
+        # of either plan
+        check(ran["kalman_sym_cluster"] >= steps if selector == "sym"
+              else ran["kalman_sym_cluster"] == 0,
+              f"selector {selector}: {ran['kalman_sym_cluster']} cluster launches of "
+              f"{ran['kalman_sym']} sym launches for {steps} AMIS steps")
         check(ran["gamma_accept"] > 0 and ran["cfc_solve"] > 0,
               "the gamma and CFC kernels launched")
         check(all(ran[k] == 0 for k in ran if k.startswith("plain")),
@@ -4361,6 +4539,7 @@ def main():
     launches, slice_readings = slice_phase(bt)
     e2e_launches = bench_e2e_phase(bt)
     lane_kernel_phase(bt, rng, max_abs)
+    cluster = cluster_phase(bt)
     lock_times, drift = lockstep_phase(bt, rng, max_abs)
     parent_times = parent_kernel_phase(bt, parent, ptxas)
     ladder = ladder_phase(bt)
@@ -4414,6 +4593,7 @@ def main():
             "source": f"bild_tpu_torch/csrc/{name}.cu",
             "replaces": replaces[name],
             "launches": sum(r[name] - (r.get("kalman_sym_split", 0)
+                                       + r.get("kalman_sym_cluster", 0)
                                        if name == "kalman_sym" else 0)
                             for r in main_path),
             "max_abs_err": max_abs[name],
@@ -4435,10 +4615,38 @@ def main():
         row["parent"] = {label: {"ms": ms, "parent_ms": parent_ms, "bound_ms": bnd}
                          for (k, label), (ms, parent_ms, bnd) in parent_times.items()
                          if k == name}
-        row["ptxas"] = {k: dict(zip(("registers", "stack_frame", "spill_stores",
-                                     "spill_loads"), v))
-                        for k, v in ptxas[name].items()}
+        row["ptxas"] = {k: v for k, v in ptxas_rows(ptxas[name]).items()
+                        if "cluster" not in k}
         kernels.append(row)
+    # The exact tier's cluster plan, a kernel of its own in
+    # csrc/kalman_sym.cu: its main path is sample()'s step (L=1, P=100),
+    # where "ms", "plain_ms" and "bound_ms" are taken (timing phase, the
+    # same inputs as the kalman_sym row's, which is that launch forced onto
+    # the tile plan); "launches" the main-path runs' cluster launches;
+    # "max_abs_err" the cluster phase's float32 launches against the plain
+    # version; "clusters_of_16_ms" and "tile_plan_ms" the cluster phase's
+    # times in turns; "parent" the parent commit's kernel at that step, in
+    # turns.
+    sym_row = kernels[0]
+    step = parent_times.get(("kalman_sym", "sample() step"))
+    kernels.insert(1, {
+        "name": "kalman_sym_cluster", "route": "cuda",
+        "source": "bild_tpu_torch/csrc/kalman_sym.cu",
+        "replaces": "bild_tpu/ops/kalman_sym.py:189 (exact tier, single-trajectory launches)",
+        "launches": sum(r.get("kalman_sym_cluster", 0) for r in main_path),
+        "max_abs_err": cluster["max_abs"],
+        "ms": times[("kalman_sym_cluster", 100)][0],
+        "plain_ms": times[("kalman_sym_cluster", 100)][1],
+        "bound_ms": times[("kalman_sym_cluster", 100)][2],
+        "bound_by": times[("kalman_sym_cluster", 100)][3],
+        "library_ms": None,
+        "clusters_of_16_ms": cluster["ms_16"], "tile_plan_ms": cluster["tile_ms"],
+        "cluster_slots": cluster["slots"],
+        "parent": ({} if step is None else {"sample() step": dict(zip(
+            ("ms", "parent_ms", "bound_ms"), step))}),
+        "ptxas": {k: v for k, v in ptxas_rows(ptxas["kalman_sym"]).items() if "cluster" in k},
+    })
+    check(sym_row["name"] == "kalman_sym", "the sym row leads")
     # no main-path launch takes the dense plan's float32 covariance
     cov32 = sum(r.get("kalman_dense_cov32", 0) for r in main_path)
     check(cov32 == 0, f"{cov32} main-path dense launches kept a float32 covariance")
@@ -4513,8 +4721,8 @@ def main():
         row.update(step_kernels[name])
         kernels.append(row)
     for row in kernels:
-        if row["name"] in names:        # the likelihood kernels in sample()
-            sel = row["name"][len("kalman_"):]
+        if row["name"] in (*names, "kalman_sym_cluster"):  # the likelihood kernels in sample()
+            sel = row["name"].split("_")[1]   # the selector: sym or dense
             row["sample_device_us"] = slice_readings[sel]["kernels"].get(
                 f"{row['name']}_kernel", {}).get("us_per_launch")
     print(json.dumps({"kernels": kernels,

@@ -84,7 +84,8 @@ def test_likelihoods_match_bild_tpu(small):
         np.testing.assert_allclose(got[name], want, rtol=1e-9, err_msg=name)
     # on CPU tensors every wrapper ran its plain version and launched
     # nothing; the counts are the whole registry's
-    assert counts == {"kalman_sym": 0, "kalman_sym_split": 0, "kalman_dense": 0,
+    assert counts == {"kalman_sym": 0, "kalman_sym_split": 0, "kalman_sym_cluster": 0,
+                      "kalman_dense": 0,
                       "kalman_dense_cov32": 0, "plain_sym": 3, "plain_dense": 1,
                       "plain_torch": 0, "cfc_solve": 0, "plain_cfc": 0, "gamma_accept": 0,
                       "plain_gamma": 0}

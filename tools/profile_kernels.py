@@ -22,7 +22,9 @@ README model N=20, d=3, two states, float32):
    ``_build/`` (the package never loads it): thread 0 of every block adds
    the ``clock64()`` cycles since the last mark to the phase the mark ends.
    Runs it at the lockstep launch and at the single-trajectory step (L=1,
-   P=100), and prints each phase's share of thread 0's cycles.
+   P=100), both on the tile plan, and prints each phase's share of thread
+   0's cycles; then the cluster plan's kernel of the same source at the
+   single-trajectory step (`CLUSTER_PHASES`; where the tree has it).
 3. The same for the split-bf16 tiers ('split_cov', 'split'), built from
    ``csrc/kalman_sym_split.cu`` with its marks (`SPLIT_PHASES`), plus each
    tier's plain time at both launches. A tree from before that source
@@ -50,6 +52,9 @@ import torch
 N, D, KSPRING, DIM, T = 20, 1.0, 5.0, 3, 100
 PHASES = ("partition", "prologue + means", "slab wait + barrier",
           "issue next slab", "product (FMA)", "epilogue + barrier", "update")
+CLUSTER_PHASES = ("states + data", "means", "product (FMA)",
+                  "exchange (stores + barrier wait)", "update: Cw", "update: 1/S",
+                  "update: downdate, means, logL")
 SPLIT_PHASES = ("partition", "split c into bf16 pairs", "means",
                 "conjugation (waits + mma)", "epilogue + barrier",
                 "update contraction (Cw, S)", "downdate, mean update, logL")
@@ -147,16 +152,26 @@ def split_source(_build) -> Path:
     return out
 
 
-def phase_run(lib, entry, ptrs, model, ops, L, P, tier, launch_inputs, kalman_sym, phases):
-    """One instrumented launch at (L, P): its time and each phase's share."""
+def phase_run(lib, entry, ptrs, model, ops, L, P, tier, launch_inputs, kalman_sym, phases,
+              force=None):
+    """One instrumented launch at (L, P) with `sym_plan`'s plan (forced onto
+    ``force`` where the tree's planner takes it): its time and each
+    phase's share."""
+    import inspect
+
     prof, data, valid, s2, Cind = launch_inputs(L, P)
-    plan = kalman_sym.sym_plan(L, P, 2, N, DIM, 1, 4, tier=tier)
+    forcing = "_force" in inspect.signature(kalman_sym.sym_plan).parameters
+    plan = kalman_sym.sym_plan(L, P, 2, N, DIM, 1, 4, tier=tier,
+                               **({"_force": force} if forcing and force else {}))
     out = torch.empty((L, P), device="cuda")
     cind = Cind.to(torch.int32).contiguous()
     fn = getattr(lib, entry)
     # the split kernel's ring depth (not in the exact tier's, nor in the
-    # older split kernel's, entry)
-    stages = (plan.stages,) if len(fn.argtypes) - (len(ptrs) + 12) - 1 == 13 else ()
+    # older split kernel's, entry); the cluster kernel's cluster size
+    if getattr(plan, "cluster", 0):
+        stages = (plan.cluster,)
+    else:
+        stages = (plan.stages,) if len(fn.argtypes) - (len(ptrs) + 12) - 1 == 13 else ()
 
     def run():
         rc = fn(*ptrs, ops.sig.data_ptr(), ops.c0.data_ptr(),
@@ -181,9 +196,11 @@ def phase_run(lib, entry, ptrs, model, ops, L, P, tier, launch_inputs, kalman_sy
     ms = start.elapsed_time(stop)
     lib.bild_phase_read(buf)
     per = buf[7] / plan.blocks / (T - 1)
+    ring = (f", {stages[0]} {'per cluster' if getattr(plan, 'cluster', 0) else 'stages'}"
+            if stages else "")
     print(f"{entry} phases L={L} P={P} (tile {plan.tile}, {plan.blocks} blocks, "
-          f"{plan.smem} B shared{f', {stages[0]} stages' if stages else ''}, instrumented {ms:.3f} ms): {per:.0f} thread-0 "
-          f"cycles per block-frame", flush=True)
+          f"{plan.smem} B shared{ring}, instrumented {ms:.3f} ms): "
+          f"{per:.0f} thread-0 cycles per block-frame", flush=True)
     for k, phase in enumerate(phases):
         print(f"    {phase:28s} {buf[k] / buf[7]:7.2%}  {buf[k] / plan.blocks / (T - 1):9.0f} "
               f"cycles", flush=True)
@@ -242,7 +259,12 @@ def main():
                                  ["bild_kalman_sym_f32"], 13, 12)
         for L, P in ((640, 128), (1, 100)):
             phase_run(lib, "bild_kalman_sym_f32", (ops.Pslab.data_ptr(),), model, ops,
-                      L, P, "exact", launch_inputs, kalman_sym, PHASES)
+                      L, P, "exact", launch_inputs, kalman_sym, PHASES, force="tile")
+        if hasattr(lib, "bild_kalman_sym_cluster_f32"):
+            lib.bild_kalman_sym_cluster_f32.argtypes = (
+                [ctypes.c_void_p] * 13 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
+            phase_run(lib, "bild_kalman_sym_cluster_f32", (ops.Prow.data_ptr(),), model,
+                      ops, 1, 100, "exact", launch_inputs, kalman_sym, CLUSTER_PHASES)
 
     entries = {"split_cov": "bild_kalman_sym_splitcov_f32", "split": "bild_kalman_sym_split_f32"}
     source = split_source(_build)
