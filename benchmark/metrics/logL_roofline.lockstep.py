@@ -1,0 +1,9 @@
+"""The Rouse likelihood's share of its roofline in the dataset cells: the
+least time of every profile that the traced calls scored (`work`), over
+the device time of every launch of a kernel named in
+``kernels/rouse_logL.json``, in percent."""
+from benchmark.metrics import _common
+
+
+def read(rec):
+    return _common.roofline(rec)
