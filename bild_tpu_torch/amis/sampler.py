@@ -32,6 +32,7 @@ import math
 import numpy as np
 import torch
 
+from .._spans import span, spanned
 from ..lanes import LaneRNG, lane_logsumexp, lane_sum
 from ..profiles import Loopingprofile, st2profile
 from .cfc import CFC, SampleSpaceTooLarge, cfc_sample, cfc_logpmf, cfc_estimate
@@ -477,6 +478,7 @@ class FixedkSampler:
     class ExhaustionImpractical(ValueError):
         pass
 
+    @spanned("sampler.init")
     def __init__(self, traj, model, k,
                  N=100,
                  concentration_brake=1e-2,
@@ -669,38 +671,40 @@ class FixedkSampler:
                     f"(number of profiles = {Nsamples} > Nmax = {Nmax})")
 
         # switch positions at inter-frame midpoints; ss = interval fractions
-        switch_list = list(itertools.combinations(np.arange(self.T - 1) + 0.5, self.k))
-        normed = (np.array(switch_list, dtype=float).reshape(len(switch_list), self.k)
-                  / (self.T - 1))
-        normed = np.concatenate(
-            [np.zeros((len(normed), 1)), normed, np.ones((len(normed), 1))], axis=1)
-        ss = np.diff(normed, axis=1)                       # (n_pos, k+1)
+        with span("sampler.enumerate"):
+            switch_list = list(itertools.combinations(np.arange(self.T - 1) + 0.5,
+                                                      self.k))
+            normed = (np.array(switch_list, dtype=float).reshape(len(switch_list), self.k)
+                      / (self.T - 1))
+            normed = np.concatenate(
+                [np.zeros((len(normed), 1)), normed, np.ones((len(normed), 1))], axis=1)
+            ss = np.diff(normed, axis=1)                       # (n_pos, k+1)
 
-        thetas = self.cfc.full_sample(self.k, Nmax=Nmax)   # (n_theta, k+1)
+            thetas = self.cfc.full_sample(self.k, Nmax=Nmax)   # (n_theta, k+1)
 
-        n_pos = len(ss)
-        ss = np.tile(ss, (len(thetas), 1))
-        thetas = np.repeat(thetas, n_pos, axis=0)
+            n_pos = len(ss)
+            ss = np.tile(ss, (len(thetas), 1))
+            thetas = np.repeat(thetas, n_pos, axis=0)
 
-        profiles = st2profile(self._tensor(ss), self._tensor(thetas, torch.int32),
-                              self.T)
-        logLs = self._host_logLs(self._logL(profiles))
+            profiles = st2profile(self._tensor(ss), self._tensor(thetas, torch.int32),
+                                  self.T)
+            logLs = self._host_logLs(self._logL(profiles))
 
-        # exact evidence: mean over the uniform prior ensemble
-        max_logL = np.max(logLs)
-        with np.errstate(under="ignore"):
-            weights_o = np.exp(logLs - max_logL)
-            ev_o = np.mean(weights_o)
-            logev = float(np.log(ev_o) + max_logL)
-            dlogev = 1e-10
-            KL = float(np.mean(logLs * weights_o) / ev_o - logev)
+            # exact evidence: mean over the uniform prior ensemble
+            max_logL = np.max(logLs)
+            with np.errstate(under="ignore"):
+                weights_o = np.exp(logLs - max_logL)
+                ev_o = np.mean(weights_o)
+                logev = float(np.log(ev_o) + max_logL)
+                dlogev = 1e-10
+                KL = float(np.mean(logLs * weights_o) / ev_o - logev)
 
-        self._exhaustive = {
-            "ss": ss, "thetas": thetas,
-            "logLs": logLs, "profiles": profiles.cpu().numpy(),
-        }
-        self.evidences.append((logev, dlogev, KL))
-        self.exhausted = True
+            self._exhaustive = {
+                "ss": ss, "thetas": thetas,
+                "logLs": logLs, "profiles": profiles.cpu().numpy(),
+            }
+            self.evidences.append((logev, dlogev, KL))
+            self.exhausted = True
 
     # -- AMIS steps --------------------------------------------------------------
     @property
@@ -712,6 +716,7 @@ class FixedkSampler:
         """Run one AMIS iteration; ``False`` iff the sampler is exhausted."""
         return self.steps(1) == 1
 
+    @spanned("sampler.steps")
     def steps(self, n: int) -> int:
         """Run up to ``n`` AMIS iterations with one host fetch for all their
         outputs (the evidences, the convergence trace, the step count and
@@ -747,7 +752,8 @@ class FixedkSampler:
             self._mom_trace[0, start:stop].to(self.dtype),
             torch.stack([x.to(self.dtype) for x in
                          (lane.mom_ok[0], lane.n_steps[0], self._flag)])])
-        vals = packed.cpu().numpy()                  # ONE fetch for everything
+        with span("sampler.fetch"):
+            vals = packed.cpu().numpy()              # ONE fetch for everything
         ev = vals[: 3 * n_run].reshape(n_run, 3)
         mom = vals[3 * n_run: 4 * n_run] != 0
         mom_ok = bool(vals[-3] != 0)

@@ -41,10 +41,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .._spans import span
 from ..amis.cfc import CFC
 from ..amis.dirichlet import check_exhausted
 from ..amis.sampler import AmisState, _marginal_posterior, draw_seed
 from ..lanes import LaneRNG, normal
+from ..ops import counters
 from ..parallel.batch import (BatchResults, TrajectoryBatch, _informed_proposals_all_k,
                               _Lanes, _per_k_params, _prepare_batch, lane_step,
                               run_lanes, run_steps)
@@ -438,93 +440,98 @@ def sample_batch_adaptive(model, batch: TrajectoryBatch,
 
     rounds = 0
     while not done.all() and (max_rounds is None or rounds < max_rounds):
-        # decide; re-run after virtual opens: an unidentifiable k opens
-        # with no device work, like the reference's -inf sampler
-        for _ in range(K_host):
-            dec = decide_all()
-            live = ~done & (init_pending == 0)
-            virt = live & dec["is_open"] & (
-                (dec["k_next"] >= lengths) | (dec["k_next"] >= L))
-            if not virt.any():
-                break
-            host_open(np.where(virt)[0], dec["k_next"][virt])
+        with span("adaptive.round"):
+            with span("adaptive.decide"):
+                # decide; re-run after virtual opens: an unidentifiable k opens
+                # with no device work, like the reference's -inf sampler
+                for _ in range(K_host):
+                    dec = decide_all()
+                    live = ~done & (init_pending == 0)
+                    virt = live & dec["is_open"] & (
+                        (dec["k_next"] >= lengths) | (dec["k_next"] >= L))
+                    if not virt.any():
+                        break
+                    host_open(np.where(virt)[0], dec["k_next"][virt])
 
-        live = ~done & (init_pending == 0)
-        done |= live & ~dec["keep_going"]
-        live = ~done & (init_pending == 0)
+                live = ~done & (init_pending == 0)
+                done |= live & ~dec["keep_going"]
+                live = ~done & (init_pending == 0)
 
-        # device opens: start init on the new lane
-        opening = live & dec["is_open"]
-        init_pending[opening] = init_steps
-        opened[opening] += 1
+                # device opens: start init on the new lane
+                opening = live & dec["is_open"]
+                init_pending[opening] = init_steps
+                opened[opening] += 1
 
-        # primary slot per live trajectory
-        kb_pri = np.where(init_pending > 0, opened - 1, dec["k_next"])
-        rows = np.where(~done)[0]
-        if rows.size == 0:
-            break
-        kb_list = list(kb_pri[rows])
-        bidx_list = list(rows)
-        used = set(zip(kb_list, bidx_list))
-
-        # budget reallocation: spare slots -> the highest-KLD remaining
-        # (lane, trajectory) candidates of live, non-initializing rows
-        spare = B - len(rows)
-        if spare > 0 and reallocate:
-            cand_ok = np.zeros((B, K_host), dtype=bool)
-            cand_ok[~done & (init_pending == 0)] = True
-            cand_ok &= np.isfinite(nst) & (nst > 0)      # opened, not exhausted
-            cand_ok[:, L:] = False
-            cand_ok &= dec["KLD"] > 0
-            for kk, bb in used:
-                if kk < K_host:
-                    cand_ok[bb, kk] = False
-            flat = np.argsort(-np.where(cand_ok, dec["KLD"], -np.inf),
-                              axis=None)[:spare]
-            for f in flat:
-                bb, kk = divmod(int(f), K_host)
-                if not cand_ok[bb, kk]:
+                # primary slot per live trajectory
+                kb_pri = np.where(init_pending > 0, opened - 1, dec["k_next"])
+                rows = np.where(~done)[0]
+                if rows.size == 0:
                     break
-                kb_list.append(kk)
-                bidx_list.append(bb)
-                used.add((kk, bb))
+                kb_list = list(kb_pri[rows])
+                bidx_list = list(rows)
+                used = set(zip(kb_list, bidx_list))
 
-        # dead filler slots (left unchanged) on distinct unused pairs
-        n_live_slots = len(kb_list)
-        need = B - n_live_slots
-        for kk in range(L):
-            for bb in range(B):
-                if need == 0:
-                    break
-                if (kk, bb) not in used:
-                    kb_list.append(kk)
-                    bidx_list.append(bb)
-                    used.add((kk, bb))
-                    need -= 1
+                # budget reallocation: spare slots -> the highest-KLD remaining
+                # (lane, trajectory) candidates of live, non-initializing rows
+                spare = B - len(rows)
+                if spare > 0 and reallocate:
+                    cand_ok = np.zeros((B, K_host), dtype=bool)
+                    cand_ok[~done & (init_pending == 0)] = True
+                    cand_ok &= np.isfinite(nst) & (nst > 0)      # opened, not exhausted
+                    cand_ok[:, L:] = False
+                    cand_ok &= dec["KLD"] > 0
+                    for kk, bb in used:
+                        if kk < K_host:
+                            cand_ok[bb, kk] = False
+                    flat = np.argsort(-np.where(cand_ok, dec["KLD"], -np.inf),
+                                      axis=None)[:spare]
+                    for f in flat:
+                        bb, kk = divmod(int(f), K_host)
+                        if not cand_ok[bb, kk]:
+                            break
+                        kb_list.append(kk)
+                        bidx_list.append(bb)
+                        used.add((kk, bb))
 
-        kb = np.asarray(kb_list, dtype=np.int64)
-        bidx = np.asarray(bidx_list, dtype=np.int64)
-        idx = torch.as_tensor(kb * B + bidx, device=device)
-        live_mask = torch.arange(B, device=device) < n_live_slots
-        sel = run_slots(
-            logL_fn, tuple(x[idx] for x in lane_data), grid.select(idx),
-            lanes.rng[idx], transitions, lanes.active[idx],
-            lanes.logprior[idx], cb, pb, N=N, T=T, steps=m, live=live_mask,
-            informed=(None if lanes.informed is None
-                      else tuple(x[idx] for x in lanes.informed)),
-            mom_maxiter=mom_maxiter)
-        grid.put(idx, sel)
+                # dead filler slots (left unchanged) on distinct unused pairs
+                n_live_slots = len(kb_list)
+                need = B - n_live_slots
+                for kk in range(L):
+                    for bb in range(B):
+                        if need == 0:
+                            break
+                        if (kk, bb) not in used:
+                            kb_list.append(kk)
+                            bidx_list.append(bb)
+                            used.add((kk, bb))
+                            need -= 1
 
-        i_last = (sel.n_steps - 1).clamp(min=0)
-        packed = torch.cat([
-            sel.evidences[torch.arange(B, device=device), i_last],
-            sel.n_steps[:, None].to(dtype), sel.mom_ok[:, None].to(dtype)],
-            dim=1).cpu().numpy()               # ONE fetch per round
-        sl = slice(0, n_live_slots)
-        record(packed[sl, :3], packed[sl, 3], packed[sl, 4] != 0,
-               kb[sl], bidx[sl])
-        init_pending = np.maximum(init_pending - m, 0)
-        rounds += 1
+                kb = np.asarray(kb_list, dtype=np.int64)
+                bidx = np.asarray(bidx_list, dtype=np.int64)
+                idx = torch.as_tensor(kb * B + bidx, device=device)
+                live_mask = torch.arange(B, device=device) < n_live_slots
+            sel = run_slots(
+                logL_fn, tuple(x[idx] for x in lane_data), grid.select(idx),
+                lanes.rng[idx], transitions, lanes.active[idx],
+                lanes.logprior[idx], cb, pb, N=N, T=T, steps=m, live=live_mask,
+                informed=(None if lanes.informed is None
+                          else tuple(x[idx] for x in lanes.informed)),
+                mom_maxiter=mom_maxiter)
+            grid.put(idx, sel)
+
+            i_last = (sel.n_steps - 1).clamp(min=0)
+            with span("adaptive.fetch"):
+                packed = torch.cat([
+                    sel.evidences[torch.arange(B, device=device), i_last],
+                    sel.n_steps[:, None].to(dtype), sel.mom_ok[:, None].to(dtype)],
+                    dim=1).cpu().numpy()           # ONE fetch per round
+            sl = slice(0, n_live_slots)
+            record(packed[sl, :3], packed[sl, 3], packed[sl, 4] != 0,
+                   kb[sl], bidx[sl])
+            init_pending = np.maximum(init_pending - m, 0)
+            rounds += 1
+            sample_batch_adaptive.slot_steps += B * m
+            sample_batch_adaptive.filler_slot_steps += (B - n_live_slots) * m
 
     # ---- final summaries -------------------------------------------------
     check_exhausted(lanes.rng.exhausted)
@@ -565,3 +572,7 @@ def sample_batch_adaptive(model, batch: TrajectoryBatch,
         steps=nst_true[:B_real, :K_out].astype(np.int64),
         rounds=rounds,
     )
+
+
+counters.register("adaptive.slot_steps", sample_batch_adaptive, "slot_steps")
+counters.register("adaptive.filler_slot_steps", sample_batch_adaptive, "filler_slot_steps")

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 from scipy.special import logsumexp
 
+from .._spans import spanned
 from ..amis.sampler import FixedkSampler, draw_seed, spawn_generator
 from ..config import DEFAULT_DEVICE, resolve_device
 from ..trajectory import make_trajectory
@@ -22,6 +23,7 @@ from .choice import ChoiceSampler
 __all__ = ["sample", "SamplingResults"]
 
 
+@spanned("sample")
 def sample(traj, model,
            dE=0,
            init_runs=20,
@@ -83,6 +85,7 @@ def sample(traj, model,
         if ran:
             memory["fresh sample"] = True
 
+    @spanned("sample.decide")
     def determine_next_step():
         k_new = len(samplers)
 

@@ -25,10 +25,9 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "load", "entry", "check", "build_seconds"]
+__all__ = ["NVCC_FLAGS", "load", "entry", "check"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -36,9 +35,6 @@ BUILD_DIR = _PKG / "_build"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-
-# seconds spent in nvcc per library by this process (0.0 when reused)
-build_seconds: dict = {}
 
 
 def _nvcc() -> str:
@@ -72,15 +68,12 @@ def _build(name: str, defines=()) -> Path:
     tag = "".join(f"-{d.lower()}" for d in defines)
     out = BUILD_DIR / f"{name}{tag}-{_source_hash(name, defines)}.so"
     if out.exists():
-        build_seconds[name + tag] = 0.0
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I", str(CSRC),
            "-o", str(tmp), str(src)]
-    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds[name + tag] = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed to build {src.name} "
@@ -92,8 +85,7 @@ def _build(name: str, defines=()) -> Path:
 @functools.cache
 def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built if needed, with the
-    macros ``defines`` defined (its `build_seconds` key: ``name`` and
-    ``-<define, lower case>`` for each)."""
+    macros ``defines`` defined."""
     lib = ctypes.CDLL(str(_build(name, defines)))
     lib.bild_cuda_error_string.argtypes = [ctypes.c_int]
     lib.bild_cuda_error_string.restype = ctypes.c_char_p

@@ -1,14 +1,20 @@
 """
-The launch and plain-call counters of the port's kernels, in one registry.
+The port's counters, in one registry: the launches and plain calls of its
+kernels, and the work of the layers above them.
 
 Every kernel wrapper counts its launches, and every plain version its
 calls, in an attribute of the function itself
-(``msrouse_logL_sym.launches``, ``_solve_marginals.calls``). `register`
-sets that attribute to 0 and enters it under a name, next to the
-function's definition. Whatever reads the counts takes the list from
-`COUNTERS`: `parallel.graphs`, which adds a captured step's counts to
-every replay of it, and the benchmark scripts. So a new kernel's counter
-is seen everywhere once its module registers it.
+(``msrouse_logL_sym.launches``, ``_solve_marginals.calls``); so do the
+runners (``run_steps.steps``, ``run_lanes.lane_steps``), the step graphs
+(``replay.replays``, ``replay.copies``), the adaptive rounds
+(``sample_batch_adaptive.slot_steps``) and the climb
+(``optimize_boundary_batch.evaluations``). `register` sets that attribute
+to 0 and enters it under a name, next to the function's definition.
+Whatever reads the counts takes the list from `COUNTERS`:
+`parallel.graphs`, which adds a captured step's counts to every replay of
+it (only the kernels' counters move inside a step), `utils.profiling`'s
+`snapshot`, and the benchmark scripts. So a new counter is seen everywhere
+once its module registers it.
 """
 from __future__ import annotations
 

@@ -39,6 +39,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .._spans import spanned
 from ..amis.cfc import CFC
 from ..amis.dirichlet import check_exhausted
 from ..amis.sampler import (AmisState, _marginal_posterior, amis_propose,
@@ -46,6 +47,7 @@ from ..amis.sampler import (AmisState, _marginal_posterior, amis_propose,
 from ..infer.segment import dp_segment_all_batch, profiles_to_st_batch
 from ..lanes import LaneRNG
 from ..models.base import tensor_token
+from ..ops import counters
 from ..profiles import st2profile
 from ..trajectory import Trajectory
 from . import graphs
@@ -269,6 +271,7 @@ def lane_step(mutable, scratch, logL_fn, lane_data, keys, transitions,
                                         state.logps[:, 1])
 
 
+@spanned("run_steps")
 def run_steps(kind, step, mutable, args, steps, scratch=()) -> None:
     """``steps`` calls of ``step(mutable, scratch, *args)`` (``args[0]`` the
     likelihood closure): on CUDA replays of one CUDA graph of the step
@@ -276,7 +279,7 @@ def run_steps(kind, step, mutable, args, steps, scratch=()) -> None:
     shapes is cached yet (it builds what the step needs; the capture
     follows it, also when no step is left, for the next call); on the CPU,
     or under ``graphs._EAGER``, an eager loop. Counts the steps of every
-    call in ``run_steps.steps``."""
+    call in ``run_steps.steps``; each call is span ``run_steps``."""
     run_steps.steps += max(steps, 0)
     device = mutable[0].device
     if steps > 0 and graphs.graphed(device):
@@ -289,7 +292,7 @@ def run_steps(kind, step, mutable, args, steps, scratch=()) -> None:
         step(mutable, scratch, *args)
 
 
-run_steps.steps = 0
+counters.register("run_steps.steps", run_steps, "steps")
 
 
 def run_lanes(logL_fn, lane_data, state: AmisState, rng: LaneRNG,
@@ -326,8 +329,8 @@ def run_lanes(logL_fn, lane_data, state: AmisState, rng: LaneRNG,
     return state
 
 
-run_lanes.steps = 0
-run_lanes.lane_steps = 0
+counters.register("run_lanes.steps", run_lanes, "steps")
+counters.register("run_lanes.lane_steps", run_lanes, "lane_steps")
 
 
 def _trim_tail(batch: TrajectoryBatch):

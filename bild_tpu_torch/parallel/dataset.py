@@ -26,6 +26,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from .._spans import span, spanned
 from ..amis.sampler import draw_seed
 from ..infer.adaptive import sample_batch_adaptive
 from ..lanes import mix_int
@@ -96,6 +97,7 @@ def _chunk_tag(indices, batch, config_str):
     return h.hexdigest()[:16]
 
 
+@spanned("sample_dataset")
 def sample_dataset(model, trajs: Sequence,
                    k_max=10,
                    steps_per_k=20,
@@ -241,79 +243,82 @@ def sample_dataset(model, trajs: Sequence,
             pass
 
     for c, (indices, sub) in enumerate(iterator):
-        ck_path = None
-        loaded = None
-        if checkpoint_dir is not None:
-            ck_path = os.path.join(checkpoint_dir,
-                                   f"chunk_{_chunk_tag(indices, sub, config_str)}.npz")
-            if checkpoint_hit(ck_path, mesh):
-                loaded = np.load(ck_path)
+        with span("dataset.chunk"):
+            ck_path = None
+            loaded = None
+            if checkpoint_dir is not None:
+                ck_path = os.path.join(checkpoint_dir,
+                                       f"chunk_{_chunk_tag(indices, sub, config_str)}.npz")
+                if checkpoint_hit(ck_path, mesh):
+                    loaded = np.load(ck_path)
 
-        if loaded is not None:
-            ev, se = loaded["evidence"], loaded["evidence_se"]
-            maps = loaded["map_profiles"]
-            marg = loaded["marginals"] if marginals else None
-            opt = loaded["optimized"] if optimize_boundaries else None
-            elim = loaded["eliminated"] if optimize_boundaries else None
-            mom = loaded["mom_ok"]
-            evl = loaded["evals"] if loaded["evals"].size else None
-        else:
-            chunk_gen = torch.Generator(device=sub.data.device)
-            chunk_gen.manual_seed(mix_int(seed + c) & (2**63 - 1))
-            if schedule == "adaptive":
-                res = sample_batch_adaptive(
-                    model, sub, k_max=k_max, N=N, dE=dE,
-                    informed_init=informed_init, marginals=marginals,
-                    generator=chunk_gen, **sample_kw)
+            if loaded is not None:
+                ev, se = loaded["evidence"], loaded["evidence_se"]
+                maps = loaded["map_profiles"]
+                marg = loaded["marginals"] if marginals else None
+                opt = loaded["optimized"] if optimize_boundaries else None
+                elim = loaded["eliminated"] if optimize_boundaries else None
+                mom = loaded["mom_ok"]
+                evl = loaded["evals"] if loaded["evals"].size else None
             else:
-                res = sample_batch(
-                    model, sub, k_max=k_max, steps_per_k=steps_per_k, N=N,
-                    dE=dE, scout_steps=scout_steps, refine_top=refine_top,
-                    informed_init=informed_init, marginals=marginals,
-                    generator=chunk_gen, mesh=mesh, **sample_kw)
-            ev, se, maps = res.evidence, res.evidence_se, res.map_profiles
-            marg = res.marginals
-            mom = res.mom_ok
-            evl = res.evals
-            opt = elim = None
-            if optimize_boundaries:
-                # every rank climbs all rows from the gathered profiles, on
-                # the batch sample_batch ran (its padding trimmed: banded
-                # GGM tables refuse it as missing frames), padded back
-                from ..postproc import optimize_boundary_batch
-                ran, T_eff = _prepare_batch(
-                    model, sub, getattr(model, "device", sub.data.device),
-                    getattr(model, "dtype", sub.data.dtype))
-                opt, elim = optimize_boundary_batch(
-                    res.best_profile(dE)[:, :T_eff], ran, model)
-                opt = np.pad(opt, [(0, 0), (0, sub.T - T_eff)], mode="edge")
-            if ck_path is not None and (mesh is None or mesh.index == 0):
-                tmp = ck_path + ".tmp.npz"
-                np.savez(tmp, evidence=ev, evidence_se=se,
-                         map_profiles=maps,
-                         marginals=(marg if marginals else np.zeros(0)),
-                         optimized=(opt if opt is not None else np.zeros(0)),
-                         eliminated=(elim if elim is not None
-                                     else np.zeros(0)),
-                         mom_ok=mom,
-                         evals=(evl if evl is not None else np.zeros(0)))
-                os.replace(tmp, ck_path)
+                chunk_gen = torch.Generator(device=sub.data.device)
+                chunk_gen.manual_seed(mix_int(seed + c) & (2**63 - 1))
+                with span("dataset.sample"):
+                    if schedule == "adaptive":
+                        res = sample_batch_adaptive(
+                            model, sub, k_max=k_max, N=N, dE=dE,
+                            informed_init=informed_init, marginals=marginals,
+                            generator=chunk_gen, **sample_kw)
+                    else:
+                        res = sample_batch(
+                            model, sub, k_max=k_max, steps_per_k=steps_per_k, N=N,
+                            dE=dE, scout_steps=scout_steps, refine_top=refine_top,
+                            informed_init=informed_init, marginals=marginals,
+                            generator=chunk_gen, mesh=mesh, **sample_kw)
+                ev, se, maps = res.evidence, res.evidence_se, res.map_profiles
+                marg = res.marginals
+                mom = res.mom_ok
+                evl = res.evals
+                opt = elim = None
+                if optimize_boundaries:
+                    # every rank climbs all rows from the gathered profiles, on
+                    # the batch sample_batch ran (its padding trimmed: banded
+                    # GGM tables refuse it as missing frames), padded back
+                    from ..postproc import optimize_boundary_batch
+                    with span("dataset.climb"):
+                        ran, T_eff = _prepare_batch(
+                            model, sub, getattr(model, "device", sub.data.device),
+                            getattr(model, "dtype", sub.data.dtype))
+                        opt, elim = optimize_boundary_batch(
+                            res.best_profile(dE)[:, :T_eff], ran, model)
+                    opt = np.pad(opt, [(0, 0), (0, sub.T - T_eff)], mode="edge")
+                if ck_path is not None and (mesh is None or mesh.index == 0):
+                    tmp = ck_path + ".tmp.npz"
+                    np.savez(tmp, evidence=ev, evidence_se=se,
+                             map_profiles=maps,
+                             marginals=(marg if marginals else np.zeros(0)),
+                             optimized=(opt if opt is not None else np.zeros(0)),
+                             eliminated=(elim if elim is not None
+                                         else np.zeros(0)),
+                             mom_ok=mom,
+                             evals=(evl if evl is not None else np.zeros(0)))
+                    os.replace(tmp, ck_path)
 
-        lengths = (np.asarray(sub.lengths) if sub.lengths is not None
-                   else np.full(len(indices), sub.T))
-        for row, i in enumerate(np.asarray(indices)):
-            evidence[i] = ev[row]
-            evidence_se[i] = se[row]
-            mom_all[i] = mom[row]
-            if evl is not None:
-                evals_all[i] = evl[row]
-            Ti = int(lengths[row])
-            profiles_by_k[i] = np.asarray(maps[:, row, :Ti], dtype=int)
-            if marginals:
-                margs_by_traj[i] = marg[:, row, :, :Ti]
-            if optimize_boundaries:
-                opt_by_traj[i] = np.asarray(opt[row, :Ti], dtype=int)
-                elim_all[i] = bool(elim[row])
+            lengths = (np.asarray(sub.lengths) if sub.lengths is not None
+                       else np.full(len(indices), sub.T))
+            for row, i in enumerate(np.asarray(indices)):
+                evidence[i] = ev[row]
+                evidence_se[i] = se[row]
+                mom_all[i] = mom[row]
+                if evl is not None:
+                    evals_all[i] = evl[row]
+                Ti = int(lengths[row])
+                profiles_by_k[i] = np.asarray(maps[:, row, :Ti], dtype=int)
+                if marginals:
+                    margs_by_traj[i] = marg[:, row, :, :Ti]
+                if optimize_boundaries:
+                    opt_by_traj[i] = np.asarray(opt[row, :Ti], dtype=int)
+                    elim_all[i] = bool(elim[row])
 
     return DatasetResults(
         k=np.arange(K1),

@@ -174,9 +174,9 @@ def replay(kind, owner, step, mutable, args, n, scratch=()) -> None:
     replay.copies += len(graph.inputs) + 2 * len(graph.mutable)
 
 
-replay.captures = 0
-replay.replays = 0
-replay.copies = 0
+counters.register("graphs.captures", replay, "captures")
+counters.register("graphs.replays", replay, "replays")
+counters.register("graphs.copies", replay, "copies")
 
 
 def clear() -> None:

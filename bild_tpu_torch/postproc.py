@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops import counters
 from .profiles import Loopingprofile
 
 __all__ = ["logLR_boundaries", "optimize_boundary",
@@ -130,7 +131,8 @@ def optimize_boundary_batch(profiles, batch, model, max_iteration=10000):
     return states, elim
 
 
-optimize_boundary_batch.evaluations = 0
+counters.register("optimize_boundary_batch.evaluations", optimize_boundary_batch,
+                  "evaluations")
 
 
 def optimize_boundary(profile, traj, model, max_iteration=10000):

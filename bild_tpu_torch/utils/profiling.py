@@ -4,7 +4,20 @@ Tracing and numerics debugging aids (counterpart of
 
 - `trace(logdir)`: context manager around `torch.profiler`; writes a
   Chrome trace (open it in Perfetto or ``chrome://tracing``) of host and,
-  with a GPU, device execution under ``logdir``.
+  with a GPU, device execution under ``logdir``, the port's spans among
+  its ranges.
+- `span(name)`, `spanned(name)`: the port's spans at its layer boundaries
+  (``sample`` ⊃ ``sample.decide``, ``sampler.init`` ⊃
+  ``sampler.enumerate``, ``sampler.steps`` ⊃ ``run_steps``,
+  ``sampler.fetch``; ``sample_dataset`` ⊃ ``dataset.chunk`` ⊃
+  ``dataset.sample``, ``dataset.climb``; ``adaptive.round`` ⊃
+  ``adaptive.decide``, ``run_steps``, ``adaptive.fetch``), recorded while
+  a `torch.profiler` session records and only then (`bild_tpu_torch._spans`).
+- `snapshot()`: the latest profiler session's spans, each span name's
+  count, total and self time, and the deltas of the registered counters
+  (`ops.counters`) over it. Each `trace` block starts a new log; two
+  sessions opened directly with `torch.profiler` share one unless a span
+  or `snapshot` ran between them with the profiler off.
 - `strict_numerics()`: context manager around
   `torch.autograd.set_detect_anomaly`, the nearest PyTorch has to JAX's
   ``jax_debug_nans``.
@@ -16,7 +29,10 @@ import os
 
 import torch
 
-__all__ = ["trace", "strict_numerics"]
+from .. import _spans
+from .._spans import snapshot, span, spanned
+
+__all__ = ["trace", "span", "spanned", "snapshot", "strict_numerics"]
 
 
 @contextlib.contextmanager
@@ -24,11 +40,13 @@ def trace(logdir: str):
     """Profile everything inside the block; on exit write
     ``logdir/trace.json`` (Chrome trace format). Yields the
     `torch.profiler.profile` object, whose ``key_averages()`` can be read
-    after the block."""
+    after the block. The block's spans start a new log, which `snapshot`
+    reads after it."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    _spans.restart()
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

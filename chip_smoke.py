@@ -4403,8 +4403,8 @@ def slice_phase(bt):
     for selector in ("sym", "dense"):
         bt.config.set_rouse_kernel(selector)
         graphs.clear()
-        caps, reps = graphs.replay.captures, graphs.replay.replays
         counters.reset()
+        caps, reps = graphs.replay.captures, graphs.replay.replays
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = run()
@@ -4479,10 +4479,15 @@ def build_all(parent_tree):
     nvcc per source, all at once; beside them ``nvcc -Xptxas -v`` of the
     step and likelihood kernels (`ptxas_report`) and the same kernels of
     the parent checkout at ``parent_tree`` where it has them
-    (`build_parent`). Prints the build seconds; returns ``(parent,
-    ptxas)`` as `step_kernel_phase` and `parent_kernel_phase` take
-    them."""
+    (`build_parent`). Prints the seconds each build (or the load of a
+    library built before) took; returns ``(parent, ptxas)`` as
+    `step_kernel_phase` and `parent_kernel_phase` take them."""
     from bild_tpu_torch.ops import _build
+
+    def timed_load(build):
+        t0 = time.perf_counter()
+        _build.load(*build)
+        return time.perf_counter() - t0
 
     builds = [(name, ()) for name in ("kalman_sym", "kalman_sym_split",
                                       "kalman_dense", "cfc_solve",
@@ -4493,16 +4498,16 @@ def build_all(parent_tree):
                     if (Path(parent_tree) / "bild_tpu_torch" / "csrc"
                         / f"{name}.cu").exists()]
     with ThreadPoolExecutor(len(builds) + 2 * len(timed_names)) as pool:
-        loads = pool.map(lambda b: _build.load(*b), builds)
+        loads = pool.map(timed_load, builds)
         reports = {name: pool.submit(ptxas_report, name) for name in timed_names}
         parents = {name: pool.submit(build_parent, parent_tree, name)
                    for name in parent_names}
-        list(loads)
+        seconds = list(loads)
         ptxas = {name: f.result() for name, f in reports.items()}
         parent = {name: f.result() for name, f in parents.items()}
-    for name, defines in builds:
+    for (name, defines), took in zip(builds, seconds):
         key = name + "".join(f"-{x.lower()}" for x in defines)
-        print(f"build {key}: {_build.build_seconds[key]:.2f} s", flush=True)
+        print(f"build {key}: {took:.2f} s", flush=True)
     print(f"parent kernels: {sorted(parent) or 'none'} (from "
           f"{parent_tree})", flush=True)
     return parent, ptxas

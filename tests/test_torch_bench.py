@@ -83,12 +83,15 @@ def test_likelihoods_match_bild_tpu(small):
         assert got[name].shape == (32,)
         np.testing.assert_allclose(got[name], want, rtol=1e-9, err_msg=name)
     # on CPU tensors every wrapper ran its plain version and launched
-    # nothing; the counts are the whole registry's
+    # nothing; the counts are the whole registry's, the layers' counters too
     assert counts == {"kalman_sym": 0, "kalman_sym_split": 0, "kalman_sym_cluster": 0,
                       "kalman_dense": 0,
                       "kalman_dense_cov32": 0, "plain_sym": 3, "plain_dense": 1,
                       "plain_torch": 0, "cfc_solve": 0, "plain_cfc": 0, "gamma_accept": 0,
-                      "plain_gamma": 0}
+                      "plain_gamma": 0, "graphs.captures": 0, "graphs.replays": 0,
+                      "graphs.copies": 0, "run_steps.steps": 0, "run_lanes.steps": 0,
+                      "run_lanes.lane_steps": 0, "optimize_boundary_batch.evaluations": 0,
+                      "adaptive.slot_steps": 0, "adaptive.filler_slot_steps": 0}
 
 
 def test_baseline_is_bild_tpu_oracle(small):
