@@ -7,10 +7,14 @@ the caller asks for the CPU (``device="cpu"``, as the CPU tests do); on a
 machine without a GPU a model built without ``device=`` raises
 (`resolve_device`). The CPU tests run in float64; the GPU runs float32.
 
-The selector only matters for CUDA tensors. A model whose tensors lie on
-the CPU always takes the plain path (`ops.kalman.msrouse_logL_batch`).
-The matmul tier (`set_rouse_matmul`) likewise changes only what the packed
-kernel computes on float32 CUDA tensors.
+The kernel selector (`set_rouse_kernel`) only matters for CUDA tensors:
+``'auto'`` (the default) picks the dense-covariance or the packed kernel
+for each launch from its shape, ``'sym'`` and ``'dense'`` force one,
+``'torch'`` runs the plain recursion. A model whose tensors lie on the CPU
+always takes the plain path (`ops.kalman.msrouse_logL_batch`). The matmul
+tier (`set_rouse_matmul`) likewise changes only what the packed kernel
+computes on float32 CUDA tensors; under ``'auto'`` a split tier keeps
+every launch on the packed kernel.
 """
 from __future__ import annotations
 
@@ -27,12 +31,18 @@ __all__ = ["KERNELS", "DEFAULT_DEVICE", "resolve_device", "rouse_kernel",
 DEFAULT_DEVICE = "cuda"
 
 # Which Rouse-Kalman likelihood a CUDA model dispatches to:
-#   "sym"   — packed-symmetric CUDA kernel (`ops.kalman_sym`, the default,
-#             mirroring bild_tpu's default)
-#   "dense" — dense-covariance CUDA kernel (`ops.kalman_dense`)
+#   "auto"  — the default: per launch, the kernel that
+#             `ops.kalman_sym.auto_kernel` picks from the launch's shape:
+#             the dense kernel where the launch fills the SMs (the dataset
+#             runners), the packed kernel's cluster plan where it cannot
+#             (sample()'s step, L=1, P=100)
+#   "sym"   — packed-symmetric CUDA kernel (`ops.kalman_sym`; bild_tpu's
+#             default), for every launch
+#   "dense" — dense-covariance CUDA kernel (`ops.kalman_dense`), for every
+#             launch
 #   "torch" — the plain PyTorch recursion (`ops.kalman`)
-KERNELS = ("sym", "dense", "torch")
-_ROUSE_KERNEL = "sym"
+KERNELS = ("auto", "sym", "dense", "torch")
+_ROUSE_KERNEL = "auto"
 
 
 def resolve_device(device) -> torch.device:
@@ -51,8 +61,9 @@ def rouse_kernel() -> str:
 
 
 def set_rouse_kernel(name: str) -> None:
-    """Select the CUDA Rouse-Kalman likelihood: 'sym', 'dense' or 'torch'.
-    Models pick it up at their next likelihood call."""
+    """Select the CUDA Rouse-Kalman likelihood: 'auto' (the default: chosen
+    per launch from its shape), 'sym', 'dense' or 'torch'. Models pick it
+    up at their next likelihood call."""
     global _ROUSE_KERNEL
     if name not in KERNELS:
         raise ValueError(f"unknown kernel {name!r}; use one of {KERNELS}")

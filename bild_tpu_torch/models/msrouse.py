@@ -18,9 +18,9 @@ import torch
 from ..config import (DEFAULT_DEVICE, resolve_device, resolve_matmul,
                       rouse_kernel)
 from ..ops.kalman import msrouse_logL_batch
-from ..ops.kalman_dense import msrouse_logL_dense
+from ..ops.kalman_dense import msrouse_logL_dense, sm_count
 from ..ops.kalman_sqrt import psd_factor
-from ..ops.kalman_sym import SymOperators, msrouse_logL_sym
+from ..ops.kalman_sym import SymOperators, auto_kernel, msrouse_logL_sym
 from ..physics.rouse import RouseModel
 from ..profiles import Loopingprofile
 from ..trajectory import Trajectory
@@ -156,16 +156,34 @@ class MultiStateRouse(MultiStateModel):
     def _kernel(self, matmul="exact"):
         """The likelihood this model runs: the plain recursion for CPU
         tensors, the selected kernel (`config.rouse_kernel`) for CUDA.
-        ``matmul`` (a resolved tier, `config.resolve_matmul`) reaches the
-        packed kernel only: the dense kernel and the plain recursion are
-        always exact, as in bild_tpu."""
+        Under ``'auto'`` (the default) each launch runs the kernel that
+        `ops.kalman_sym.auto_kernel` picks from its shape: the dense one
+        where the launch fills the SMs (the dataset runners), the packed
+        one's cluster plan where it cannot (`sample()`'s step). ``matmul``
+        (a resolved tier, `config.resolve_matmul`) reaches the packed
+        kernel only: the dense kernel and the plain recursion are always
+        exact, as in bild_tpu; a split tier keeps ``'auto'`` on the packed
+        kernel."""
         name = rouse_kernel()
         if self.device.type == "cpu" or name == "torch":
             return msrouse_logL_batch
         if name == "dense":
             return msrouse_logL_dense
-        return functools.partial(msrouse_logL_sym, ops=self.sym_operators(),
-                                 matmul=matmul)
+        if name == "sym":
+            return functools.partial(msrouse_logL_sym,
+                                     ops=self.sym_operators(), matmul=matmul)
+
+        def auto(*args):
+            Bs, Gs, _, _, _, _, s2, _, profiles, ydata, _ = args
+            kernel = auto_kernel(*profiles.shape[:2], *Bs.shape[:2],
+                                 Gs.shape[2], s2.shape[0], ydata.element_size(),
+                                 matmul, sm_count(ydata.device.index or 0))
+            if kernel == "dense":
+                return msrouse_logL_dense(*args)
+            return msrouse_logL_sym(*args, ops=self.sym_operators(),
+                                    matmul=matmul)
+
+        return auto
 
     # -- noise handling --------------------------------------------------------
     def _get_noise(self, traj) -> np.ndarray:

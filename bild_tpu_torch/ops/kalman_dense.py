@@ -5,8 +5,10 @@ Dense-covariance Rouse-Kalman likelihood: the CUDA kernel
 Counterpart of `bild_tpu.ops.kalman_pallas.msrouse_logL_pallas` (the Pallas
 kernel ``kalman_pallas.py::_kernel``): the same likelihood as
 `ops.kalman.msrouse_logL_batch`, with a dense ``(q, N, N)`` covariance per
-profile and no re-symmetrization. It is the ``'dense'`` selector and the
-large-N fallback of the packed kernel (`ops.kalman_sym`).
+profile and no re-symmetrization. It is the ``'dense'`` selector, the
+default ``'auto'`` selector's kernel wherever a launch fills the SMs
+(`ops.kalman_sym.auto_kernel`: the dataset runners), and the large-N
+fallback of the packed kernel (`ops.kalman_sym`).
 
 On the H100 one warp evaluates one profile of one lane (trajectory), with
 its covariance in shared memory for the whole frame loop, and a block of

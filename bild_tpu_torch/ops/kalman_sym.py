@@ -73,11 +73,12 @@ import torch
 from . import _build, counters
 from .kalman import LOG_2PI, as_lanes, in_range_mask
 from .kalman_dense import (H100_SMS, SMEM_LIMIT, SMEM_PER_SM,
-                           check_cuda_args, cind_tensor, msrouse_logL_dense,
-                           sm_count)
+                           check_cuda_args, cind_tensor, dense_cov_itemsize,
+                           msrouse_logL_dense, sm_count)
 
 __all__ = ["SymOperators", "build_sym_operators", "msrouse_logL_sym",
            "msrouse_logL_sym_torch", "sym_fits", "sym_plan", "SymPlan",
+           "auto_kernel",
            "sym_smem_bytes", "SYM_OPERATOR_BUDGET", "SYM_TILES", "TIERS",
            "SYM_CLUSTERS", "H100_CLUSTER_SLOTS", "cluster_rows",
            "row_operators",
@@ -352,6 +353,33 @@ def sym_plan(L, P, n, N, d, q, itemsize, sms=H100_SMS,
     return SymPlan(chosen, -(-P // chosen), blocks(chosen),
                    sym_smem_bytes(chosen, n, N, d, q, itemsize, tier, stages),
                    stages)
+
+
+def auto_kernel(L, P, n, N, d, q, itemsize, tier="exact", sms=H100_SMS) -> str:
+    """
+    The kernel of an ``(L, P)`` launch under the ``'auto'`` selector
+    (`config.set_rouse_kernel`): ``'sym'`` (`msrouse_logL_sym`) or
+    ``'dense'`` (`ops.kalman_dense.msrouse_logL_dense`), from host integers
+    alone (nothing is read from the device, so a step graph's capture
+    sees no difference). ``tier`` is the resolved matmul tier.
+
+    ``'sym'`` where the tier is a split one (the dense kernel has none);
+    where the dense kernel would carry a float32 covariance
+    (`dense_cov_itemsize`; the packed kernel then runs as under ``'sym'``);
+    and where the packed kernel takes its cluster plan, i.e. where the
+    launch cannot fill the ``sms`` SMs (``L P < sms``; `sample()`'s step,
+    L=1, P=100, where the cluster plan beats one warp per profile).
+    ``'dense'`` everywhere else: its work grows as N^3 against the packed
+    kernel's N^4, and it is the faster where a launch fills the card (at
+    every dataset runner's launch shape on an H100). Shapes the packed
+    kernel does not take (`sym_fits`) go to the dense kernel either way.
+    """
+    if tier != "exact" or dense_cov_itemsize(n, N, d, q, itemsize) < 8:
+        return "sym"
+    if sym_fits(n, N, d, q, itemsize) and sym_plan(
+            L, P, n, N, d, q, itemsize, sms=sms).cluster:
+        return "sym"
+    return "dense"
 
 
 def build_sym_operators(Bs, Gs, Sigs, M0s, C0s, w, pad=8):

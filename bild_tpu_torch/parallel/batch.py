@@ -20,7 +20,10 @@ counter-based stream (`lanes.LaneRNG`); every reduction over a lane's own
 axes is lane-exact (``exact=True`` at each call). So a lane's result does not depend
 on which lanes share its steps: the all-k schedule, the per-k
 ``checkpoint=`` schedule and the scout/refine schedule give the same
-numbers for the same generator. With ``row_keys`` a trajectory's lanes are
+numbers for the same generator (on CUDA under the ``'auto'`` kernel
+selector, wherever both schedules' launches take the same kernel,
+`ops.kalman_sym.auto_kernel`: lanes times profiles of at least the SM
+count). With ``row_keys`` a trajectory's lanes are
 keyed by the trajectory itself, not by its position in the batch.
 
 Under a ``mesh`` (`parallel.mesh`) each rank runs the lanes of its own

@@ -26,9 +26,12 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
 4. Slice phase: the README model, MultiStateRouse(N=20, D=1, k=5, d=3,
    localization_error=0.1), a T=100 trajectory with a loop at frames 30-60,
    and `bild_tpu_torch.sample()` with its defaults, once per kernel
-   selector; every sampler's steps replay one CUDA graph of the lockstep
-   step at one lane, and under 'sym' every step launches the cluster plan
-   (``kalman_sym_cluster`` at least the steps). The whole counter registry
+   selector ('auto', the default, 'sym' and 'dense'; each phase that sets
+   a selector restores the one it found); every sampler's steps replay
+   one CUDA graph of the lockstep step at one lane, and under 'sym' and
+   'auto' every step launches the cluster plan (``kalman_sym_cluster`` at
+   least the steps; under 'auto' the dataset runs launch the dense kernel
+   and no tile plan of the packed one). The whole counter registry
    (`ops.counters`) must show
    that the run went through the selected kernel, csrc/gamma_accept.cu
    and csrc/cfc_solve.cu and never through a plain version; the first
@@ -150,8 +153,8 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    the all-k one on a 16-trajectory chunk.
 8. Adaptive phase: config 3 through `sample_dataset(schedule='adaptive',
    chunk_size=128)` (k_max=4, N=128, informed init, init_steps=4,
-   steps_per_round=2, max_steps_per_k=24, samplesize=4096) under both
-   selectors: accuracy against the same bars, fewer likelihood
+   steps_per_round=2, max_steps_per_k=24, samplesize=4096) under each
+   selector: accuracy against the same bars, fewer likelihood
    evaluations per trajectory than the lockstep schedule's 5,632, the
    launch counters, a rerun from the chunk checkpoint and a second run
    from the same seed (identical arrays), the device-busy share, and
@@ -161,7 +164,7 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
    round.
 8b. Config 4 phase (bench_e2e.py config 4): 16 three-state trajectories
    of T=1000 through `sample_batch(k_max=6, steps_per_k=12, N=128,
-   informed_init, scout_steps=4, refine_top=3)` under both selectors:
+   informed_init, scout_steps=4, refine_top=3)` under each selector:
    frame / switch-count accuracy >= 0.97 / 0.50, the launch counters,
    wall, peak device memory and the device-busy share of a traced rerun
    (same bits); the smallest evidence gap between the best and the next k
@@ -169,8 +172,8 @@ Drive bild_tpu_torch on one NVIDIA GPU, end to end.
 8b'. Graph phase: the dataset runners and `sample()` replay one CUDA graph
    of their AMIS step (`parallel.graphs`; every run since the start does)
    and, through the private `graphs._EAGER`, run their eager step: config
-   3's lockstep `sample_dataset` and adaptive schedule under both
-   selectors, config 4 under both, the README `sample()` under both, the
+   3's lockstep `sample_dataset` and adaptive schedule under each
+   selector, config 4 under each, the README `sample()` under each, the
    `ggm_model` example's `sample()`, GGM configs 6 and 7, each in both
    modes in one call. Per
    mode: wall, device-busy share and host launch calls per AMIS step of a
@@ -326,6 +329,15 @@ def algorithm_flops(name, L, P, T, N, d, q, observed):
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def launched_kernel(selector, label):
+    """The likelihood counter that a run of ``selector`` must move: under
+    'auto' the dense kernel at the dataset runners' launches and the
+    packed kernel's cluster plan at `sample()`'s step (L=1, P=100)."""
+    if selector != "auto":
+        return f"kalman_{selector}"
+    return "kalman_sym_cluster" if label.endswith("sample()") else "kalman_dense"
 
 
 def rel_err(got, want):
@@ -1567,9 +1579,12 @@ def split_phase(bt, rng):
               f"config 3 {mode}: frame accuracy {acc:.4f} >= {DATASET_FRAME_ACCURACY}")
         check(sw >= DATASET_SWITCH_ACCURACY,
               f"config 3 {mode}: switch-count accuracy {sw:.4f} >= {DATASET_SWITCH_ACCURACY}")
+        # the split tiers run on the sym kernel; 'exact' on the selected one
+        kernel = ("kalman_sym" if tier != "exact"
+                  else launched_kernel(bt.config.rouse_kernel(), "dataset"))
         check((ran["kalman_sym_split"] > 0) == (tier != "exact")
-              and ran["kalman_sym"] > 0,
-              f"config 3 {mode}: the {tier} tier of the sym kernel ran")
+              and ran[kernel] > 0,
+              f"config 3 {mode}: the {tier} tier ran ({kernel})")
         check(all(ran[k] == 0 for k in ran if k.startswith("plain")),
               "no plain version ran on the CUDA path")
     bt.config.set_rouse_matmul(default)
@@ -1824,7 +1839,8 @@ def dataset_phase(bt, B=128, chunk_size=64, sub_B=16):
               optimize_boundaries=True, chunk_size=chunk_size)
     n_chunks = -(-B // chunk_size)
     out = {}
-    for selector in ("sym", "dense"):
+    found = bt.config.rouse_kernel()
+    for selector in ("auto", "sym", "dense"):
         bt.config.set_rouse_kernel(selector)
         with tempfile.TemporaryDirectory() as ck:
             def run():
@@ -1857,7 +1873,10 @@ def dataset_phase(bt, B=128, chunk_size=64, sub_B=16):
               f"switch-count accuracy {sw:.4f}, after the boundary climb "
               f"{acc_opt:.4f} ({int(res.eliminated.sum())} eliminated), "
               f"launches {ran}", flush=True)
-        check(ran[f"kalman_{selector}"] > 0, f"{selector} kernel launched")
+        kernel = launched_kernel(selector, "dataset")
+        check(ran[kernel] > 0, f"{selector}: {kernel} launched")
+        check(selector != "auto" or ran["kalman_sym"] == ran["kalman_sym_cluster"],
+              "auto: no launch of the packed kernel's tile plan")
         check(all(ran[k] == 0 for k in ran if k.startswith("plain")),
               "no plain version ran on the CUDA path")
         check(acc >= DATASET_FRAME_ACCURACY,
@@ -1903,7 +1922,7 @@ def dataset_phase(bt, B=128, chunk_size=64, sub_B=16):
               flush=True)
         check(same, "per-k checkpoint path equals the fused path")
         out[selector] = ran
-    bt.config.set_rouse_kernel("sym")
+    bt.config.set_rouse_kernel(found)
     return out
 
 
@@ -1945,7 +1964,8 @@ def adaptive_phase(bt, B=128):
     kw = dict(k_max=4, N=128, informed_init=True, init_steps=4,
               steps_per_round=2, max_steps_per_k=24, samplesize=4096)
     out = {}
-    for selector in ("sym", "dense"):
+    found = bt.config.rouse_kernel()
+    for selector in ("auto", "sym", "dense"):
         bt.config.set_rouse_kernel(selector)
         with tempfile.TemporaryDirectory() as ck:
             def run(ck=ck):
@@ -1985,7 +2005,10 @@ def adaptive_phase(bt, B=128):
               flush=True)
         for name, (ms, cnt) in top:
             print(f"    {ms:10.1f} ms {cnt:7d}x  {name[:90]}", flush=True)
-        check(ran[f"kalman_{selector}"] > 0, f"{selector} kernel launched")
+        kernel = launched_kernel(selector, "dataset")
+        check(ran[kernel] > 0, f"{selector}: {kernel} launched")
+        check(selector != "auto" or ran["kalman_sym"] == ran["kalman_sym_cluster"],
+              "auto: no launch of the packed kernel's tile plan")
         check(all(ran[k] == 0 for k in ran if k.startswith("plain")),
               "no plain version ran on the CUDA path")
         check(acc >= DATASET_FRAME_ACCURACY,
@@ -2010,7 +2033,7 @@ def adaptive_phase(bt, B=128):
         check(np.array_equal(direct.evidence, res.evidence),
               "sample_batch_adaptive on the chunk equals the dataset run")
         out[selector] = ran
-    bt.config.set_rouse_kernel("sym")
+    bt.config.set_rouse_kernel(found)
     return out
 
 
@@ -2044,7 +2067,8 @@ def config4_phase(bt, drift):
                                       device=DEVICE, dtype=torch.float32)
     truths, true_k, batch = config4_data(model)
     out = {}
-    for selector in ("sym", "dense"):
+    found = bt.config.rouse_kernel()
+    for selector in ("auto", "sym", "dense"):
         bt.config.set_rouse_kernel(selector)
 
         def run():
@@ -2071,7 +2095,8 @@ def config4_phase(bt, drift):
         gaps = ev[:, -1] - ev[:, -2]
         se = res.evidence_se[rows, res.best_k()]
         own = max(v for (k, label), v in drift.items()
-                  if k == f"kalman_{selector}" and label.startswith("config 4"))
+                  if k == launched_kernel(selector, "config 4")
+                  and label.startswith("config 4"))
         print(f"config 4 selector={selector}: evidence gap between the best "
               f"and the next k: median {np.median(gaps):.3f}, min "
               f"{np.min(gaps):.3f} nats; evidence standard error at the best k: "
@@ -2090,7 +2115,10 @@ def config4_phase(bt, drift):
               f"launches {ran}; device busy share {share}", flush=True)
         for name, (ms, cnt) in top:
             print(f"    {ms:10.1f} ms {cnt:7d}x  {name[:90]}", flush=True)
-        check(ran[f"kalman_{selector}"] > 0, f"{selector} kernel launched")
+        kernel = launched_kernel(selector, "config 4")
+        check(ran[kernel] > 0, f"{selector}: {kernel} launched")
+        check(selector != "auto" or ran["kalman_sym"] == ran["kalman_sym_cluster"],
+              "auto: no launch of the packed kernel's tile plan")
         check(all(ran[k] == 0 for k in ran if k.startswith("plain")),
               "no plain version ran on the CUDA path")
         check(acc >= CONFIG4_FRAME_ACCURACY,
@@ -2103,7 +2131,7 @@ def config4_phase(bt, drift):
               and np.array_equal(traced.map_profiles, res.map_profiles),
               "the traced run from the same seed gives the same bits")
         out[selector] = ran
-    bt.config.set_rouse_kernel("sym")
+    bt.config.set_rouse_kernel(found)
     return out
 
 
@@ -2503,6 +2531,7 @@ def step_kernel_phase(bt, parent=None, ptxas=None):
     record_solve.launches = record_gamma.launches = 0
     cfc.solve_marginals, dirichlet.gamma_accept = record_solve, record_gamma
     graphs._EAGER = True                  # every step's calls are recorded
+    found = bt.config.rouse_kernel()
     bt.config.set_rouse_kernel("sym")
     try:
         for label, run in runs:
@@ -2513,6 +2542,7 @@ def step_kernel_phase(bt, parent=None, ptxas=None):
         solve.launches += record_solve.launches
         accept.launches += record_gamma.launches
         graphs._EAGER = False
+        bt.config.set_rouse_kernel(found)
 
     def shapes(recs):
         return sorted({tuple(r[0].shape) for r in recs})
@@ -2868,7 +2898,7 @@ def graph_cases(bt):
     sb = fields("evidence", "evidence_se", "map_profiles", "mom_ok")
     bars3 = (DATASET_FRAME_ACCURACY, DATASET_SWITCH_ACCURACY)
     cases = []
-    for sel in ("sym", "dense"):
+    for sel in ("auto", "sym", "dense"):
         cases.append((
             "config 3 lockstep", sel,
             lambda: sample_dataset(m3, trajs3, **lock,
@@ -2879,7 +2909,7 @@ def graph_cases(bt):
             lambda: sample_dataset(m3, trajs3, **adap,
                                    generator=torch.Generator().manual_seed(7)),
             fields(*ds, "evals"), score_list(truths3, k3), bars3))
-    for sel in ("sym", "dense"):
+    for sel in ("auto", "sym", "dense"):
         cases.append((
             "config 4", sel,
             lambda: sample_batch(m4, batch4, **CONFIG4_KW,
@@ -2893,7 +2923,7 @@ def graph_cases(bt):
         return lambda r: (float(np.mean(np.asarray(r.best_profile()[:]) == true)),
                           float(r.best_k() == switch_counts(true[None])[0]))
 
-    for sel in ("sym", "dense"):
+    for sel in ("auto", "sym", "dense"):
         cases.append((
             "README sample()", sel,
             lambda: bt.sample(traj_r, mr,
@@ -2919,8 +2949,8 @@ def graph_phase(bt):
     """The AMIS step as one CUDA graph (`parallel.graphs`) against the
     eager step (``graphs._EAGER``), in one call: config 3's lockstep
     `sample_dataset` (chunks of 64, marginals, the climb) and adaptive
-    schedule under both selectors, config 4 under both, the README
-    `sample()` under both, the `ggm_model` example's `sample()`, GGM
+    schedule under each selector, config 4 under each, the README
+    `sample()` under each, the `ggm_model` example's `sample()`, GGM
     configs 6 and 7. Per run and mode: the wall (graphed: the run after
     the capturing one), the device-busy share and the host launch calls per
     AMIS step of a traced run, captures and replays, the gamma sampler's
@@ -2939,6 +2969,7 @@ def graph_phase(bt):
     from bild_tpu_torch.parallel import graphs
     from bild_tpu_torch.parallel.batch import run_steps
 
+    found = bt.config.rouse_kernel()
     t_phase = time.perf_counter()
     launches, runs = {"cfc_solve": 0, "gamma_accept": 0}, {}
     for label, sel, run, same_run, score, bars in graph_cases(bt):
@@ -3037,8 +3068,9 @@ def graph_phase(bt):
         check(all(v == 0 for i in (e, g) for k, v in i["launches"].items()
                   if k.startswith("plain")),
               f"graph {key}: no plain version ran, eager or graphed")
-        check(label.startswith("ggm") or g["launches"][f"kalman_{sel}"] > 0,
-              f"graph {key}: the {sel} kernel launched")
+        check(label.startswith("ggm")
+              or g["launches"][launched_kernel(sel, label)] > 0,
+              f"graph {key}: {launched_kernel(sel, label)} launched")
         check(e["gamma_exhausted"] == g["gamma_exhausted"] == 0,
               f"graph {key}: every gamma draw accepted within its rounds")
         if "adaptive" in label:
@@ -3059,7 +3091,7 @@ def graph_phase(bt):
           f"{cost['device_us']:.1f} us of device time, "
           f"{cost['traced_calls']:.1f} host launch calls in their trace",
           flush=True)
-    bt.config.set_rouse_kernel("sym")
+    bt.config.set_rouse_kernel(found)
     check(capture_refuses_host_reads(bt),
           "graph: a sampler step that reads the host fails to capture and raises")
     print(f"graph phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -3077,6 +3109,7 @@ def copy_cost(bt, reps=100):
     from bild_tpu_torch.parallel import graphs
 
     model, _, traj = readme_case(bt)
+    found = bt.config.rouse_kernel()
     bt.config.set_rouse_kernel("sym")
     graphs.clear()
     bt.sample(traj, model, generator=torch.Generator(device=DEVICE).manual_seed(7))
@@ -3097,6 +3130,7 @@ def copy_cost(bt, reps=100):
     wall = time.perf_counter() - t0
     dev_ms, _, calls, _, _ = graph_profile(copies)
     graphs.clear()
+    bt.config.set_rouse_kernel(found)
     tensors = [*graph.inputs, *graph.mutable, *graph.mutable]
     return {"copies": len(tensors),
             "bytes": sum(t.numel() * t.element_size() for t in tensors),
@@ -3161,7 +3195,6 @@ def config5p_phase(bt):
     model = bt.models.MultiStateRouse(N, D, KSPRING, d=DIM,
                                       localization_error=0.1,
                                       device=DEVICE, dtype=torch.float32)
-    bt.config.set_rouse_kernel("sym")
     rng = np.random.default_rng(5)
     acc = sw = acc_post = cred = 0.0
     chunk_s, finite = [], True
@@ -3211,7 +3244,8 @@ def config5p_phase(bt):
           f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved, "
           f"launches {ran}; step graphs: {graphs.replay.captures - caps} "
           f"captures, {graphs.replay.replays - reps} replayed steps", flush=True)
-    check(ran["kalman_sym"] > 0, "sym kernel launched")
+    kernel = launched_kernel(bt.config.rouse_kernel(), "config 5p")
+    check(ran[kernel] > 0, f"{kernel} launched")
     check(all(ran[k] == 0 for k in ran if k.startswith("plain")),
           "no plain version ran on the CUDA path")
     check(finite, "every evidence finite, CFC converged in every lane")
@@ -3324,6 +3358,7 @@ def examples_phase(bt):
 
     from bild_tpu_torch import fit
 
+    found = bt.config.rouse_kernel()
     bt.config.set_rouse_kernel("sym")
     totals = {}
     for name in ("single_trajectory", "infer_dataset", "calibrate_params",
@@ -3382,6 +3417,7 @@ def examples_phase(bt):
     ev_t, ev_n = (results[k].evidence[:3] for k in ("tensor", "numpy"))
     check(np.allclose(ev_t, ev_n, rtol=1e-5),
           f"exhaustive evidences agree across return types: {ev_t} {ev_n}")
+    bt.config.set_rouse_kernel(found)
     return totals
 
 
@@ -3492,7 +3528,8 @@ def cli_phase(bt, work):
         check(ran["plain_gamma"] == ran["plain_cfc"] == 0,
               f"cli {label}: the gamma and CFC kernels, no plain version")
         if label != "rerun":
-            check(ran["kalman_sym"] > 0, "the sym kernel launched")
+            kernel = launched_kernel(bt.config.rouse_kernel(), "cli")
+            check(ran[kernel] > 0, f"{kernel} launched")
         if label != "fit":
             check(acc >= DATASET_FRAME_ACCURACY and sw >= DATASET_SWITCH_ACCURACY,
                   f"CLI {label} accuracy {acc:.4f} / {sw:.4f}")
@@ -3942,7 +3979,8 @@ def mesh_phase(bt, work):
           f"mesh-free runs bit for bit: {bits_a}, launches {ran}", flush=True)
     check(backend == "nccl" and float(one) == 1.0, "a one-rank NCCL world")
     check(all(bits_a), "one-rank mesh runs equal the mesh-free runs")
-    check(ran["kalman_sym"] > 0, "sym kernel launched")
+    kernel = launched_kernel(bt.config.rouse_kernel(), "mesh")
+    check(ran[kernel] > 0, f"{kernel} launched")
     check(all(ran[k] == 0 for k in ran if k.startswith("plain")),
           "no plain version ran on the CUDA path")
     check(np.all(np.isfinite(got[1].evidence)) and np.array_equal(got[1].ids, ids),
@@ -4025,7 +4063,7 @@ def mesh_phase(bt, work):
           and counts[1]["checkpoint_writes"] == 0,
           "only rank 0 wrote checkpoint files")
     for c in counts:
-        check(c["kalman_sym"] > 0 and c["plain_sym"] == c["plain_dense"]
+        check(c[kernel] > 0 and c["plain_sym"] == c["plain_dense"]
               == c["plain_torch"] == 0, "every process launched the kernel")
     return {k: ran[k] + sum(c[k] for c in counts)
             for k in ("kalman_sym", "kalman_dense")}
@@ -4387,7 +4425,7 @@ def slice_phase(bt):
     third call, the busy share, the host launch calls per AMIS step (the
     graph's copies among them) and each hand kernel's launches and device
     time. Returns ``(counts summed
-    over both selectors, {selector: readings})``."""
+    over every selector, {selector: readings})``."""
     from bild_tpu_torch.parallel import graphs
 
     model, true, traj = readme_case(bt)
@@ -4400,7 +4438,8 @@ def slice_phase(bt):
                          generator=torch.Generator(device=DEVICE).manual_seed(7))
 
     totals, readings = {}, {}
-    for selector in ("sym", "dense"):
+    found = bt.config.rouse_kernel()
+    for selector in ("auto", "sym", "dense"):
         bt.config.set_rouse_kernel(selector)
         graphs.clear()
         counters.reset()
@@ -4454,11 +4493,13 @@ def slice_phase(bt):
         check(np.all(np.isfinite(res.evidence)), "finite evidences")
         check(same_sample(res, again), "a second sample() from the same seed "
               "gives the same bits")
-        check(ran[f"kalman_{selector}"] > 0, f"{selector} kernel launched")
+        kernel = launched_kernel(selector, "sample()")
+        check(ran[kernel] > 0, f"{selector}: {kernel} launched")
         # each AMIS step launches the sym kernel once at (L=1, P=N=100): its
-        # cluster plan; the samplers' exhaustive enumerations add launches
-        # of either plan
-        check(ran["kalman_sym_cluster"] >= steps if selector == "sym"
+        # cluster plan ('sym' and 'auto'); the samplers' exhaustive
+        # enumerations add launches of either plan, or of the dense kernel
+        # under 'auto' where they fill the SMs (k=1 at T=100: 198 profiles)
+        check(ran["kalman_sym_cluster"] >= steps if selector in ("sym", "auto")
               else ran["kalman_sym_cluster"] == 0,
               f"selector {selector}: {ran['kalman_sym_cluster']} cluster launches of "
               f"{ran['kalman_sym']} sym launches for {steps} AMIS steps")
@@ -4470,7 +4511,7 @@ def slice_phase(bt):
               f"sample() replays one graph: {caps} captures, {reps} replays of "
               f"{steps} steps, {caps2} captures again")
         totals = {k: totals.get(k, 0) + v for k, v in ran.items()}
-    bt.config.set_rouse_kernel("sym")
+    bt.config.set_rouse_kernel(found)
     return totals, readings
 
 
@@ -4578,7 +4619,7 @@ def main():
     # PyTorch call computes the recursion: library_ms is null. "launches"
     # sums the main-path runs: sample(), bench_e2e_torch.py's config 2,
     # the lockstep and adaptive dataset
-    # runs, config 4 under both selectors, config 5p, the CLI runs, the
+    # runs, config 4 under every selector, config 5p, the CLI runs, the
     # checkpoint phase, the examples, the mesh phase (its own process
     # and its three CLI processes), and the tiers and assoc phases (the
     # kernels beside the square-root and temporal-parallel filters, one

@@ -79,7 +79,7 @@ def test_config_keys(config):
     assert r["config"] == int(config[0]) and r["matmul"] == "exact"
     assert r["device"] == {"name": "cpu", "power_limit": None}
     rouse = config not in ("6", "7")
-    assert r["kernel"] == ("sym" if rouse else None)
+    assert r["kernel"] == ("auto" if rouse else None)
     assert r["matmul_tier"] == ("exact" if rouse else None)
     assert 0.0 <= r["frame_accuracy"] <= 1.0
     if config == "2":

@@ -568,7 +568,7 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("selector", ["sym", "dense", "ggm"])
+@pytest.mark.parametrize("selector", ["auto", "sym", "dense", "ggm"])
 def test_cuda_graphed_equals_eager(cuda, selector):
     """The lockstep and adaptive runners on the card: replays of a captured
     step (a capture that fails on any host read) against the eager loop,
@@ -588,6 +588,7 @@ def test_cuda_graphed_equals_eager(cuda, selector):
                                           dtype=torch.float32)
         batch = model.trajectories_from_loopingprofiles(
             truths(), generator=torch.Generator(device=cuda).manual_seed(3))
+    old = bt.config.rouse_kernel()
     bt.config.set_rouse_kernel("sym" if selector == "ggm" else selector)
     kw = dict(KW, scout_steps=2, refine_top=2)
     out, counts = {}, {}
@@ -610,7 +611,7 @@ def test_cuda_graphed_equals_eager(cuda, selector):
                  + kalman_dense.msrouse_logL_dense.launches), before)]
     finally:
         graphs._EAGER = False
-        bt.config.set_rouse_kernel("sym")
+        bt.config.set_rouse_kernel(old)
         graphs.clear()
     for a, b in zip(out[True], out[False]):
         assert_same(a, b)

@@ -73,18 +73,20 @@ def test_cpu_model_takes_the_plain_path(rng, selector):
     _, tm = _pair(MODELS["2 states"])
     tt = bt.Trajectory.create(rng.normal(size=(6, 3)), dtype=F64)
     calls = kalman.msrouse_logL_batch.calls
+    old = config.rouse_kernel()
     try:
         config.set_rouse_kernel(selector)
         tm.logL_batch(np.zeros((2, 6), dtype=int), tt)
     finally:
-        config.set_rouse_kernel("sym")
+        config.set_rouse_kernel(old)
     assert kalman.msrouse_logL_batch.calls == calls + 1
 
 
 def test_set_rouse_kernel_rejects_unknown():
+    old = config.rouse_kernel()
     with pytest.raises(ValueError):
         config.set_rouse_kernel("xla")
-    assert config.rouse_kernel() == "sym"
+    assert config.rouse_kernel() == old
 
 
 def test_noise_resolution():
