@@ -34,9 +34,8 @@ class Entry:
     def _data(self, tag, count):
         c, t = self.ctx, self.traffic
         truths = generate.truths(generate.substream(c.seed, tag, "truths"), count,
-                                 t["T"], c.n_states, t["max_switches"], c.device)
-        data = generate.trajectories(generate.substream(c.seed, tag, "data"), truths,
-                                     c.arrays, c.localization_error, c.device)
+                                 t["T"], c.kind.n_states, t["max_switches"], c.device)
+        data = c.kind.trajectories(generate.substream(c.seed, tag, "data"), truths)
         return truths.cpu().numpy(), data
 
     def setup(self):
@@ -47,16 +46,11 @@ class Entry:
                 self._sample(warm[i], generate.substream(self.ctx.seed, "warmup", i))
         self.ctx.sync()
 
-    def _trajectory(self, data):
-        c = self.ctx
-        return self.bt.Trajectory(
-            data=data, valid=torch.ones(data.shape[0], dtype=torch.bool, device=c.device),
-            localization_error=np.full(c.d, c.localization_error))
-
     def _sample(self, data, seed):
+        kind = self.ctx.kind
         g = torch.Generator(device=self.ctx.device)
         g.manual_seed(seed)
-        return self.bt.sample(self._trajectory(data), self.ctx.model, generator=g, **self.kw)
+        return self.bt.sample(kind.trajectory(data), kind.model, generator=g, **self.kw)
 
     def call(self, i):
         """One call: ``{"trajectories", "profiles", "amis_steps", "T"}``."""
@@ -116,5 +110,5 @@ class Entry:
         return out
 
     def judge(self, check):
-        return check.judge_sample(self.ctx.ref_ops, self.answers(), self.ctx.n_states,
-                                  float(self.kw.get("dE", 0.0)))
+        return check.judge_sample(self.ctx.kind.reference, self.answers(),
+                                  self.ctx.kind.n_states, float(self.kw.get("dE", 0.0)))

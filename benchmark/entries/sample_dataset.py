@@ -6,8 +6,11 @@ to back (a closed loop).
 Traffic keys: ``T``, ``max_switches``, ``per_call`` (trajectories in a
 call's dataset, at most the configuration's ``chunk_size``), ``max_calls``
 (datasets made for the window; a window that uses them all fails),
-``call`` (keyword arguments of `sample_dataset`, ``schedule`` among them)
-and ``check.rows`` (rows kept in each call, drawn from the seed, and rows
+``block_calls`` (datasets drawn at a time, all of them by default: the
+first block draws from the window's own substreams, block j from
+substreams tagged j, so raising ``max_calls`` keeps the first block's
+datasets bit for bit), ``call`` (keyword arguments of `sample_dataset`,
+``schedule`` among them) and ``check.rows`` (rows kept in each call, drawn from the seed, and rows
 judged, drawn from the seed among all kept). One warm-up call runs on a
 dataset of its own of the same size: the captured step graphs are keyed
 by the lane count.
@@ -51,31 +54,34 @@ class Entry:
         self.results, self.kept = [], []
 
     def _datasets(self, tag, calls):
+        """``(truths (calls, per_call, T), [the Trajectory list of each
+        call])``, drawn ``block_calls`` datasets at a time."""
         c, t = self.ctx, self.traffic
-        B = t["per_call"] * calls
-        truths = generate.truths(generate.substream(c.seed, tag, "truths"), B, t["T"],
-                                 c.n_states, t["max_switches"], c.device)
-        data = generate.trajectories(generate.substream(c.seed, tag, "data"), truths,
-                                     c.arrays, c.localization_error, c.device)
-        valid = torch.ones(t["T"], dtype=torch.bool, device=c.device)
-        err = np.full(c.d, c.localization_error)
-        trajs = [self.bt.Trajectory(data=data[i], valid=valid, localization_error=err)
-                 for i in range(B)]
-        per = t["per_call"]
-        return (truths.cpu().numpy().reshape(calls, per, -1), data,
-                [trajs[j * per:(j + 1) * per] for j in range(calls)])
+        per, block = t["per_call"], int(t.get("block_calls", calls))
+        truths, sets = [], []
+        for j, first in enumerate(range(0, calls, block)):
+            n = min(block, calls - first)
+            tags = (tag,) if j == 0 else (tag, j)
+            drawn = generate.truths(generate.substream(c.seed, *tags, "truths"), n * per,
+                                    t["T"], c.kind.n_states, t["max_switches"], c.device)
+            data = c.kind.trajectories(generate.substream(c.seed, *tags, "data"), drawn)
+            trajs = [c.kind.trajectory(row) for row in data.unbind(0)]
+            truths.append(drawn.cpu().numpy().reshape(n, per, -1))
+            sets.extend(trajs[i * per:(i + 1) * per] for i in range(n))
+        return np.concatenate(truths), sets
 
     def setup(self):
-        self.truths, self.data, self.sets = self._datasets("window", self.traffic["max_calls"])
+        self.truths, self.sets = self._datasets("window", self.traffic["max_calls"])
         if self.ctx.warm:
-            _, _, warm = self._datasets("warmup", 1)
+            _, warm = self._datasets("warmup", 1)
             self._run(warm[0], generate.substream(self.ctx.seed, "warmup"))
         self.ctx.sync()
 
     def _run(self, trajs, seed):
         g = torch.Generator()
         g.manual_seed(seed)
-        return self.bt.parallel.sample_dataset(self.ctx.model, trajs, generator=g, **self.kw)
+        return self.bt.parallel.sample_dataset(self.ctx.kind.model, trajs, generator=g,
+                                               **self.kw)
 
     @contextlib.contextmanager
     def _kept_lanes(self, rows):
@@ -155,7 +161,7 @@ class Entry:
         for j in np.sort(picks):
             i, r, samples = self.kept[j]
             res = self.results[i]
-            out.append({"data": self.data[i * self.per_call + r].double().cpu().numpy(),
+            out.append({"data": self.sets[i][r].data.double().cpu().numpy(),
                         "evidence": res.evidence[r],
                         "best_k": int(res.best_k()[r]),
                         "profiles_by_k": res.profiles_by_k[r],
@@ -167,5 +173,5 @@ class Entry:
         return out
 
     def judge(self, check):
-        return check.judge_dataset(self.ctx.ref_ops, self.answers(), self.ctx.n_states,
-                                   float(self.kw.get("dE", 0.0)))
+        return check.judge_dataset(self.ctx.kind.reference, self.answers(),
+                                   self.ctx.kind.n_states, float(self.kw.get("dE", 0.0)))

@@ -7,7 +7,8 @@ exchange between chips to leave out.
 
 - ``unchanged_state``: every AMIS step returns its state unchanged.
 - ``half_the_batch``: the likelihood scores the first half of each lane's
-  profiles; the rest get the mean of those.
+  profiles; the rest get the mean of those. The likelihood closures of
+  every model class are wrapped, so the fault reaches any model kind.
 - ``altered_answer``: in `sample()` the first profile of every step gains
   a nat of likelihood; in a dataset every climbed profile has its first
   boundary moved a frame, and the states of every lane's marginals are
@@ -61,7 +62,7 @@ def plant(name):
     """Inside the block the program runs with fault ``name``."""
     from bild_tpu_torch import postproc
     from bild_tpu_torch.infer import adaptive
-    from bild_tpu_torch.models.msrouse import MultiStateRouse
+    from bild_tpu_torch.models.base import MultiStateModel
     from bild_tpu_torch.parallel import batch
 
     saved = []
@@ -70,16 +71,28 @@ def plant(name):
         saved.append((owner, attr, getattr(owner, attr)))
         setattr(owner, attr, value)
 
-    def wrap_likelihoods(change, names):
-        for attr in names:
-            original, made = getattr(MultiStateRouse, attr), {}
+    def model_classes():
+        found, todo = [], [MultiStateModel]
+        while todo:
+            cls = todo.pop()
+            if cls not in found:
+                found.append(cls)
+                todo.extend(cls.__subclasses__())
+        return found
 
-            def hooked(self, *args, _original=original, _made=made, **kw):
-                data, fn = _original(self, *args, **kw)
-                if fn not in _made:      # one wrapper per closure: the graphs' key
-                    _made[fn] = lambda profiles, per, _fn=fn: change(_fn, profiles, per)
-                return data, _made[fn]
-            patch(MultiStateRouse, attr, hooked)
+    def wrap_likelihoods(change, names):
+        for owner in model_classes():
+            for attr in names:
+                if attr not in vars(owner):
+                    continue
+                original, made = vars(owner)[attr], {}
+
+                def hooked(self, *args, _original=original, _made=made, **kw):
+                    data, fn = _original(self, *args, **kw)
+                    if fn not in _made:      # one wrapper per closure: the graphs' key
+                        _made[fn] = lambda profiles, per, _fn=fn: change(_fn, profiles, per)
+                    return data, _made[fn]
+                patch(owner, attr, hooked)
 
     if name == "unchanged_state":
         patch(batch, "lane_step", lambda *args, **kw: None)

@@ -5,20 +5,22 @@ The benchmark's harness: one run of one cell of ``BENCHMARK.json``.
 
 A run reads the cell's configuration (``configs/<name>.json``, through
 ``BENCHMARK.json``'s ``file``) and traffic (``traffic/<name>.json``), builds
-the program's model, hands set-up and the calls to the traffic's entry
-(``entries/<entry>.py``), warms up, and calls back to back until
-``--seconds`` have passed. ``--trace 0`` reports the cell's end-to-end
+the configuration's model kind (``models/<model>.py``: the program's model,
+the traffic law, the float64 reference), hands set-up and the calls to the
+traffic's entry (``entries/<entry>.py``), warms up, and calls back to back
+until ``--seconds`` have passed. ``--trace 0`` reports the cell's end-to-end
 metrics; ``--trace 1`` traces the middle half of the window and reports
 the cell's per-layer metrics, each read by ``metrics/<name>.py`` from the
-traced calls' records. After the window the reference
-(``reference/``) judges the kept answers against the traffic's
-``check.limits``. The last line of standard output is one JSON object:
+traced calls' records. After the window the model kind's reference
+(``reference/check.py`` on its ``logL``) judges the kept answers against
+the traffic's ``check.limits``. The last line of standard output is one JSON object:
 ``correct``, ``attempted``, ``failed``, ``metrics``, ``device``, with
 ``--trace 1`` ``breakdown``, and last ``checks``, each compared number
 beside its limit (also the last lines of standard error).
 
-No file here needs an edit for a new cell: a configuration, a traffic
-mix, an entry, a metric and a kernel-name list are files found by name.
+No file here needs an edit for a new cell: a configuration, a model
+kind, a traffic mix, an entry, a metric and a kernel-name list are files
+found by name.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ import numpy as np
 import torch
 
 from benchmark import guard, trace
-from benchmark.reference import check, kalman, rouse
+from benchmark.reference import check
 from benchmark.traffic import generate
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -62,29 +64,26 @@ def applies(metric, workload):
     return "workloads" not in metric or workload in metric["workloads"]
 
 
-class Context:
-    """What an entry gets: the program (``bt``), its model, the traffic,
-    the seed, the device, the configuration's sizes, the reference's
-    operators ``arrays`` (numpy) and ``ref_ops`` (`kalman.Operators`), and
-    whether set-up warms up (``warm``)."""
+def model_kind(root, cfg):
+    """The class ``Kind`` of ``benchmark/models/<model>.py``, the model kind
+    that configuration ``cfg`` names; a ``SystemExit`` that names the file
+    where there is none."""
+    path = Path(root) / "benchmark" / "models" / f"{cfg['model']}.py"
+    if not path.is_file():
+        raise SystemExit(f"no model kind for the configuration {cfg['name']!r}: "
+                         f"benchmark/models/{cfg['model']}.py does not exist")
+    return load_module(path).Kind
 
-    def __init__(self, bt, cfg, traffic, seed, device, warm=True):
+
+class Context:
+    """What an entry gets: the program (``bt``), the configuration, the
+    traffic, the seed, the device, whether set-up warms up (``warm``), and
+    the configuration's model kind (``kind``, ``models/<model>.py``): the
+    program's model, its sizes, the traffic law and the reference."""
+
+    def __init__(self, bt, cfg, traffic, seed, device, kind, warm=True):
         self.bt, self.cfg, self.traffic, self.seed = bt, cfg, traffic, int(seed)
-        self.device, self.warm = device, warm
-        self.d = int(cfg["d"])
-        self.localization_error = float(cfg["localization_error"])
-        loops = tuple(None if x is None else tuple(x) for x in cfg["looppositions"])
-        self.n_states = len(loops)
-        dtype = getattr(torch, cfg["dtype"])
-        self.model = bt.models.MultiStateRouse(
-            cfg["N"], cfg["D"], cfg["k"], d=self.d, looppositions=loops,
-            localization_error=self.localization_error, dt=cfg["dt"],
-            device=device, dtype=dtype)
-        self.arrays = rouse.operators(cfg["N"], cfg["D"], cfg["k"], self.d, cfg["dt"], loops)
-        self.ref_ops = kalman.Operators(self.arrays, np.full(self.d, self.localization_error),
-                                        device)
-        self.sizes = {"n": self.n_states, "N": int(cfg["N"]), "d": self.d,
-                      "q": int(self.ref_ops.s2.shape[0])}
+        self.device, self.kind, self.warm = device, kind, warm
 
     def sync(self):
         if self.device.type == "cuda":
@@ -181,11 +180,12 @@ def traced_record(entry_name, records, spent, win, sizes):
 def run(workload, seed, seconds, trace_on, root=ROOT, device="cuda", pre_s=0.0,
         t_start=None, matmul=None, readings=False, warm=True):
     """One run: ``(exit code, result dict or None)``; prints the checks to
-    standard error. ``matmul`` in place of the configuration's tier (the
-    control runs); ``device`` other than CUDA only for the CPU tests;
-    ``readings`` adds every number the reference computed (``readings``)
-    and the reference's seconds (``judge_s``); ``warm=False`` skips the
-    warm-up (a later run in a process that ran the cell)."""
+    standard error. ``matmul``: the program's precision tier in place of
+    the configuration's (the control runs; the model kind applies it);
+    ``device`` other than CUDA only for the CPU tests; ``readings`` adds
+    every number the reference computed (``readings``) and the
+    reference's seconds (``judge_s``); ``warm=False`` skips the warm-up (a
+    later run in a process that ran the cell)."""
     t_start = time.perf_counter() if t_start is None else t_start
     root = Path(root)
     spec = json.loads((root / "BENCHMARK.json").read_text())
@@ -194,6 +194,7 @@ def run(workload, seed, seconds, trace_on, root=ROOT, device="cuda", pre_s=0.0,
     cfg = json.loads((root / cfg_entry["file"]).read_text())
     bench = root / "benchmark"
     traffic = json.loads((bench / "traffic" / f"{cell['traffic']}.json").read_text())
+    Kind = model_kind(root, cfg)
     device = torch.device(device)
     if device.type == "cuda" and (not torch.cuda.is_available()
                                   or torch.cuda.device_count() < cell["chips"]):
@@ -207,8 +208,8 @@ def run(workload, seed, seconds, trace_on, root=ROOT, device="cuda", pre_s=0.0,
     import bild_tpu_torch as bt
     from bild_tpu_torch.amis.sampler import FixedkSampler
     bt.config.exact_fp32()
-    bt.config.set_rouse_matmul(matmul or cfg["matmul"])
-    ctx = Context(bt, cfg, traffic, seed, device, warm)
+    kind = Kind(bt, cfg, device, matmul)
+    ctx = Context(bt, cfg, traffic, seed, device, kind, warm)
     entry = load_module(bench / "entries" / f"{traffic['entry']}.py").Entry(ctx)
     entry.setup()
     if trace_on and device.type == "cuda":
@@ -227,7 +228,7 @@ def run(workload, seed, seconds, trace_on, root=ROOT, device="cuda", pre_s=0.0,
                 metrics[m["name"]] = {"value": end_to_end(m["name"], window, e2e, setup_s),
                                       "unit": m["unit"]}
     else:
-        rec = traced_record(traffic["entry"], records, spent, win, ctx.sizes)
+        rec = traced_record(traffic["entry"], records, spent, win, kind.sizes)
         if rec is not None:
             out_device = {"busy_s": rec["busy_s"], "window_s": rec["window_s"]}
             breakdown = {"device_ops": rec["device_ops"], "idle_gaps": rec["idle_gaps"]}

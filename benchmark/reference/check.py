@@ -1,8 +1,10 @@
 """
 The comparisons that decide a run's ``correct``: the program's answers,
-as plain arrays, judged against the float64 reference (`kalman.logL` on
-`rouse.operators`). Nothing here imports the program; the entries
-(``benchmark/entries/``) read its results into the dicts below.
+as plain arrays, judged against the float64 reference, the ``logL`` of the
+configuration's model kind (``benchmark/models/<model>.py``; for
+``MultiStateRouse`` `kalman.logL` on `rouse.operators`). Nothing here
+imports the program; the entries (``benchmark/entries/``) read its results
+into the dicts below.
 
 Numbers, each the worst over what was checked (limits: the traffic file's
 ``check.limits``):
@@ -31,7 +33,7 @@ import math
 
 import numpy as np
 
-from . import kalman, rouse
+from . import rouse
 
 __all__ = ["st2profile_f32", "enumerate_profiles", "judge_sample", "dataset_profiles",
            "judge_dataset", "verdict"]
@@ -146,8 +148,9 @@ def _choice_gap(ev_ref, kp, dE):
                max((ev_ref[k] - floor for k in ev_ref if k < kp), default=0.0), 0.0)
 
 
-def judge_sample(ops, calls, n, dE):
-    """``{"logL_rel", "answer_nats"}`` over ``calls``: each a dict with
+def judge_sample(reference, calls, n, dE):
+    """``{"logL_rel", "answer_nats"}`` over ``calls``, against
+    ``reference.logL(profiles, data)``: each call a dict with
     ``data (T, d)``, ``best_k``, ``best_profile (T,)`` and ``samplers``, a
     list of dicts with ``k``, ``evidence`` and either ``exhaustive``
     (``profiles``, ``logLs``) or the AMIS state ``ss, thetas (S, N, K1)``,
@@ -163,9 +166,9 @@ def judge_sample(ops, calls, n, dE):
                 ev_ref[k] = -np.inf
                 continue
             if s["exhaustive"]:
-                ref = kalman.logL(ops, s["profiles"], data)
+                ref = reference.logL(s["profiles"], data)
                 worst_rel = max(worst_rel, _rel(s["logLs"], ref))
-                every = kalman.logL(ops, enumerate_profiles(n, k, T), data)
+                every = reference.logL(enumerate_profiles(n, k, T), data)
                 ev_ref[k] = _logmeanexp(every)
                 best_scored[k] = float(np.max(every))
             else:
@@ -174,13 +177,13 @@ def judge_sample(ops, calls, n, dE):
                     worst_nats = max(worst_nats, _gap(s["evidence"], -np.inf))
                     continue
                 profiles, defined = _sample_profiles(s, T, k)
-                ref = kalman.logL(ops, profiles, data)
+                ref = reference.logL(profiles, data)
                 worst_rel = max(worst_rel, _scored_rel(s, ref, defined))
                 ev_ref[k] = _evidence(ref, s, n, k)
                 best_scored[k] = float(np.max(ref[defined], initial=-np.inf))
             worst_nats = max(worst_nats, _gap(s["evidence"], ev_ref[k]))
         kp = call["best_k"]
-        got = float(kalman.logL(ops, np.asarray(call["best_profile"])[None], data)[0])
+        got = float(reference.logL(np.asarray(call["best_profile"])[None], data)[0])
         worst_nats = max(worst_nats, _choice_gap(ev_ref, kp, dE), best_scored[kp] - got)
     return {"logL_rel": worst_rel, "answer_nats": worst_nats}
 
@@ -229,9 +232,10 @@ def dataset_profiles(row, n):
     return every, (len(legal), len(elim), len(maps))
 
 
-def judge_dataset(ops, rows, n, dE):
+def judge_dataset(reference, rows, n, dE):
     """``{"logL_rel", "answer_nats", "marginal_gap", "climb_nats",
-    "evidence_nats"}`` over dataset ``rows``: each a dict with ``data (T,
+    "evidence_nats"}`` over dataset ``rows``, against
+    ``reference.logL(profiles, data, rows=)``: each row a dict with ``data (T,
     d)``, ``evidence (K1,)``, ``best_k``, ``profiles_by_k (K1, T)``,
     ``optimized (T,)``, ``eliminated``, ``marginals (K1, n, T)`` (log) and
     ``samples``, ``{k: {ss, thetas (S, N, K1), logLs, logdeltas (S, N)}}``:
@@ -254,7 +258,7 @@ def judge_dataset(ops, rows, n, dE):
         uniq.append(u)
         which.append(np.full(len(u), i))
     data = np.stack([r["data"] for r in rows])
-    ll_all = kalman.logL(ops, np.concatenate(uniq), data, rows=np.concatenate(which))
+    ll_all = reference.logL(np.concatenate(uniq), data, rows=np.concatenate(which))
     lo = 0
     for r, u, (extra, (n_legal, n_elim, n_k), per_k, inv) in zip(rows, uniq, plans):
         ref = ll_all[lo:lo + len(u)][inv]

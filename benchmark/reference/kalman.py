@@ -27,7 +27,7 @@ BLOCK = 32768
 
 class Operators:
     """A model's float64 operators (`rouse.operators`) and noise on one
-    device."""
+    device: a model kind's ``reference`` (`logL`)."""
 
     def __init__(self, arrays, localization_error, device):
         self.device = torch.device(device)
@@ -39,6 +39,10 @@ class Operators:
         unique, cind = np.unique(err, return_inverse=True)
         self.s2 = torch.as_tensor(unique ** 2, dtype=torch.float64, device=self.device)
         self.cind = torch.as_tensor(cind.reshape(-1), dtype=torch.long, device=self.device)
+
+    def logL(self, profiles, data, rows=None):
+        """`logL` on these operators, every frame observed."""
+        return logL(self, profiles, data, rows=rows)
 
 
 def _block(ops, profiles, data, valid):

@@ -2,6 +2,7 @@
 operators, the same likelihoods, the same profiles from the same AMIS
 parameters, the same prior. The reference itself imports nothing of the
 program; only this test does."""
+import json
 import math
 
 import numpy as np
@@ -10,14 +11,21 @@ import torch
 import bild_tpu_torch as bt
 from bild_tpu_torch.amis.cfc import CFC
 from bild_tpu_torch.profiles import st2profile
+from benchmark import harness
 from benchmark.reference import check, kalman, rouse
+from conftest import ROOT
 
 LOOPS = {2: (None, (0, -1)), 3: (None, (0, -1), (0, 10))}
+CONFIGS = {2: "rouse2-readme", 3: "rouse3-config4"}
 
 
-def model(n, dtype=torch.float64):
-    return bt.models.MultiStateRouse(20, 1.0, 5.0, d=3, looppositions=LOOPS[n],
-                                     localization_error=0.1, device="cpu", dtype=dtype)
+def model(n):
+    """The program's model of the ``n``-state configuration, in float64,
+    as its model kind builds it."""
+    cfg = json.loads((ROOT / "benchmark" / "configs" / f"{CONFIGS[n]}.json").read_text())
+    cfg["dtype"] = "float64"
+    kind = harness.model_kind(ROOT, cfg)(bt, cfg, "cpu")
+    return kind.model
 
 
 def test_operators_are_the_programs():

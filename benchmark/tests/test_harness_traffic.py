@@ -1,10 +1,17 @@
 """The traffic generator: the same seed gives the same traffic, another
-seed other traffic, and the truths are what the traffic file asks for."""
+seed other traffic, the truths are what the traffic file asks for, and a
+dataset window's draw in blocks keeps its first block."""
+import json
+
 import numpy as np
 import torch
 
+import bild_tpu_torch as bt
+from benchmark import harness
+from benchmark.entries.sample_dataset import Entry
 from benchmark.reference import rouse
 from benchmark.traffic import generate
+from conftest import ROOT, shrink
 
 LOOPS = {2: (None, (0, -1)), 3: (None, (0, -1), (0, 10))}
 ARRAYS = rouse.operators(20, 1.0, 5.0, 3, 1.0, LOOPS[2])
@@ -57,3 +64,32 @@ def test_trajectories_follow_the_model_variance():
         want = ARRAYS["w"] @ ARRAYS["C0s"][s] @ ARRAYS["w"] + 0.01
         got = float(data.var())
         assert abs(got / want - 1) < 0.05
+
+
+def test_raising_max_calls_keeps_the_first_block():
+    """A dataset traffic whose max_calls is raised past block_calls draws
+    its first block_calls datasets from the window's own substreams, bit
+    for bit as one draw of that size; the later blocks draw other
+    datasets of the same sizes."""
+    traffic = shrink(json.loads((ROOT / "benchmark" / "traffic" / "lockstep-T100-1024.json")
+                                .read_text()))
+    block, per, T = traffic["block_calls"], traffic["per_call"], traffic["T"]
+    traffic["max_calls"] = 3 * block + 2
+    cfg = json.loads((ROOT / "benchmark" / "configs" / "rouse2-readme.json").read_text())
+    device = torch.device("cpu")
+    kind = harness.model_kind(ROOT, cfg)(bt, cfg, device)
+    entry = Entry(harness.Context(bt, cfg, traffic, BIG_SEED, device, kind, warm=False))
+    entry.setup()
+    truths, sets = entry.truths, entry.sets
+    assert truths.shape == (3 * block + 2, per, T) and len(sets) == 3 * block + 2
+    assert all(len(s) == per for s in sets)
+
+    once = generate.truths(generate.substream(BIG_SEED, "window", "truths"), block * per, T,
+                           2, traffic["max_switches"], "cpu")
+    data = kind.trajectories(generate.substream(BIG_SEED, "window", "data"), once)
+    assert np.array_equal(truths[:block].reshape(block * per, T), once.numpy())
+    first = torch.stack([t.data for s in sets[:block] for t in s])
+    assert torch.equal(first, data)
+    later = torch.stack([t.data for s in sets[block:2 * block] for t in s])
+    assert not torch.equal(later, first)
+    assert not np.array_equal(truths[block:2 * block], truths[:block])

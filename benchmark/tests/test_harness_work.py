@@ -63,3 +63,42 @@ def test_the_tail_has_ten_samples_beyond_it():
     ten lie beyond the 95th percentile."""
     walls = np.random.default_rng(3).lognormal(size=200)
     assert np.sum(walls > np.percentile(walls, 95)) >= 10
+
+
+class _Event:
+    def __init__(self, device, name, start, duration):
+        self._device, self._name, self._start, self._duration = device, name, start, duration
+
+    def device_type(self):
+        return self._device
+
+    def name(self):
+        return self._name
+
+    def start_ns(self):
+        return self._start
+
+    def duration_ns(self):
+        return self._duration
+
+
+def test_a_window_reads_its_events():
+    """Device time by kernel, busy time, launch calls and idle gaps, from
+    the profiler's events."""
+    from types import SimpleNamespace
+
+    import torch
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    events = [_Event(cpu, "cudaLaunchKernel", 0, 5), _Event(cuda, "k1", 10, 40),
+              _Event(cuda, "k2", 30, 30), _Event(cpu, "cudaGraphLaunch", 60, 5),
+              _Event(cpu, "cudaStreamSynchronize", 70, 100), _Event(cuda, "k1", 200, 50)]
+    win = trace.DeviceWindow()
+    win._prof = SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=SimpleNamespace(events=lambda: events)))
+    win._t0, win._t1 = 1.0, 3.5
+    rec = win.read()
+    assert rec["kernels"] == {"k1": [2, 90e-9], "k2": [1, 30e-9]}
+    assert rec["device_ops"] == [["k1", 90e-9], ["k2", 30e-9]]
+    assert rec["busy_s"] == 100e-9 and rec["window_s"] == 2.5 and rec["launch_calls"] == 2
+    assert rec["idle_gaps"] == [["host in cudaStreamSynchronize", 140e-9]]

@@ -110,17 +110,17 @@ class DeviceWindow:
         device, host = [], []
         kernels, by_name = {}, {}
         calls = 0
+        cuda = torch.autograd.DeviceType.CUDA
         for e in self._prof.profiler.kineto_results.events():
-            if e.device_type() == torch.autograd.DeviceType.CUDA:
-                a = e.start_ns()
-                b = a + e.duration_ns()
-                device.append((a, b))
-                n, s = by_name.get(e.name(), (0, 0.0))
-                by_name[e.name()] = (n + 1, s + e.duration_ns() / 1e9)
+            # each accessor is a call into the profiler's result: one apiece
+            a, d, name = e.start_ns(), e.duration_ns(), e.name()
+            if e.device_type() == cuda:
+                device.append((a, a + d))
+                n, s = by_name.get(name, (0, 0.0))
+                by_name[name] = (n + 1, s + d / 1e9)
             else:
-                a = e.start_ns()
-                host.append((a, a + e.duration_ns(), e.name()))
-                if any(k in e.name() for k in LAUNCH_CALLS):
+                host.append((a, a + d, name))
+                if any(k in name for k in LAUNCH_CALLS):
                     calls += 1
         for name, (n, s) in by_name.items():
             kernels[name] = [n, s]
